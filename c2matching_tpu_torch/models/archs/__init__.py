@@ -1,0 +1,18 @@
+"""Network architectures of the port (NHWC modules with the reference's
+torch state-dict names)."""
+from .corres_generation_arch import CorrespondenceGenerationArch
+from .ref_restoration_arch import (ContentExtractor, DynAgg,
+                                   DynamicAggregationRestoration,
+                                   RestorationNet)
+from .vgg_arch import (ContrasExtractorLayer, ContrasExtractorSep,
+                       VGGFeatureExtractor)
+
+ARCHS = {cls.__name__: cls for cls in (
+    ContrasExtractorSep, CorrespondenceGenerationArch, RestorationNet,
+    VGGFeatureExtractor)}
+
+__all__ = [
+    'ARCHS', 'ContentExtractor', 'ContrasExtractorLayer',
+    'ContrasExtractorSep', 'CorrespondenceGenerationArch', 'DynAgg',
+    'DynamicAggregationRestoration', 'RestorationNet', 'VGGFeatureExtractor',
+]

@@ -1,0 +1,58 @@
+"""Correspondence generation: dense matching -> multi-scale pre-offsets.
+
+Counterpart of ``c2matching_tpu/models/archs/corres_generation_arch.py``.
+The matching part has no parameters; the module carries the frozen VGG19
+(``vgg.*``) that extracts the HR reference features for the restoration
+net.
+"""
+from torch import nn
+
+from ...ops.flow import batched_pre_offsets
+from ...ops.patch_match import batched_patch_match
+from .vgg_arch import VGGFeatureExtractor
+
+
+class CorrespondenceGenerationArch(nn.Module):
+    """Match contrastive features; emit 9-candidate offsets and the VGG19
+    features of the HR reference.
+
+    ``match_dtype``: dtype of the correlation operands only (the serving
+    knob); None keeps f32.
+    """
+
+    def __init__(self, patch_size=3, stride=1,
+                 vgg_layer_list=('relu3_1', 'relu2_1', 'relu1_1'),
+                 vgg_type='vgg19', match_dtype=None, generator=None):
+        super().__init__()
+        if stride != 1:
+            raise NotImplementedError(f'matching stride {stride}')
+        self.patch_size = patch_size
+        self.match_dtype = match_dtype
+        self.vgg = VGGFeatureExtractor(layer_name_list=list(vgg_layer_list),
+                                       vgg_type=vgg_type, generator=generator)
+
+    def forward(self, dense_features, img_ref_hr, valid_shape=None):
+        """
+        Args:
+            dense_features: {'dense_features1': (B, H, W, C) input-branch
+                features, 'dense_features2': (B, H, W, C) ref-branch ones}.
+            img_ref_hr: (B, 4H, 4W, 3) HR reference image in [0, 1].
+            valid_shape: None, or (vh, vw) valid HR sizes of a bucket-padded
+                batch: the matcher gets the LR-scale (vh // 4, vw // 4), the
+                reference VGG the sizes as they are.
+        Returns:
+            (pre_offset, img_ref_feat): pre_offset maps relu{3,2,1}_1 to
+            (B, 9, H_s, W_s, 2) offsets, last dim (x, y); img_ref_feat maps
+            the VGG layers to (B, H_s, W_s, C_s).
+        """
+        lr_valid = None
+        if valid_shape is not None:
+            lr_valid = (valid_shape[0] // 4, valid_shape[1] // 4)
+        max_idx, _ = batched_patch_match(
+            dense_features['dense_features1'],
+            dense_features['dense_features2'], patch_size=self.patch_size,
+            compute_dtype=self.match_dtype, valid_shape=lr_valid)
+        pre_offset = batched_pre_offsets(max_idx, patch_size=self.patch_size,
+                                         valid_shape=lr_valid)
+        img_ref_feat = self.vgg(img_ref_hr, valid_shape=valid_shape)
+        return pre_offset, img_ref_feat

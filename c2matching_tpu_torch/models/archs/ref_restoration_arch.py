@@ -1,0 +1,191 @@
+"""Restoration network with correspondence-seeded dynamic aggregation.
+
+Counterpart of ``c2matching_tpu/models/archs/ref_restoration_arch.py``,
+built on the port's modulated deformable conv (kernel B3). Parameter names
+are the reference's torch state-dict keys (``content_extractor.*``,
+``dyn_agg_restore.*``), so a reference ``.pth`` loads with strict=True.
+
+Init: normal(0, 0.02) for every conv, zero ``conv_offset_mask``, and the
+DCN main weight uniform(-1/sqrt(C*9), 1/sqrt(C*9)) with zero bias, all
+drawn from an explicit ``torch.Generator``.
+"""
+import math
+
+import torch
+from torch import nn
+
+from ...ops.deform_conv import modulated_deform_conv
+from ...ops.patch_match import as_dtype
+from ...ops.resize import pixel_shuffle, upscale
+from .arch_util import ResBlockStack, conv, lrelu, scale_valid, valid_mask
+
+
+class DynAgg(nn.Module):
+    """Modulated deformable conv whose offsets are a learned residual (from
+    a separate feature) plus the precomputed match offsets (the reference's
+    DCN_sep_pre_multi_offset).
+
+    ``gather_dtype``: dtype of the deformable sampling and the weight
+    contraction only; sampling coordinates stay f32. None keeps
+    ref_feat's dtype.
+    """
+
+    def __init__(self, channels, deformable_groups=8, gather_dtype=None,
+                 generator=None):
+        super().__init__()
+        self.groups = deformable_groups
+        self.k = 9
+        self.gather_dtype = as_dtype(gather_dtype)
+        self.conv_offset_mask = conv(channels, 3 * deformable_groups * 9,
+                                     generator, std=0)
+        stdv = 1.0 / math.sqrt(channels * 9)
+        self.weight = nn.Parameter(
+            torch.empty(channels, channels, 3, 3).uniform_(
+                -stdv, stdv, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        # mean |learned offset| of the last forward, a 0-d tensor: the
+        # reference warns when it exceeds 100 (read by the eval model)
+        self.offset_absmean = None
+
+    def forward(self, ref_feat, offset_feat, pre_offset):
+        """
+        Args:
+            ref_feat:    (B, H, W, C) feature to sample (ref VGG features).
+            offset_feat: (B, H, W, C') feature the offsets are predicted from.
+            pre_offset:  (B, 9, H, W, 2) match offsets, last dim (x, y).
+        Returns:
+            (B, H, W, C) aggregated feature in ref_feat's dtype.
+        """
+        g, k = self.groups, self.k
+        b, h, w, _ = offset_feat.shape
+        out = self.conv_offset_mask(offset_feat)
+        # o1 ++ o2 read as (G, K, 2): (dy, dx) interleaved per tap
+        offset = out[..., :2 * g * k].float().reshape(b, h, w, g, k, 2)
+        self.offset_absmean = offset.abs().mean()
+        mask = torch.sigmoid(out[..., 2 * g * k:].float()).reshape(
+            b, h, w, g, k)
+        # (B, 9, H, W, 2[x, y]) -> (B, H, W, 1, 9, 2[y, x]), broadcast over
+        # the groups
+        pre = pre_offset.permute(0, 2, 3, 1, 4).flip(-1)
+        offset = offset + pre[:, :, :, None].float()
+        # torch (Co, Ci, kh, kw) -> (K, Ci, Co)
+        weight = self.weight.permute(2, 3, 1, 0).reshape(
+            k, self.weight.shape[1], self.weight.shape[0])
+        ref_in = ref_feat
+        if self.gather_dtype is not None:
+            ref_in = ref_feat.to(self.gather_dtype)
+        out = modulated_deform_conv(ref_in, offset, mask, weight, self.bias)
+        return out.to(ref_feat.dtype)
+
+
+class ContentExtractor(nn.Module):
+    """conv + n residual blocks on the LR input."""
+
+    def __init__(self, nf=64, n_blocks=16, generator=None):
+        super().__init__()
+        self.conv_first = conv(3, nf, generator)
+        self.body = ResBlockStack(nf, n_blocks, generator)
+
+    def forward(self, x, mask=None):
+        feat = lrelu(self.conv_first(x))
+        if mask is not None:
+            feat = feat * mask
+        return self.body(feat, mask)
+
+
+_SCALES = (('small', 'relu3_1', 256), ('medium', 'relu2_1', 128),
+           ('large', 'relu1_1', 64))
+
+
+class DynamicAggregationRestoration(nn.Module):
+    """3-scale coarse-to-fine decoder with a DynAgg at each scale."""
+
+    def __init__(self, ngf=64, n_blocks=16, groups=8, gather_dtype=None,
+                 generator=None):
+        super().__init__()
+        gen = generator
+        for scale, _, ref_ch in _SCALES:
+            setattr(self, f'{scale}_offset_conv1', conv(ngf + ref_ch, ref_ch,
+                                                        gen))
+            setattr(self, f'{scale}_offset_conv2', conv(ref_ch, ref_ch, gen))
+            setattr(self, f'{scale}_dyn_agg',
+                    DynAgg(ref_ch, groups, gather_dtype, gen))
+            setattr(self, f'head_{scale}', nn.Sequential(
+                conv(ngf + ref_ch, ngf, gen), nn.LeakyReLU(0.1)))
+            setattr(self, f'body_{scale}', ResBlockStack(ngf, n_blocks, gen))
+        self.tail_small = nn.Sequential(conv(ngf, ngf * 4, gen),
+                                        nn.PixelShuffle(2), nn.LeakyReLU(0.1))
+        self.tail_medium = nn.Sequential(conv(ngf, ngf * 4, gen),
+                                         nn.PixelShuffle(2),
+                                         nn.LeakyReLU(0.1))
+        self.tail_large = nn.Sequential(conv(ngf, ngf // 2, gen),
+                                        nn.LeakyReLU(0.1),
+                                        conv(ngf // 2, 3, gen))
+
+    def _scale_stage(self, x, scale, ref, pre_offset, vs):
+        mask = None if vs is None else valid_mask(x, vs)
+
+        def masked(t):
+            return t if mask is None else t * mask
+
+        off = torch.cat([x, ref], dim=-1)
+        off = masked(lrelu(getattr(self, f'{scale}_offset_conv1')(off)))
+        off = masked(lrelu(getattr(self, f'{scale}_offset_conv2')(off)))
+        swapped = masked(lrelu(getattr(self, f'{scale}_dyn_agg')(
+            ref, off, pre_offset)))
+        h = torch.cat([x, swapped], dim=-1)
+        h = masked(lrelu(getattr(self, f'head_{scale}')[0](h)))
+        h = getattr(self, f'body_{scale}')(h, mask) + x
+        if scale == 'large':
+            h = masked(lrelu(self.tail_large[0](h)))
+            # the final conv output is left unmasked: the caller crops the
+            # pad bands, and they feed nothing else
+            return self.tail_large[2](h)
+        # masked at the coarse scale = masked after the shuffle
+        h = masked(getattr(self, f'tail_{scale}')[0](h))
+        return lrelu(pixel_shuffle(h, 2))
+
+    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None):
+        """``valid_shape``: valid LR-scale sizes of a bucket-padded batch;
+        every conv output is re-zeroed in the pad bands. None is a no-op."""
+        for i, (scale, key, _) in enumerate(_SCALES):
+            x = self._scale_stage(x, scale, img_ref_feat[key],
+                                  pre_offset[key],
+                                  scale_valid(valid_shape, 2 ** i))
+        return x
+
+    def offset_stats(self):
+        """{'offset_absmean_<scale>': 0-d tensor} from the last forward."""
+        return {f'offset_absmean_{scale}':
+                getattr(self, f'{scale}_dyn_agg').offset_absmean
+                for scale, _, _ in _SCALES}
+
+
+class RestorationNet(nn.Module):
+    """Generator: content extractor + dynamic aggregation decoder + a
+    bilinear x4 base."""
+
+    def __init__(self, ngf=64, n_blocks=16, groups=8, gather_dtype=None,
+                 generator=None):
+        super().__init__()
+        self.content_extractor = ContentExtractor(ngf, n_blocks, generator)
+        self.dyn_agg_restore = DynamicAggregationRestoration(
+            ngf, n_blocks, groups, gather_dtype, generator)
+
+    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None):
+        """
+        Args:
+            x: (B, h, w, 3) LR input.
+            pre_offset: relu{1,2,3}_1 -> (B, 9, H_s, W_s, 2) offsets.
+            img_ref_feat: relu{1,2,3}_1 -> (B, H_s, W_s, C_s) VGG features
+                of the HR reference.
+            valid_shape: None, or (vh, vw) valid LR sizes of a bucket-padded
+                batch.
+        Returns:
+            (B, 4h, 4w, 3) restored image.
+        """
+        base = upscale(x, 4, 'bilinear', valid_shape=valid_shape)
+        mask = None if valid_shape is None else valid_mask(x, valid_shape)
+        content = self.content_extractor(x, mask)
+        return self.dyn_agg_restore(content, pre_offset, img_ref_feat,
+                                    valid_shape) + base

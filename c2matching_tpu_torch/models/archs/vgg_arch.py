@@ -1,0 +1,160 @@
+"""VGG feature extractors (NHWC).
+
+Counterpart of ``c2matching_tpu/models/archs/vgg_arch.py``. Parameter and
+buffer names follow the reference (``vgg_net.{name}.*`` and ``mean`` /
+``std`` for VGGFeatureExtractor, ``model.{name}.*`` and ``mean`` / ``std``
+for ContrasExtractorLayer), so its state dicts load with strict=True.
+"""
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .arch_util import conv, halve_valid, valid_mask
+
+# Layer name sequences per VGG variant.
+NAMES = {
+    'vgg11': [
+        'conv1_1', 'relu1_1', 'pool1', 'conv2_1', 'relu2_1', 'pool2',
+        'conv3_1', 'relu3_1', 'conv3_2', 'relu3_2', 'pool3', 'conv4_1',
+        'relu4_1', 'conv4_2', 'relu4_2', 'pool4', 'conv5_1', 'relu5_1',
+        'conv5_2', 'relu5_2', 'pool5'
+    ],
+    'vgg13': [
+        'conv1_1', 'relu1_1', 'conv1_2', 'relu1_2', 'pool1', 'conv2_1',
+        'relu2_1', 'conv2_2', 'relu2_2', 'pool2', 'conv3_1', 'relu3_1',
+        'conv3_2', 'relu3_2', 'pool3', 'conv4_1', 'relu4_1', 'conv4_2',
+        'relu4_2', 'pool4', 'conv5_1', 'relu5_1', 'conv5_2', 'relu5_2',
+        'pool5'
+    ],
+    'vgg16': [
+        'conv1_1', 'relu1_1', 'conv1_2', 'relu1_2', 'pool1', 'conv2_1',
+        'relu2_1', 'conv2_2', 'relu2_2', 'pool2', 'conv3_1', 'relu3_1',
+        'conv3_2', 'relu3_2', 'conv3_3', 'relu3_3', 'pool3', 'conv4_1',
+        'relu4_1', 'conv4_2', 'relu4_2', 'conv4_3', 'relu4_3', 'pool4',
+        'conv5_1', 'relu5_1', 'conv5_2', 'relu5_2', 'conv5_3', 'relu5_3',
+        'pool5'
+    ],
+    'vgg19': [
+        'conv1_1', 'relu1_1', 'conv1_2', 'relu1_2', 'pool1', 'conv2_1',
+        'relu2_1', 'conv2_2', 'relu2_2', 'pool2', 'conv3_1', 'relu3_1',
+        'conv3_2', 'relu3_2', 'conv3_3', 'relu3_3', 'conv3_4', 'relu3_4',
+        'pool3', 'conv4_1', 'relu4_1', 'conv4_2', 'relu4_2', 'conv4_3',
+        'relu4_3', 'conv4_4', 'relu4_4', 'pool4', 'conv5_1', 'relu5_1',
+        'conv5_2', 'relu5_2', 'conv5_3', 'relu5_3', 'conv5_4', 'relu5_4',
+        'pool5'
+    ],
+}
+
+_BLOCK_CHANNELS = {1: 64, 2: 128, 3: 256, 4: 512, 5: 512}
+
+# ImageNet normalization for [0, 1] inputs.
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def vgg_layer_prefix(vgg_type, last_layer):
+    """The layer-name prefix up to and including ``last_layer``."""
+    names = NAMES[vgg_type]
+    return names[:names.index(last_layer) + 1]
+
+
+def _vgg_convs(names, generator):
+    """A ModuleDict of the convs among ``names``, He-normal initialized."""
+    layers, cin = {}, 3
+    for name in names:
+        if name.startswith('conv'):
+            cout = _BLOCK_CHANNELS[int(name[4])]
+            layers[name] = conv(cin, cout, generator, std=None)
+            cin = cout
+    return nn.ModuleDict(layers)
+
+
+def _imagenet_buffers(module):
+    """The reference's persistent (1, 3, 1, 1) ``mean`` / ``std`` buffers."""
+    module.register_buffer(
+        'mean', torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1))
+    module.register_buffer('std', torch.tensor(IMAGENET_STD).view(1, 3, 1, 1))
+
+
+def _normalize(module, x):
+    return (x - module.mean.view(1, 1, 1, 3).to(x.dtype)) \
+        / module.std.view(1, 1, 1, 3).to(x.dtype)
+
+
+def _run(convs, names, x, valid_shape, wanted=None):
+    """Run the layer sequence ``names``; each conv output is re-zeroed in
+    the pad bands when ``valid_shape`` is given, which halves at every
+    2x2 pool. Returns the dict of ``wanted`` activations, or the last one
+    when ``wanted`` is None."""
+    if valid_shape is not None:
+        x = x * valid_mask(x, valid_shape)
+    output = {}
+    for name in names:
+        if name.startswith('conv'):
+            x = convs[name](x)
+            if valid_shape is not None:
+                x = x * valid_mask(x, valid_shape)
+        elif name.startswith('relu'):
+            x = F.relu(x)
+        elif name.startswith('pool'):
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+            valid_shape = halve_valid(valid_shape)
+        if wanted is not None and name in wanted:
+            output[name] = x
+    return x if wanted is None else output
+
+
+class VGGFeatureExtractor(nn.Module):
+    """Truncated VGG returning a dict of named activations; only the layers
+    up to the deepest requested one exist. Inputs are ImageNet-normalized.
+    The JAX package's ``use_input_norm`` / ``remove_pooling`` /
+    ``pooling_stride`` options, which no config sets, are not ported."""
+
+    def __init__(self, layer_name_list, vgg_type='vgg19', generator=None):
+        super().__init__()
+        self.layer_name_list = list(layer_name_list)
+        names = NAMES[vgg_type]
+        last = max(names.index(v) for v in self.layer_name_list)
+        self.names = names[:last + 1]
+        self.vgg_net = _vgg_convs(self.names, generator)
+        _imagenet_buffers(self)
+
+    def forward(self, x, valid_shape=None):
+        """x: (B, H, W, 3) RGB in [0, 1]. Returns {layer_name: feature}.
+
+        ``valid_shape`` (vh, vw): re-zero each conv output in the pad bands
+        of a bucket-padded batch. None (exact shapes) is a no-op."""
+        return _run(self.vgg_net, self.names, _normalize(self, x),
+                    valid_shape, wanted=set(self.layer_name_list))
+
+
+class ContrasExtractorLayer(nn.Module):
+    """VGG16 prefix up to and including conv3_1 (pre-activation output),
+    with ImageNet input normalization."""
+
+    def __init__(self, generator=None):
+        super().__init__()
+        self.names = vgg_layer_prefix('vgg16', 'conv3_1')
+        self.model = _vgg_convs(self.names, generator)
+        _imagenet_buffers(self)
+
+    def forward(self, x, valid_shape=None):
+        return _run(self.model, self.names, _normalize(self, x), valid_shape)
+
+
+class ContrasExtractorSep(nn.Module):
+    """Two separate (non-shared) contrastive extractors, for the input and
+    for the reference."""
+
+    def __init__(self, generator=None):
+        super().__init__()
+        self.feature_extraction_image1 = ContrasExtractorLayer(generator)
+        self.feature_extraction_image2 = ContrasExtractorLayer(generator)
+
+    def forward(self, image1, image2, valid_shape=None):
+        return {
+            'dense_features1': self.feature_extraction_image1(image1,
+                                                              valid_shape),
+            'dense_features2': self.feature_extraction_image2(image2,
+                                                              valid_shape),
+        }

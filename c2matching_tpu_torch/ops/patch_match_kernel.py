@@ -1,0 +1,101 @@
+"""Patch-match argmax (kernel B1): the correlation matmul and a first-max
+argmax over ref rows, without writing the scores.
+
+Counterpart of ``c2matching_tpu/ops/pallas/patch_match_kernel.py``. The
+CUDA source is ``csrc/patch_match.cu``. On a CPU tensor ``match_argmax``
+takes its plain version, ``match_argmax_plain``; on a CUDA tensor it
+launches the kernel or raises.
+"""
+import ctypes
+
+import torch
+
+from . import _build
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
+_ENTRY = {torch.float32: 'c2m_match_argmax_f32',
+          torch.bfloat16: 'c2m_match_argmax_bf16'}
+
+
+def _kernel(dtype):
+    fn = getattr(_build.load('patch_match'), _ENTRY[dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def match_argmax_plain(q, r, ref_bias=None):
+    """Plain version: the (B, Nq, Nr) scores in f32, then ``argmax`` (the
+    first maximum) and ``max``. Same arguments and results as
+    ``match_argmax``."""
+    scores = torch.matmul(q.float(), r.float().transpose(-1, -2))
+    if ref_bias is not None:
+        scores = scores + ref_bias.float()
+    # argmax returns the first maximal index (torch.max does not promise to)
+    return scores.argmax(dim=-1).to(torch.int32), scores.amax(dim=-1)
+
+
+def match_argmax(q, r, ref_bias=None):
+    """argmax over ref rows of ``q @ r.T + ref_bias``, first maximum winning.
+
+    Args:
+        q: (B, Nq, D) or (Nq, D) query descriptors, float32 or bfloat16.
+        r: (B, Nr, D) or (Nr, D) ref descriptors, same dtype (normalized by
+            the caller). Accumulation is always f32.
+        ref_bias: optional (Nr,) float32 additive score bias, shared by the
+            batch (0 to keep a candidate, -1e30 to exclude it).
+    Returns:
+        (max_idx int32, max_val float32), each (B, Nq) or (Nq,).
+    """
+    if q.dim() == 2:
+        idx, val = match_argmax(q[None], r[None], ref_bias)
+        return idx[0], val[0]
+    if q.device.type == 'cpu':
+        return match_argmax_plain(q, r, ref_bias)
+    if q.device.type != 'cuda':
+        raise ValueError(f'match_argmax: unsupported device {q.device}')
+    if q.dtype not in _ENTRY or r.dtype != q.dtype:
+        raise TypeError(f'match_argmax: q {q.dtype} and r {r.dtype} must '
+                        'both be float32 or both bfloat16')
+    if q.dim() != 3 or r.dim() != 3 or q.shape[0] != r.shape[0] \
+            or q.shape[2] != r.shape[2]:
+        raise ValueError(f'match_argmax: shapes {tuple(q.shape)} and '
+                         f'{tuple(r.shape)} do not pair')
+    b, nq, d = q.shape
+    nr = r.shape[1]
+    if nq == 0 or nr == 0 or b == 0:
+        raise ValueError('match_argmax: empty query or ref set')
+    if r.device != q.device:
+        raise ValueError('match_argmax: q and r lie on different devices')
+    if ref_bias is not None and (ref_bias.shape != (nr,)
+                                 or ref_bias.dtype != torch.float32
+                                 or ref_bias.device != q.device):
+        raise ValueError('match_argmax: ref_bias must be float32 (Nr,) on '
+                         "q's device")
+    if d % 4:
+        raise ValueError(f'match_argmax: D = {d} must be a multiple of 4 '
+                         '(the kernel stages 4-element vectors)')
+    q = q.contiguous()
+    r = r.contiguous()
+    bias = None if ref_bias is None else ref_bias.contiguous()
+    for t in (q, r):
+        if t.data_ptr() % 16:
+            raise ValueError('match_argmax: operands must be 16-byte aligned')
+    idx = torch.empty((b, nq), dtype=torch.int32, device=q.device)
+    val = torch.empty((b, nq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _kernel(q.dtype)(
+            q.data_ptr(), r.data_ptr(),
+            None if bias is None else bias.data_ptr(), b, nq, nr, d,
+            idx.data_ptr(), val.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f'match_argmax kernel launch failed: CUDA error '
+                           f'{err}')
+    match_argmax.launches += 1
+    return idx, val
+
+
+match_argmax.launches = 0

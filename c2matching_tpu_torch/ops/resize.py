@@ -1,0 +1,56 @@
+"""On-device resize ops for network interiors (NHWC).
+
+Counterpart of ``c2matching_tpu/ops/resize.py``: the bilinear x4 base
+path of RestorationNet and the depth-to-space of its tails.
+"""
+import torch
+import torch.nn.functional as F
+
+
+def _axis_resize(x, axis, out_n, valid_n=None):
+    """1-D bilinear resample along ``axis`` with half-pixel centres (torch
+    F.interpolate align_corners=False, no antialiasing), as two gathers and
+    a lerp.
+
+    ``valid_n``: when ``x`` is bucket-padded along ``axis``, the last REAL
+    sample is valid_n - 1. The source coordinate is clamped there, and the
+    fraction recomputed after the clamp, which reproduces the exact-shape
+    run's border clamp on the valid output range.
+    """
+    n = x.shape[axis]
+    scale = n / out_n
+    coords = ((torch.arange(out_n, dtype=torch.float32, device=x.device)
+               + 0.5) * scale - 0.5)
+    hi_i = n - 1 if valid_n is None else min(int(valid_n), n) - 1
+    coords = coords.clamp(0.0, float(hi_i))
+    i0f = torch.floor(coords)
+    frac = coords - i0f
+    i0 = i0f.to(torch.int64)
+    i1 = (i0 + 1).clamp(0, hi_i)
+    x0 = x.index_select(axis, i0)
+    x1 = x.index_select(axis, i1)
+    shape = [1] * x.dim()
+    shape[axis] = out_n
+    frac = frac.reshape(shape).to(x.dtype)
+    return x0 * (1.0 - frac) + x1 * frac
+
+
+def upscale(x, factor=4, method='bilinear', valid_shape=None):
+    """Upsample NHWC by an integer factor, torch F.interpolate(bilinear,
+    align_corners=False) semantics, separable along H then W.
+
+    ``valid_shape`` (vh, vw): bucket-padded input; border-clamp at the last
+    REAL row/col so the valid outputs equal the exact-shape run's.
+    """
+    if method != 'bilinear':
+        raise NotImplementedError(method)
+    vh, vw = valid_shape if valid_shape is not None else (None, None)
+    x = _axis_resize(x, 1, x.shape[1] * factor, valid_n=vh)
+    return _axis_resize(x, 2, x.shape[2] * factor, valid_n=vw)
+
+
+def pixel_shuffle(x, factor=2):
+    """Depth-to-space: (B, H, W, C*r*r) -> (B, H*r, W*r, C), output channel
+    c taken from input channel c*r*r + dy*r + dx, which is torch's
+    F.pixel_shuffle order."""
+    return F.pixel_shuffle(x.permute(0, 3, 1, 2), factor).permute(0, 2, 3, 1)

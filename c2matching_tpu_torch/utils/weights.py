@@ -1,0 +1,104 @@
+"""Convert the JAX package's flax parameters into the port's state dicts.
+
+The exact inverse of ``c2matching_tpu/utils/pth_import.py``: flax HWIO
+conv kernels become torch OIHW; the scan-stacked ``blocks/block/conv{j}``
+(n, ...) leaves of a residual trunk become ``{prefix}.{i}.conv{j}``; the
+DCN weight (K, Ci, Co) becomes (Co, Ci, 3, 3). The keys are the
+reference's torch state-dict names, which the port's modules carry, so
+the result loads with ``load_state_dict(strict=True)``; saved with
+``torch.save`` it is also a reference-format ``.pth`` that ``pth_import``
+reads back bit for bit.
+
+Inputs are flax parameter trees (nested dicts) whose leaves are numpy
+arrays or anything ``np.asarray`` takes; a variables dict with a
+'params' entry is accepted too.
+"""
+import numpy as np
+import torch
+
+from ..models.archs.vgg_arch import IMAGENET_MEAN, IMAGENET_STD
+
+
+def _params(tree):
+    return tree['params'] if 'params' in tree else tree
+
+
+def _tensor(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def _conv(out, key, leaf):
+    """A flax conv {'kernel' (kh, kw, Ci, Co), 'bias'} -> key.weight/.bias."""
+    out[f'{key}.weight'] = _tensor(np.transpose(np.asarray(leaf['kernel']),
+                                                (3, 2, 0, 1)))
+    out[f'{key}.bias'] = _tensor(leaf['bias'])
+
+
+def _res_stack(out, prefix, stack):
+    """Scan-stacked {'blocks': {'block': {'conv{j}': (n, ...)}}} ->
+    {prefix}.{i}.conv{j}.*"""
+    block = stack['blocks']['block']
+    n = np.asarray(block['conv1']['kernel']).shape[0]
+    for i in range(n):
+        for name in ('conv1', 'conv2'):
+            leaf = block[name]
+            _conv(out, f'{prefix}.{i}.{name}',
+                  {'kernel': np.asarray(leaf['kernel'])[i],
+                   'bias': np.asarray(leaf['bias'])[i]})
+
+
+def _imagenet(out, prefix):
+    out[f'{prefix}.mean'] = torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1)
+    out[f'{prefix}.std'] = torch.tensor(IMAGENET_STD).view(1, 3, 1, 1)
+
+
+def restoration_net_state_dict(tree):
+    """RestorationNet flax params -> the port's (and the reference's) state
+    dict."""
+    p = _params(tree)
+    out = {}
+    ce = p['content_extractor']
+    _conv(out, 'content_extractor.conv_first', ce['conv_first'])
+    _res_stack(out, 'content_extractor.body', ce['body'])
+    dyn = p['dyn_agg_restore']
+    for scale in ('small', 'medium', 'large'):
+        pre = f'dyn_agg_restore.{scale}'
+        _conv(out, f'{pre}_offset_conv1', dyn[f'{scale}_offset_conv1'])
+        _conv(out, f'{pre}_offset_conv2', dyn[f'{scale}_offset_conv2'])
+        agg = dyn[f'{scale}_dyn_agg']
+        weight = np.asarray(agg['weight'])                 # (K, Ci, Co)
+        k, ci, co = weight.shape
+        kh = int(round(k ** 0.5))
+        out[f'{pre}_dyn_agg.weight'] = _tensor(
+            np.transpose(weight.reshape(kh, k // kh, ci, co), (3, 2, 0, 1)))
+        out[f'{pre}_dyn_agg.bias'] = _tensor(agg['bias'])
+        _conv(out, f'{pre}_dyn_agg.conv_offset_mask', agg['conv_offset_mask'])
+        _conv(out, f'dyn_agg_restore.head_{scale}.0', dyn[f'head_{scale}'])
+        _res_stack(out, f'dyn_agg_restore.body_{scale}', dyn[f'body_{scale}'])
+        if scale != 'large':
+            _conv(out, f'dyn_agg_restore.tail_{scale}.0',
+                  dyn[f'tail_{scale}'])
+    _conv(out, 'dyn_agg_restore.tail_large.0', dyn['tail_large_conv1'])
+    _conv(out, 'dyn_agg_restore.tail_large.2', dyn['tail_large_conv2'])
+    return out
+
+
+def contras_extractor_state_dict(tree):
+    """ContrasExtractorSep flax params -> state dict."""
+    p = _params(tree)
+    out = {}
+    for branch in ('feature_extraction_image1', 'feature_extraction_image2'):
+        _imagenet(out, branch)
+        for name, leaf in p[branch].items():
+            _conv(out, f'{branch}.model.{name}', leaf)
+    return out
+
+
+def corres_generation_state_dict(tree):
+    """CorrespondenceGenerationArch flax params (its VGG19) -> state dict."""
+    p = _params(tree)
+    out = {}
+    _imagenet(out, 'vgg')
+    for name, leaf in p['vgg'].items():
+        _conv(out, f'vgg.vgg_net.{name}', leaf)
+    return out
