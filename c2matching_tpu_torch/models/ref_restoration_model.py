@@ -42,16 +42,22 @@ class RefRestorationModel:
 
     Args:
         opt: the options dict.
-        device: where the nets run.
+        device: where the nets run: the CUDA card unless the caller asks
+            for another device ('cpu' for the tests). Raises when it names
+            a CUDA device on a host without one.
         generator: torch.Generator for the random init (pretrained weights
             are loaded afterwards with ``load_state_dict``).
     """
 
     EVAL_BUCKET = 16  # LR-space bucket multiple (64 px in HR space)
 
-    def __init__(self, opt, device='cpu', generator=None):
+    def __init__(self, opt, device='cuda', generator=None):
         self.opt = opt
         self.device = torch.device(device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(
+                f'RefRestorationModel: device {self.device} asked for, but no '
+                "CUDA card is available; pass device='cpu' to run on the CPU")
         self.net_g = define_network(opt['network_g'], generator)
         self.net_map = define_network(opt['network_map'], generator)
         self.net_extractor = define_network(opt['network_extractor'],

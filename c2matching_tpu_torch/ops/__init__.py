@@ -1,6 +1,11 @@
 """Tensor ops of the port: resize, flow, patch matching and the deformable
-conv, with the two hand-written kernels (patch-match argmax and the
-deformable im2col) behind their wrappers."""
+conv (exact and windowed), with the three hand-written kernels
+(patch-match argmax, the deformable im2col and the window contraction)
+behind their wrappers."""
+from .dcn_window import (modulated_deform_conv_windowed,
+                         modulated_deform_conv_windowed_chunked,
+                         window_applicable)
+from .dcn_window_kernel import window_contract, window_contract_plain
 from .deform_conv import (deform_conv, deform_im2col, deform_im2col_plain,
                           modulated_deform_conv)
 from .flow import batched_pre_offsets, match_to_pre_offsets
@@ -12,5 +17,8 @@ __all__ = [
     'batched_patch_match', 'batched_pre_offsets', 'deform_conv',
     'deform_im2col', 'deform_im2col_plain', 'match_argmax',
     'match_argmax_plain', 'match_to_pre_offsets', 'modulated_deform_conv',
-    'patch_match', 'pixel_shuffle', 'upscale',
+    'modulated_deform_conv_windowed',
+    'modulated_deform_conv_windowed_chunked', 'patch_match', 'pixel_shuffle',
+    'upscale', 'window_applicable', 'window_contract',
+    'window_contract_plain',
 ]

@@ -19,7 +19,7 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
-SOURCES = ('patch_match', 'deform_conv')
+SOURCES = ('patch_match', 'deform_conv', 'dcn_window')
 
 _libs = {}
 _lock = threading.Lock()

@@ -83,29 +83,41 @@ def _check(x, offset, mask):
         raise ValueError('channels must divide into the deformable groups')
 
 
+def _base_grid(ho, wo, kh, kw, stride, padding, dilation, device):
+    """Base sampling coords, f32: (P,) per output pixel (row-major) and
+    (K,) per tap (row-major (ky, kx))."""
+    oy = torch.arange(ho, device=device, dtype=torch.float32) * stride[0] \
+        - padding[0]
+    ox = torch.arange(wo, device=device, dtype=torch.float32) * stride[1] \
+        - padding[1]
+    ky = (torch.arange(kh, device=device, dtype=torch.float32)[:, None]
+          * dilation[0]).expand(kh, kw).reshape(-1)
+    kx = (torch.arange(kw, device=device, dtype=torch.float32)[None, :]
+          * dilation[1]).expand(kh, kw).reshape(-1)
+    base_y = oy[:, None].expand(ho, wo).reshape(-1)
+    base_x = ox[None, :].expand(ho, wo).reshape(-1)
+    return base_y, base_x, ky, kx
+
+
 def deform_im2col_plain(x, offset, mask, kernel_size=(3, 3), stride=(1, 1),
                         padding=(1, 1), dilation=(1, 1)):
     """Plain version of ``deform_im2col``: a torch gather per tap."""
     _check(x, offset, mask)
     h, w, c = x.shape
     ho, wo, g, k, _ = offset.shape
-    kh, kw = _pair(kernel_size)
-    sh, sw = _pair(stride)
-    ph, pw = _pair(padding)
-    dh, dw = _pair(dilation)
     p = ho * wo
-    dev = x.device
-    base_y = (torch.arange(ho, device=dev, dtype=torch.float32) * sh - ph)
-    base_x = (torch.arange(wo, device=dev, dtype=torch.float32) * sw - pw)
-    base_y = base_y[:, None].expand(ho, wo).reshape(p, 1)
-    base_x = base_x[None, :].expand(ho, wo).reshape(p, 1)
+    base_y, base_x, ky, kx = _base_grid(
+        ho, wo, *_pair(kernel_size), _pair(stride), _pair(padding),
+        _pair(dilation), x.device)
+    base_y = base_y[:, None]
+    base_x = base_x[:, None]
     off = offset.float().reshape(p, g, k, 2)
     m = mask.float().reshape(p, g, k)
     xf = x.float().reshape(h * w, g, c // g)
     taps = []
     for t in range(k):
-        sy = base_y + float((t // kw) * dh) + off[:, :, t, 0]
-        sx = base_x + float((t % kw) * dw) + off[:, :, t, 1]
+        sy = base_y + ky[t] + off[:, :, t, 0]
+        sx = base_x + kx[t] + off[:, :, t, 1]
         vals = _bilinear_gather_tap(xf, sy, sx, h, w)
         taps.append((vals * m[:, :, t, None]).reshape(p, c))
     return torch.stack(taps, dim=1).reshape(p, k * c).to(x.dtype)

@@ -15,18 +15,30 @@ Phases:
   3. b3: the deformable im2col kernel against its plain version on random
      inputs at the three unpadded DynAgg shapes of CUFED5 in f32 and bf16,
      plus the large-offset probe, which must give exact zeros.
-  4. main: RefRestorationModel.feed_data / test at full width (ngf 64,
+  4. b2: the window-contraction kernel of the windowed deformable conv
+     against its plain version, and the windowed op against the exact op,
+     on random DynAgg-structured inputs (G = 8; a block-constant integer
+     flow in +-16 plus a residual in +-0.4) at relu1 512x384x64 (blk 4,
+     win 8) and relu2 256x192x128 (blk 2, win 6), in f32 and bf16; a
+     fallback probe (residual x 5) that must equal the exact op bit for
+     bit with no kernel launch; the row-chunked form (8 chunks); and odd
+     shapes (ragged tiles, C and Co off the tiles, window coordinates far
+     outside the window) against the plain version.
+  5. main: RefRestorationModel.feed_data / test at full width (ngf 64,
      16 blocks, 8 groups; random weights from a seeded generator) in the
      f32 config and the serving config (bf16 gathers and match operands),
      over requests of CUFED5 size, one of them off the bucket; the launch
      counters must rise on this path; a small request must agree with the
      same nets run on the CPU, where the plain versions run. One more
      HR 512x336 request per config records every kernel's inputs.
-  5. path: each kernel against its plain version on exactly the tensors
+  6. path: each kernel against its plain version on exactly the tensors
      the main path gave it (B1 at 11844 x 11844 x 2304 with the valid-shape
      ref_bias; B3 at the padded 128x96, 256x192 and 512x384 DynAggs), in
-     both configs; these are the times of the kernels line.
-  6. one JSON line of kernels, the card's line, and last the JSON result.
+     both configs; then the windowed op, which no model calls, on the
+     relu1 (blk 4) and relu2 (blk 2) DynAggs' own tensors: the branch it
+     takes, B2 against its plain version there, and the windowed op against
+     the exact op. These are the times of the kernels line.
+  7. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -34,6 +46,7 @@ is present. TF32 is off for convolutions and matmuls throughout.
 import contextlib
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,6 +65,16 @@ B3_BF16_REL = 2 ** -8  # bf16 columns: one round-to-nearest of the exact
                        # value (half an ulp, at most 2^-8 relative)
 MAIN_CPU_TOL = 1e-3  # card (kernels, cuDNN) vs CPU (plain versions) output
                      # of the full f32 model on a small request
+B3_LIB_TOL = 1e-3    # grid_sample (the library yardstick) vs B3's columns:
+                     # it maps coordinates to [-1, 1] and back, which moves
+                     # a sample by ~1e-5 px at 512 px
+B2_F32_TOL = 1e-5    # |kernel - plain| of B2's output, f32 rows (outputs
+                     # of O(1) at the DCN init scale; sums in other orders)
+B2_BF16_TOL = 1e-4   # bf16 rows: both convert the same values to f32
+WIN_F32_REL = 1e-4   # windowed op vs exact op, of max |out|: tents and
+                     # bilinear corner weights round apart
+WIN_BF16_REL = 0.03  # bf16 x: the exact op rounds the weight to bf16, the
+                     # windowed op keeps it f32
 
 F32_BLOCKS = {
     'network_g': {'type': 'RestorationNet', 'ngf': 64, 'n_blocks': 16,
@@ -80,6 +103,14 @@ DCN_SHAPES = (('relu3_1', 128, 84, 256), ('relu2_1', 256, 168, 128),
 PATH_B1 = (1, 126 * 94, 9 * 256)
 PATH_B1_EXCLUDED = 126 * (94 - 82)
 PATH_B3 = ((128, 96, 256), (256, 192, 128), (512, 384, 64))
+# the windowed op's (blk, win) by the padded DynAgg shape it serves; the
+# same shapes, with random DynAgg-structured inputs, in phase b2
+WINDOWED = {(512, 384, 64): ('relu1_1', 4, 8),
+            (256, 192, 128): ('relu2_1', 2, 6)}
+# published peaks of one H100 SXM (dense, at the 700 W limit): device
+# memory, f32 outside the tensor cores, bf16 in them
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 class Checks:
@@ -117,6 +148,19 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops, dtype):
+    """The least time the card could take for the work, in ms, and what
+    bounds it: the bytes over the memory rate against the operations over
+    the peak rate of their type."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_S
+    t_ops = 1e3 * ops / PEAK_FLOPS[dtype]
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 # ----------------------------------------------------------------- B1
 def _b1_compare(check, q, r, bias, label):
     from c2matching_tpu_torch.ops import match_argmax, match_argmax_plain
@@ -148,6 +192,25 @@ def _b1_time(q, r, bias, label):
     print(f'b1 {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms',
           flush=True)
     return ms, plain_ms
+
+
+def _b1_work(q, r, bias):
+    """(bytes, operations) of B1: read q, r and the bias once, write the
+    index and the value; a multiply-add per (query, kept ref row,
+    channel): excluded ref rows cannot win, so their products are not
+    needed."""
+    b, nq, d = q.shape
+    kept = r.shape[1] if bias is None else int((bias == 0).sum())
+    moved = nbytes(q, r) + (0 if bias is None else nbytes(bias)) + 8 * b * nq
+    return moved, 2 * b * nq * kept * d
+
+
+def _b1_library_ms(q, r, bias):
+    """The same function as PyTorch calls: torch.matmul, the bias, max."""
+    def call():
+        scores = torch.matmul(q, r.mT)
+        return (scores if bias is None else scores + bias).max(dim=-1)
+    return cuda_ms(call)
 
 
 def phase_b1(check, dev):
@@ -250,6 +313,49 @@ def _b3_time(x, offset, mask, label):
     return ms, plain_ms
 
 
+# ops per column element: four corner weights, four multiply-adds, the mask
+B3_OPS_PER_COL = 13
+
+
+def _b3_work(x, offset, mask):
+    """(bytes, operations) of B3 on one image: read x, the offsets and the
+    mask once, write the columns once."""
+    ho, wo, _, k, _ = offset.shape
+    n_cols = ho * wo * k * x.shape[-1]
+    moved = nbytes(x, offset, mask) + n_cols * x.element_size()
+    return moved, B3_OPS_PER_COL * n_cols
+
+
+def _b3_library(check, x, offset, mask, label):
+    """F.grid_sample computes B3's bilinear samples with the same zero
+    padding, one batch entry per group (coordinates mapped to [-1, 1] with
+    align_corners); checks that against the kernel's columns and returns
+    the time of the grid_sample call alone."""
+    from c2matching_tpu_torch.ops import deform_im2col
+    h, w, c = x.shape
+    ho, wo, g, k, _ = offset.shape
+    base_y = torch.arange(ho, device=x.device, dtype=torch.float32) - 1
+    base_x = torch.arange(wo, device=x.device, dtype=torch.float32) - 1
+    tap = torch.arange(k, device=x.device)
+    sy = base_y[:, None, None, None] + (tap // 3).float() + offset[..., 0]
+    sx = base_x[None, :, None, None] + (tap % 3).float() + offset[..., 1]
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1)
+    grid = grid.reshape(ho * wo, g, k, 2).permute(1, 0, 2, 3).contiguous()
+    inp = x.reshape(h, w, g, c // g).permute(2, 3, 0, 1).contiguous()
+
+    def call():
+        return F.grid_sample(inp, grid, mode='bilinear', padding_mode='zeros',
+                             align_corners=True)
+
+    samples = call() * mask.reshape(ho * wo, g, k).permute(1, 0, 2)[:, None]
+    cols = samples.permute(2, 3, 0, 1).reshape(ho * wo, k * c)
+    err = (cols - deform_im2col(x, offset, mask)).abs().max().item()
+    check(err <= B3_LIB_TOL, f'b3 {label}: grid_sample yardstick within '
+          f'{err:.3g} <= {B3_LIB_TOL:g} of the kernel columns')
+    del samples, cols
+    return cuda_ms(call)
+
+
 def phase_b3(check, dev):
     from c2matching_tpu_torch.ops import deform_im2col, modulated_deform_conv
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -276,6 +382,207 @@ def phase_b3(check, dev):
                                     weight, bias)
         check(torch.equal(out, bias.expand_as(out)),
               f'b3 large-offset probe {name}: output equals the bias')
+
+
+# ----------------------------------------------------------------- B2
+def _b2_window(x, offset, mask, blk, win):
+    """The windowed op's own prep and gather for one image: (rows, ry, rx,
+    mm, ok, nby, nbx)."""
+    dw = importlib.import_module('c2matching_tpu_torch.ops.dcn_window')
+    origins, ry, rx, mm, ok = dw._window_prep(x, offset, mask, blk, win)
+    rows = dw._window_gather(x, origins, win)
+    h, w, _ = x.shape
+    return rows, ry, rx, mm, bool(ok), h // blk, w // blk
+
+
+def _b2_compare(check, args, label):
+    """Kernel output against the plain version's on the same windows and
+    fields; returns the max |difference|."""
+    from c2matching_tpu_torch.ops import window_contract, window_contract_plain
+    out_k = window_contract(*args)
+    err = (out_k - window_contract_plain(*args)).abs().max().item()
+    tol = B2_F32_TOL if args[0].dtype == torch.float32 else B2_BF16_TOL
+    check(err <= tol, f'b2 {label}: max |out diff| {err:.3g} <= {tol:g}')
+    del out_k
+    torch.cuda.empty_cache()
+    return err
+
+
+def _b2_time(args, label):
+    from c2matching_tpu_torch.ops import window_contract, window_contract_plain
+    ms = cuda_ms(lambda: window_contract(*args))
+    plain_ms = cuda_ms(lambda: window_contract_plain(*args))
+    print(f'b2 {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms',
+          flush=True)
+    torch.cuda.empty_cache()
+    return ms, plain_ms
+
+
+def _b2_work(rows, ry, rx, mm, weight, blk, win, nby, nbx):
+    """(bytes, operations) of B2: read once the window cells that a
+    non-zero tent weight needs (a tent is non-zero on at most 2 x 2 cells
+    of a window, and a cell is needed once per (block, tap, group) however
+    many pixels use it), the fields and the weight, write the output; the
+    contraction with the weight is dense, the tent sampling one
+    multiply-add per needed (pixel, tap, group, cell) and channel."""
+    g, k, p = ry.shape
+    c = rows.shape[-1] // win
+    co = weight.shape[-1]
+    dev = ry.device
+    pix = torch.arange(p, device=dev)
+    wo = nbx * blk
+    block = (pix // wo // blk) * nbx + (pix % wo) // blk
+    base = ((block[None, None] * k + torch.arange(k, device=dev)[:, None])
+            * g + torch.arange(g, device=dev)[:, None, None]) * win * win
+    need = torch.zeros(nby * nbx * k * g * win * win, dtype=torch.bool,
+                       device=dev)
+    y0 = ry.floor().clamp(-2, win)
+    x0 = rx.floor().clamp(-2, win)
+    n_cells = 0
+    for dy in (0, 1):
+        cy = y0 + dy
+        ty = (1 - (ry - cy).abs()).clamp_min(0) * ((cy >= 0) & (cy < win))
+        for dx in (0, 1):
+            cx = x0 + dx
+            txm = ((1 - (rx - cx).abs()).clamp_min(0) * mm
+                   * ((cx >= 0) & (cx < win)))
+            used = (ty != 0) & (txm != 0)
+            n_cells += int(used.sum())
+            cell = (base + cy.clamp(0, win - 1).long() * win
+                    + cx.clamp(0, win - 1).long())
+            need[cell[used]] = True
+    moved = (int(need.sum()) * (c // g) * rows.element_size()
+             + nbytes(ry, rx, mm) + 4 * weight.numel() + 4 * p * co)
+    return moved, 2 * p * k * c * co + 2 * n_cells * (c // g)
+
+
+def _b2_inputs(gen, dev, h, w, c, blk, g=8, k=9):
+    """Random DynAgg-structured inputs of one image: x, the block-constant
+    integer flow in +-16, a residual in +-0.4, the mask, a weight at the
+    DCN's init scale and a bias."""
+    x = torch.randn(1, h, w, c, generator=gen, device=dev)
+    flow = torch.randint(-16, 17, (1, h // blk, w // blk, 1, k, 2),
+                         generator=gen, device=dev).float()
+    flow = flow.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+    resid = 0.4 * (2 * torch.rand(1, h, w, g, k, 2, generator=gen,
+                                  device=dev) - 1)
+    mask = torch.rand(1, h, w, g, k, generator=gen, device=dev)
+    weight = torch.randn(k, c, c, generator=gen, device=dev) / math.sqrt(k * c)
+    bias = torch.randn(c, generator=gen, device=dev)
+    return x, flow, resid, mask, weight, bias
+
+
+def _windowed_vs_exact(check, x, offset, mask, weight, bias, blk, win,
+                       label, chunks=None):
+    """The windowed op (or its row-chunked form) against the exact op:
+    returns (launches of B2, windowed ms, exact ms)."""
+    from c2matching_tpu_torch.ops import (
+        modulated_deform_conv, modulated_deform_conv_windowed,
+        modulated_deform_conv_windowed_chunked, window_contract)
+    if chunks is None:
+        def windowed():
+            return modulated_deform_conv_windowed(x, offset, mask, weight,
+                                                  bias, blk=blk, win=win)
+    else:
+        def windowed():
+            return modulated_deform_conv_windowed_chunked(
+                x, offset, mask, weight, bias, blk=blk, win=win,
+                row_chunks=chunks)
+
+    def exact():
+        return modulated_deform_conv(x, offset, mask, weight, bias)
+
+    window_contract.launches = 0
+    out_w = windowed()
+    torch.cuda.synchronize()
+    launches = window_contract.launches
+    out_e = exact()
+    scale = out_e.abs().max().item()
+    err = (out_w - out_e).abs().max().item()
+    rel = WIN_F32_REL if x.dtype == torch.float32 else WIN_BF16_REL
+    check(out_w.shape == out_e.shape and err <= rel * scale,
+          f'{label}: max |windowed - exact| {err:.3g} <= {rel:g} x max|out| '
+          f'{scale:.3g}')
+    del out_w, out_e
+    ms = cuda_ms(windowed)
+    exact_ms = cuda_ms(exact)
+    torch.cuda.empty_cache()
+    return launches, ms, exact_ms
+
+
+def phase_b2(check, dev, card):
+    from c2matching_tpu_torch.ops import (modulated_deform_conv,
+                                          modulated_deform_conv_windowed,
+                                          window_contract)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for (h, w, c), (layer, blk, win) in WINDOWED.items():
+        x32, flow, resid, mask, weight, bias = _b2_inputs(gen, dev, h, w, c,
+                                                          blk)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace('torch.', '')
+            label = f'{layer} {h}x{w}x{c} blk {blk} win {win} {name}'
+            x = x32.to(dtype)
+            offset = flow + resid
+            rows, ry, rx, mm, ok, nby, nbx = _b2_window(
+                x[0], offset[0], mask[0], blk, win)
+            check(ok, f'b2 {label}: every tap inside its window')
+            args = (rows, ry, rx, mm, weight, blk, win, nby, nbx)
+            _b2_compare(check, args, label)
+            _b2_time(args, label)
+            del rows, ry, rx, mm, args
+            launches, ms, exact_ms = _windowed_vs_exact(
+                check, x, offset, mask, weight, bias, blk, win,
+                f'b2 windowed op {label}')
+            check(launches == 1, f'b2 windowed op {label}: window_contract '
+                  f'launched {launches} time(s)')
+            print(f'b2 windowed op {label}: {ms:.3f} ms, exact op '
+                  f'{exact_ms:.3f} ms ({card})', flush=True)
+            # row chunks: 8 sequential kernel launches, no fallback
+            launches, ms, exact_ms = _windowed_vs_exact(
+                check, x, offset, mask, weight, bias, blk, win,
+                f'b2 chunked op {label}', chunks=8)
+            check(launches == 8, f'b2 chunked op {label}: window_contract '
+                  f'launched {launches} times')
+            print(f'b2 chunked op (8 chunks) {label}: {ms:.3f} ms, exact op '
+                  f'{exact_ms:.3f} ms ({card})', flush=True)
+            # fallback: residuals past the window take the exact op
+            offset = flow + 5 * resid
+            window_contract.launches = 0
+            out = modulated_deform_conv_windowed(x, offset, mask, weight,
+                                                 bias, blk=blk, win=win)
+            check(window_contract.launches == 0
+                  and torch.equal(out, modulated_deform_conv(
+                      x, offset, mask, weight, bias)),
+                  f'b2 fallback probe {label}: no launch, output equals the '
+                  'exact op bit for bit')
+            del out, offset
+            torch.cuda.empty_cache()
+
+    # odd shapes against the plain version: tiles that straddle blocks and
+    # end ragged, C and Co off the kernel's tiles, coordinates far outside
+    # the window (huge ones too) and zero modulation
+    for blk, win, nby, nbx, c, g, co in ((3, 7, 5, 7, 24, 4, 40),
+                                         (1, 5, 9, 11, 16, 2, 200)):
+        nb, p = nby * nbx, nby * nbx * blk * blk
+        rows = torch.randn(nb, 9, win, win * c, generator=gen, device=dev)
+
+        def coords():
+            r = (win + 5) * torch.rand(g, 9, p, generator=gen, device=dev) - 3
+            far = torch.rand(g, 9, p, generator=gen, device=dev) < 0.05
+            huge = torch.tensor([1e6, -1e6, 3e30, -3e30], device=dev)[
+                torch.randint(0, 4, (g, 9, p), generator=gen, device=dev)]
+            return torch.where(far, huge, r)
+
+        ry, rx = coords(), coords()
+        mm = torch.rand(g, 9, p, generator=gen, device=dev)
+        mm = mm * (torch.rand(g, 9, p, generator=gen, device=dev) > 0.2)
+        weight = torch.randn(9, c, co, generator=gen, device=dev) / 12
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace('torch.', '')
+            _b2_compare(check, (rows.to(dtype), ry, rx, mm, weight, blk, win,
+                                nby, nbx),
+                        f'odd blk {blk} win {win} {nby}x{nbx} blocks C {c} '
+                        f'G {g} Co {co} {name}')
 
 
 # --------------------------------------------------------------- main path
@@ -333,9 +640,9 @@ def _stage_ms(model, batch):
 @contextlib.contextmanager
 def _record_kernel_inputs():
     """Record what the main path hands each kernel: (q, r, ref_bias) of
-    every match and (x, offset, mask) of every DynAgg's DCN, image 0.
-    Wraps the names the callers look up; the kernels and their launch
-    counters stay as they are."""
+    every match and (x, offset, mask, weight, bias) of every DynAgg's DCN,
+    image 0. Wraps the names the callers look up; the kernels and their
+    launch counters stay as they are."""
     pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match')
     ra = importlib.import_module(
         'c2matching_tpu_torch.models.archs.ref_restoration_arch')
@@ -346,9 +653,9 @@ def _record_kernel_inputs():
         seen['b1'].append((q, r, ref_bias))
         return match(q, r, ref_bias)
 
-    def mdc_rec(x, offset, mask, *args, **kwargs):
-        seen['b3'].append((x[0], offset[0], mask[0]))
-        return mdc(x, offset, mask, *args, **kwargs)
+    def mdc_rec(x, offset, mask, weight, bias=None):
+        seen['b3'].append((x[0], offset[0], mask[0], weight, bias))
+        return mdc(x, offset, mask, weight, bias)
 
     pm.match_argmax, ra.modulated_deform_conv = match_rec, mdc_rec
     try:
@@ -411,9 +718,10 @@ def phase_main(check, dev, report, card, recorded):
         torch.cuda.empty_cache()
 
 
-def phase_path(check, report, recorded):
+def phase_path(check, report, recorded, card):
     """Each kernel against its plain version on the tensors the main path
-    gave it for the HR 512x336 request, in both configs."""
+    gave it for the HR 512x336 request, in both configs; then the windowed
+    op on the relu1 and relu2 DynAggs' tensors."""
     for cfg, dtype in (('f32', torch.float32), ('serving', torch.bfloat16)):
         name = str(dtype).replace('torch.', '')
         seen = recorded.pop(cfg)
@@ -430,27 +738,106 @@ def phase_path(check, report, recorded):
         check(bool((bias[idx.long()] == 0).all()),
               f'b1 {label}: no excluded row wins')
         ms, plain_ms = _b1_time(q, r, bias, label)
+        bound_ms, bound_by = bound(*_b1_work(q, r, bias), dtype)
+        library_ms = _b1_library_ms(q, r, bias)
+        print(f'b1 {label}: bound {bound_ms:.3f} ms by {bound_by}, '
+              f'torch.matmul + max {library_ms:.3f} ms ({card})', flush=True)
         report[f'b1_{name}'] = {'ms': ms, 'plain_ms': plain_ms,
-                                'max_abs_err': err}
+                                'max_abs_err': err, 'bound_ms': bound_ms,
+                                'bound_by': bound_by,
+                                'library_ms': library_ms}
         del q, r, bias, idx
         seen['b1'].clear()
         torch.cuda.empty_cache()
 
-        shapes = sorted(tuple(x.shape) for x, _, _ in seen['b3'])
+        shapes = sorted(tuple(d[0].shape) for d in seen['b3'])
         check(shapes == sorted(PATH_B3)
-              and all(x.dtype == dtype for x, _, _ in seen['b3']),
+              and all(d[0].dtype == dtype for d in seen['b3']),
               f'path {cfg}: B3 gets x {shapes} {dtype}')
         total_ms = total_plain = worst = 0.0
-        for x, offset, mask in seen['b3']:
+        total_lib = 0.0 if dtype == torch.float32 else None
+        moved = ops = 0
+        for x, offset, mask, _, _ in seen['b3']:
             label = 'main path {}x{}x{} {}'.format(*x.shape, name)
             worst = max(worst, _b3_compare(check, x, offset, mask, label))
             ms, plain_ms = _b3_time(x, offset, mask, label)
             total_ms += ms
             total_plain += plain_ms
+            work = _b3_work(x, offset, mask)
+            moved, ops = moved + work[0], ops + work[1]
+            if total_lib is not None:
+                lib_ms = _b3_library(check, x, offset, mask, label)
+                print(f'b3 {label}: grid_sample {lib_ms:.3f} ms ({card})',
+                      flush=True)
+                total_lib += lib_ms
+        bound_ms, bound_by = bound(moved, ops, torch.float32)
+        print(f'b3 main path {name}: kernel {total_ms:.3f} ms over the three '
+              f'DynAggs, bound {bound_ms:.3f} ms by {bound_by} ({card})',
+              flush=True)
         report[f'b3_{name}'] = {'ms': total_ms, 'plain_ms': total_plain,
-                                'max_abs_err': worst}
+                                'max_abs_err': worst, 'bound_ms': bound_ms,
+                                'bound_by': bound_by,
+                                'library_ms': total_lib}
+        report[f'b2_{name}'] = _path_windowed(check, seen['b3'], cfg, name,
+                                              card)
         del seen
         torch.cuda.empty_cache()
+
+
+def _path_windowed(check, dcns, cfg, name, card):
+    """The windowed op on the DynAggs it serves (relu1 blk 4, relu2 blk
+    2), with B2 against its plain version on the same windows whichever
+    branch the op takes. Returns the kernels-line entry of this config:
+    B2's launches in the windowed op's run, counted from 0 before each
+    call, and the sums over the two DynAggs."""
+    total = {'launches': 0, 'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
+    moved = ops = 0
+    served = 0
+    for x, offset, mask, weight, bias in dcns:
+        if tuple(x.shape) not in WINDOWED:
+            continue
+        served += 1
+        layer, blk, win = WINDOWED[tuple(x.shape)]
+        label = 'main path {} {}x{}x{} blk {} win {} {}'.format(
+            layer, *x.shape, blk, win, name)
+        rows, ry, rx, mm, ok, nby, nbx = _b2_window(x, offset, mask, blk,
+                                                    win)
+        args = (rows, ry, rx, mm, weight, blk, win, nby, nbx)
+        total['max_abs_err'] = max(total['max_abs_err'],
+                                   _b2_compare(check, args, label))
+        ms, plain_ms = _b2_time(args, label)
+        dw = importlib.import_module('c2matching_tpu_torch.ops.dcn_window')
+        prep_ms = cuda_ms(lambda: dw._window_prep(x, offset, mask, blk, win))
+        origins = dw._window_prep(x, offset, mask, blk, win)[0]
+        gather_ms = cuda_ms(lambda: dw._window_gather(x, origins, win))
+        print(f'path windowed op {label}: prep {prep_ms:.3f} ms, window '
+              f'gather {gather_ms:.3f} ms ({nbytes(rows) / 1e9:.2f} GB), '
+              f'B2 {ms:.3f} ms ({card})', flush=True)
+        work = _b2_work(*args)
+        moved, ops = moved + work[0], ops + work[1]
+        total['ms'] += ms
+        total['plain_ms'] += plain_ms
+        del rows, ry, rx, mm, args
+        launches, ms, exact_ms = _windowed_vs_exact(
+            check, x[None], offset[None], mask[None], weight, bias, blk, win,
+            f'path windowed op {label}')
+        check(launches == int(ok), f'path windowed op {label}: branch '
+              f'{"windowed" if ok else "exact"}, window_contract launched '
+              f'{launches} time(s)')
+        print(f'path windowed op {label}: branch '
+              f'{"windowed" if ok else "exact (fallback)"}, {ms:.3f} ms, '
+              f'exact op {exact_ms:.3f} ms ({card})', flush=True)
+        total['launches'] += launches
+    check(served == len(WINDOWED), f'path {cfg}: {served} DynAggs of the '
+          f'windowed op\'s shapes')
+    check(total['launches'] > 0, f'path {cfg}: window_contract launched '
+          f'{total["launches"]} times by the windowed op')
+    total['bound_ms'], total['bound_by'] = bound(moved, ops, torch.float32)
+    total['library_ms'] = None
+    print(f'b2 main path {name}: kernel {total["ms"]:.3f} ms over the two '
+          f'DynAggs, bound {total["bound_ms"]:.3f} ms by {total["bound_by"]} '
+          f'({card})', flush=True)
+    return total
 
 
 def main():
@@ -485,8 +872,9 @@ def main():
     for name, fn in (
             ('b1', lambda: phase_b1(check, dev)),
             ('b3', lambda: phase_b3(check, dev)),
+            ('b2', lambda: phase_b2(check, dev, card)),
             ('main', lambda: phase_main(check, dev, report, card, recorded)),
-            ('path', lambda: phase_path(check, report, recorded))):
+            ('path', lambda: phase_path(check, report, recorded, card))):
         try:
             fn()
         except Exception as exc:  # a phase fails; the others still run
@@ -497,15 +885,20 @@ def main():
               sep='\n  ')
         sys.exit(1)
 
+    # f32 numbers; B1 and B3 launch on the main path, B2 in the windowed
+    # op's run on the main path's DynAgg tensors (phase path)
+    launches = dict(report['main_f32_launches'],
+                    window_contract=report['b2_float32'].pop('launches'))
     kernels = []
     for name, key, source, replaces in (
             ('match_argmax', 'b1', 'c2matching_tpu_torch/csrc/patch_match.cu',
              'c2matching_tpu/ops/pallas/patch_match_kernel.py:81'),
             ('deform_im2col', 'b3', 'c2matching_tpu_torch/csrc/deform_conv.cu',
-             'c2matching_tpu/ops/deform_conv.py:214')):
+             'c2matching_tpu/ops/deform_conv.py:214'),
+            ('window_contract', 'b2', 'c2matching_tpu_torch/csrc/dcn_window.cu',
+             'c2matching_tpu/ops/pallas/dcn_window_kernel.py:125')):
         kernels.append({'name': name, 'route': 'cuda', 'source': source,
-                        'replaces': replaces,
-                        'launches': report['main_f32_launches'][name],
+                        'replaces': replaces, 'launches': launches[name],
                         **report[f'{key}_float32']})
     print(json.dumps({'kernels': kernels}))
     print(card)
