@@ -2,14 +2,17 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and
 compiles on its own into ``build/kernels/<name>-<hash>.so`` at the root of
-the checkout. ``<hash>`` covers the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded from the cache. The build
+the checkout. ``<hash>`` covers the source, every ``csrc/*.cuh`` header it
+includes (``#include "..."``, followed into headers) and the flags, so an
+edited source or header rebuilds and an unchanged one is loaded from the
+cache. The build
 happens at first use, never at import: the CPU tests import every module
 on hosts without nvcc.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,11 +39,30 @@ def nvcc_path():
     raise RuntimeError('nvcc not found (looked on PATH and in CUDA_HOME/bin)')
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(path):
+    """The ``csrc/`` headers that ``path`` includes, directly or through
+    another header, in the order first met."""
+    seen = []
+    todo = [path]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall(todo.pop(0).read_bytes()):
+            header = CSRC / name.decode()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(name):
     src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(
-        src.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'{name}-{digest}.so'
+    digest = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
 
 
 def build(names=SOURCES, verbose=False):

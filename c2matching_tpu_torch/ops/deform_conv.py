@@ -3,7 +3,10 @@
 Counterpart of ``c2matching_tpu/ops/deform_conv.py``. The bilinear
 sampling at the learned offsets, times the modulation mask, runs in kernel
 B3 (``csrc/deform_conv.cu``), which writes the columns
-``cols[p, k*C + c]`` as upstream's dcn_v2_im2col_cuda.cu does. The
+``cols[p, k*C + c]`` as upstream's dcn_v2_im2col_cuda.cu does: one thread
+(or 2-4 lanes) per (pixel, tap, group) sample, 16-byte vectors over the
+group's channels, 32-bit index math where the image's extents allow it and
+a 64-bit instantiation otherwise. The
 contraction with the weight is one ``torch.matmul``. On a CPU tensor
 ``deform_im2col`` takes its plain version, the per-tap gather of the JAX
 package's ``_mdc_reference_single``; on a CUDA tensor it launches the

@@ -2,9 +2,11 @@
 argmax over ref rows, without writing the scores.
 
 Counterpart of ``c2matching_tpu/ops/pallas/patch_match_kernel.py``. The
-CUDA source is ``csrc/patch_match.cu``. On a CPU tensor ``match_argmax``
-takes its plain version, ``match_argmax_plain``; on a CUDA tensor it
-launches the kernel or raises.
+CUDA source is ``csrc/patch_match.cu``: tensor cores through ``mma.sync``,
+bf16 operands as they are and f32 operands as 3xTF32 (each split into two
+TF32 parts, three products summed in f32). On a CPU tensor
+``match_argmax`` takes its plain version, ``match_argmax_plain``; on a
+CUDA tensor it launches the kernel or raises.
 """
 import ctypes
 
@@ -12,9 +14,8 @@ import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p] * 5)
 _ENTRY = {torch.float32: 'c2m_match_argmax_f32',
           torch.bfloat16: 'c2m_match_argmax_bf16'}
 
@@ -24,6 +25,19 @@ def _kernel(dtype):
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def partitions(batch, nq, nr, dtype):
+    """The number of ref-axis partitions the kernel splits a launch of
+    these sizes into on the current CUDA device (1: no split)."""
+    fn = _build.load('patch_match').c2m_match_argmax_parts
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    parts = fn(batch, nq, nr, int(dtype == torch.bfloat16))
+    if parts < 1:
+        raise RuntimeError(f'match_argmax: CUDA error {-parts} while sizing '
+                           'the launch')
+    return parts
 
 
 def match_argmax_plain(q, r, ref_bias=None):
@@ -48,6 +62,11 @@ def match_argmax(q, r, ref_bias=None):
             batch (0 to keep a candidate, -1e30 to exclude it).
     Returns:
         (max_idx int32, max_val float32), each (B, Nq) or (Nq,).
+
+    On a CUDA tensor D must be a multiple of 8 (16 bytes of bf16). The
+    kernel may split the ref axis into partitions and merge them in a
+    second launch; ``match_argmax.launches`` counts one per call all the
+    same.
     """
     if q.dim() == 2:
         idx, val = match_argmax(q[None], r[None], ref_bias)
@@ -74,9 +93,9 @@ def match_argmax(q, r, ref_bias=None):
                                  or ref_bias.device != q.device):
         raise ValueError('match_argmax: ref_bias must be float32 (Nr,) on '
                          "q's device")
-    if d % 4:
-        raise ValueError(f'match_argmax: D = {d} must be a multiple of 4 '
-                         '(the kernel stages 4-element vectors)')
+    if d % 8:
+        raise ValueError(f'match_argmax: D = {d} must be a multiple of 8 '
+                         '(the kernel stages 16-byte vectors)')
     q = q.contiguous()
     r = r.contiguous()
     bias = None if ref_bias is None else ref_bias.contiguous()
@@ -86,9 +105,19 @@ def match_argmax(q, r, ref_bias=None):
     idx = torch.empty((b, nq), dtype=torch.int32, device=q.device)
     val = torch.empty((b, nq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        parts = partitions(b, nq, nr, q.dtype)
+        # the partitions' (max, argmax), merged by the kernel's second launch
+        part_val = part_idx = None
+        if parts > 1:
+            part_val = torch.empty((b, parts, nq), dtype=torch.float32,
+                                   device=q.device)
+            part_idx = torch.empty((b, parts, nq), dtype=torch.int32,
+                                   device=q.device)
         err = _kernel(q.dtype)(
             q.data_ptr(), r.data_ptr(),
-            None if bias is None else bias.data_ptr(), b, nq, nr, d,
+            None if bias is None else bias.data_ptr(), b, nq, nr, d, parts,
+            None if part_val is None else part_val.data_ptr(),
+            None if part_idx is None else part_idx.data_ptr(),
             idx.data_ptr(), val.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err:

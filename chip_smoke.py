@@ -10,11 +10,19 @@ Phases:
   1. card: name and power limit; build the kernels from csrc/ (nvcc).
   2. b1: the patch-match argmax kernel against its plain version on
      random descriptors at the unpadded CUFED5 shape (10332 x 10332,
-     D = 2304) in f32 and bf16, plus ragged shapes, exact ties across tile
-     boundaries and the ref_bias exclusion.
+     D = 2304) in f32 and bf16, plus ragged shapes (batch 2, nq and nr off
+     the 128-row tiles, a depth off the 32-word stages), the depths the
+     wrapper refuses, exact ties across ref tiles and across the
+     partitions of the ref axis, near ties (top-2 gaps from 1e-7 to 1e-3
+     on patch-structured descriptors at D = 2304) and the ref_bias
+     exclusion.
   3. b3: the deformable im2col kernel against its plain version on random
      inputs at the three unpadded DynAgg shapes of CUFED5 in f32 and bf16,
-     plus the large-offset probe, which must give exact zeros.
+     plus odd shapes (Cg = 1, 3 and 6, which take the scalar channel loop;
+     stride 2; dilation 2), a bf16 image of 1536x1536x128 whose columns
+     pass 2^31 elements (64-bit index math; its first and last rows
+     against the plain version) and the large-offset probe, which must
+     give exact zeros.
   4. b2: the window-contraction kernel of the windowed deformable conv
      against its plain version, and the windowed op against the exact op,
      on random DynAgg-structured inputs (G = 8; a block-constant integer
@@ -108,9 +116,11 @@ PATH_B3 = ((128, 96, 256), (256, 192, 128), (512, 384, 64))
 WINDOWED = {(512, 384, 64): ('relu1_1', 4, 8),
             (256, 192, 128): ('relu2_1', 2, 6)}
 # published peaks of one H100 SXM (dense, at the 700 W limit): device
-# memory, f32 outside the tensor cores, bf16 in them
+# memory, f32 outside the tensor cores, bf16 and TF32 in them
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, 'tf32': 495e12}
+# B1 runs f32 operands as 3xTF32: three TF32 products per f32 product
+B1_TF32_PRODUCTS = 3
 
 
 class Checks:
@@ -134,12 +144,20 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=3):
-    """Mean device time of ``fn`` over ``reps`` runs, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
+def cuda_ms(fn, min_ms=25.0):
+    """Mean device time of ``fn`` over enough runs to fill ``min_ms`` of
+    device time (at least 3), after one timed warm-up. The events bracket
+    a whole queue of calls, so the host's time to launch the first call is
+    spread over all of them: with 3 runs it would add ~15 us to each,
+    which a kernel of 0.1 ms would feel."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = max(3, min(200, math.ceil(min_ms / max(start.elapsed_time(end),
+                                                  1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -148,12 +166,12 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops, dtype):
+def bound(nbytes, ops, rate):
     """The least time the card could take for the work, in ms, and what
     bounds it: the bytes over the memory rate against the operations over
-    the peak rate of their type."""
+    the peak rate of their type (a key of PEAK_FLOPS)."""
     t_bytes = 1e3 * nbytes / PEAK_BYTES_S
-    t_ops = 1e3 * ops / PEAK_FLOPS[dtype]
+    t_ops = 1e3 * ops / PEAK_FLOPS[rate]
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -170,13 +188,16 @@ def _b1_compare(check, q, r, bias, label):
     if bias is not None:
         scores = scores + bias
     top2 = scores.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > B1_GAP_TOL
+    gaps = top2[..., 0] - top2[..., 1]
+    clear = gaps > B1_GAP_TOL
+    near = (gaps >= 1e-7) & (gaps <= 1e-3)
     same = (idx_k == idx_p) | ~clear
     picked = scores.gather(-1, idx_k.long()[..., None])[..., 0]
     err = (val_k - val_p).abs().max().item()
     check(bool(same.all()), f'b1 {label}: indices equal on the '
           f'{int(clear.sum())} of {clear.numel()} rows with top-2 gap > '
-          f'{B1_GAP_TOL:g}')
+          f'{B1_GAP_TOL:g} (on all rows: {int((idx_k == idx_p).sum())}; '
+          f'{int(near.sum())} rows have a gap in [1e-7, 1e-3])')
     check(bool(((picked - val_p).abs() <= B1_GAP_TOL).all()),
           f'b1 {label}: every picked index scores within {B1_GAP_TOL:g} of '
           'the max')
@@ -236,18 +257,28 @@ def phase_b1(check, dev):
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace('torch.', '')
-        # ragged shapes, batched
+        # ragged shapes, batched: nq and nr off the 128-row tiles, D off
+        # the 32-word stages (a zero-filled tail stage), the ref axis split;
+        # ref rows normalised as the main path's, so scores stay O(4)
         _b1_compare(check, randn(2, 300, 72).to(dtype),
                     randn(2, 470, 72).to(dtype), None,
                     f'ragged 2x300x470x72 {name}')
-        try:
-            match_argmax(randn(300, 27).to(dtype), randn(470, 27).to(dtype))
-            raised = False
-        except ValueError:
-            raised = True
-        check(raised, f'b1 D = 27 {name}: the wrapper refuses D % 4 != 0')
-        # exact ties: duplicated ref rows far apart (across 64-row tiles)
-        # and adjacent (inside one thread's 4 columns); the lowest wins
+        r = randn(2, 3001, 2312)
+        _b1_compare(check, randn(2, 1000, 2312).to(dtype),
+                    (r / r.norm(dim=-1, keepdim=True)).to(dtype), None,
+                    f'ragged 2x1000x3001x2312 {name} '
+                    f'({_b1_parts(2, 1000, 3001, dtype)} partitions)')
+        for d_bad in (27, 12):
+            try:
+                match_argmax(randn(300, d_bad).to(dtype),
+                             randn(470, d_bad).to(dtype))
+                raised = False
+            except ValueError:
+                raised = True
+            check(raised, f'b1 D = {d_bad} {name}: the wrapper refuses '
+                  'D % 8 != 0')
+        # exact ties: duplicated ref rows in one 128-row tile and across
+        # two, and adjacent (a thread's two columns); the lowest wins
         base = randn(50, 64)
         for r_tie, want in ((torch.cat([base] * 3), torch.arange(50)),
                             (base.repeat_interleave(3, dim=0),
@@ -255,6 +286,17 @@ def phase_b1(check, dev):
             idx, _ = match_argmax((2 * base).to(dtype), r_tie.to(dtype))
             check(torch.equal(idx.long().cpu(), want),
                   f'b1 ties {name}: the lowest duplicate index wins')
+        # exact ties across ref tiles and across partitions: few queries
+        # split the ref axis into many partitions, many into few
+        for nq_tie in (200, 4096):
+            _b1_tie_probe(check, gen, dev, dtype, nq_tie)
+        # near ties at full depth
+        q, r = _b1_near_ties(gen, dev)
+        _b1_compare(check, q.to(dtype), r.to(dtype), None,
+                    f'near ties {q.shape[0]}x{r.shape[0]}x{q.shape[1]} {name}'
+                    f' ({_b1_parts(1, q.shape[0], r.shape[0], dtype)} '
+                    'partitions)')
+        del q, r
         # ref_bias: exclude the unbiased winner of every other query
         q = randn(700, 64).to(dtype)
         r = randn(1000, 64).to(dtype)
@@ -265,6 +307,56 @@ def phase_b1(check, dev):
         idx, _ = _b1_compare(check, q, r, bias, f'ref_bias {name}')
         check(bool(keep[idx.long()].all()),
               f'b1 ref_bias {name}: no excluded row wins')
+
+
+def _b1_parts(batch, nq, nr, dtype):
+    pmk = importlib.import_module('c2matching_tpu_torch.ops.'
+                                  'patch_match_kernel')
+    return pmk.partitions(batch, nq, nr, dtype)
+
+
+def _b1_tie_probe(check, gen, dev, dtype, nq, d=256, copies=3):
+    """Each query's best ref row duplicated at `copies` random positions
+    among normalised random rows (at least 5120 ref rows, 4 per
+    duplicate): the lowest position must win."""
+    from c2matching_tpu_torch.ops import match_argmax
+    name = str(dtype).replace('torch.', '')
+    nr = max(5120, 4 * copies * nq)
+    base = torch.randn(nq, d, generator=gen, device=dev)
+    r = torch.randn(nr, d, generator=gen, device=dev)
+    r = r / r.norm(dim=-1, keepdim=True)
+    pos = torch.randperm(nr, generator=gen, device=dev)[:copies * nq]
+    pos = pos.reshape(nq, copies)
+    r[pos.reshape(-1)] = base.repeat_interleave(copies, dim=0)
+    parts = _b1_parts(1, nq, nr, dtype)
+    idx, _ = match_argmax((2 * base).to(dtype), r.to(dtype))
+    check(torch.equal(idx.long(), pos.min(dim=1).values),
+          f'b1 ties {name} {nq}x{nr}x{d}: the lowest of {copies} duplicates '
+          f'wins across 128-row ref tiles and {parts} partitions')
+    if nq <= 256:
+        check(parts > 1, f'b1 ties {name} {nq}x{nr}: the ref axis is split '
+              f'({parts} partitions)')
+
+
+def _b1_near_ties(gen, dev, n=2048, extra=2000, d=9 * 256):
+    """Patch-structured descriptors: q of 9 L2-normalised pixels of 256
+    channels; for each query a normalised near copy of it and a second
+    row that scores higher by a gap drawn log-uniformly from 1e-7 to
+    1e-3; both among normalised random rows, all shuffled. Returns
+    (q, r) in f32."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    q = randn(n, 9, d // 9)
+    q = (q / q.norm(dim=-1, keepdim=True)).reshape(n, d)
+    first = q + 0.02 * randn(n, d)
+    first = first / first.norm(dim=-1, keepdim=True)
+    gap = 10 ** (-7 + 4 * torch.rand(n, 1, generator=gen, device=dev))
+    second = first + gap * q / (q * q).sum(-1, keepdim=True)
+    rest = randn(extra, d)
+    r = torch.cat([first, second, rest / rest.norm(dim=-1, keepdim=True)])
+    perm = torch.randperm(r.shape[0], generator=gen, device=dev)
+    return q, r[perm].contiguous()
 
 
 # ----------------------------------------------------------------- B3
@@ -279,20 +371,21 @@ def _dcn_inputs(gen, dev, h, w, c, dtype, g=8, k=9):
     return x, offset, mask
 
 
-def _b3_compare(check, x, offset, mask, label):
-    """Kernel columns against the plain version's on the same inputs;
-    returns the max |difference|."""
+def _b3_compare(check, x, offset, mask, label, **conv):
+    """Kernel columns against the plain version's on the same inputs
+    (``conv``: the stride, padding and dilation); returns the max
+    |difference|."""
     from c2matching_tpu_torch.ops import deform_im2col, deform_im2col_plain
-    cols_k = deform_im2col(x, offset, mask).float()
-    err = (cols_k - deform_im2col_plain(x, offset, mask).float()).abs()
-    err = err.max().item()
+    cols_k = deform_im2col(x, offset, mask, **conv).float()
+    err = (cols_k - deform_im2col_plain(x, offset, mask, **conv).float())
+    err = err.abs().max().item()
     if x.dtype == torch.float32:
         ok = err <= B3_F32_TOL
         bound = f'{B3_F32_TOL:g}'
     else:
         # against the unrounded f32 columns of the same bf16 input: one
         # rounding to bf16 plus f32 arithmetic error
-        exact = deform_im2col_plain(x.float(), offset, mask)
+        exact = deform_im2col_plain(x.float(), offset, mask, **conv)
         ok = bool(((cols_k - exact).abs()
                    <= B3_BF16_REL * exact.abs() + B3_F32_TOL).all())
         bound = f'{B3_BF16_REL:g}|v| + {B3_F32_TOL:g} of the f32 columns'
@@ -356,6 +449,35 @@ def _b3_library(check, x, offset, mask, label):
     return cuda_ms(call)
 
 
+def _b3_wide_probe(check, gen, dev, dtype, h=1536, w=1536, c=128):
+    """An image whose columns pass 2^31 elements, which the kernel serves
+    with 64-bit index math: its first and last output rows against the
+    plain version on those rows alone (their offsets moved by the rows
+    skipped, so the sample points stay the same)."""
+    from c2matching_tpu_torch.ops import deform_im2col, deform_im2col_plain
+    name = str(dtype).replace('torch.', '')
+    x, offset, mask = _dcn_inputs(gen, dev, h, w, c, dtype)
+    cols = deform_im2col(x, offset, mask)
+    n = cols.numel()
+    worst = 0.0
+    for r0 in (0, h - 4):
+        sub = offset[r0:r0 + 4].clone()
+        sub[..., 0] += r0
+        want = deform_im2col_plain(x, sub, mask[r0:r0 + 4]).float()
+        got = cols[r0 * w:(r0 + 4) * w].float()
+        exact = deform_im2col_plain(x.float(), sub, mask[r0:r0 + 4])
+        check(bool(((got - exact).abs()
+                    <= B3_BF16_REL * exact.abs() + B3_F32_TOL).all()),
+              f'b3 wide {h}x{w}x{c} {name} ({n / 2 ** 31:.2f} x 2^31 column '
+              f'elements), rows {r0}-{r0 + 3}: within {B3_BF16_REL:g}|v| + '
+              f'{B3_F32_TOL:g} of the f32 columns')
+        worst = max(worst, (got - want).abs().max().item())
+    print(f'b3 wide {h}x{w}x{c} {name}: max |cols diff| {worst:.3g} against '
+          'the plain version', flush=True)
+    del x, offset, mask, cols
+    torch.cuda.empty_cache()
+
+
 def phase_b3(check, dev):
     from c2matching_tpu_torch.ops import deform_im2col, modulated_deform_conv
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -366,6 +488,25 @@ def phase_b3(check, dev):
             label = f'{layer} {h}x{w}x{c} {name}'
             _b3_compare(check, x, offset, mask, label)
             _b3_time(x, offset, mask, label)
+
+        # odd shapes: Cg = 1, 3 and 6 (the scalar channel loop), stride 2,
+        # dilation 2
+        for h, w, c, stride, pad, dil in ((37, 29, 8, 1, 1, 1),
+                                          (37, 29, 24, 1, 1, 1),
+                                          (37, 29, 48, 1, 1, 1),
+                                          (64, 48, 64, 2, 1, 1),
+                                          (64, 48, 128, 1, 2, 2)):
+            ho = (h + 2 * pad - 2 * dil - 1) // stride + 1
+            wo = (w + 2 * pad - 2 * dil - 1) // stride + 1
+            x = torch.randn(h, w, c, generator=gen, device=dev).to(dtype)
+            _, offset, mask = _dcn_inputs(gen, dev, ho, wo, 8, dtype)
+            _b3_compare(check, x, offset, mask,
+                        f'odd {h}x{w}x{c} Cg {c // 8} stride {stride} '
+                        f'dilation {dil} {name}', stride=(stride, stride),
+                        padding=(pad, pad), dilation=(dil, dil))
+
+        if dtype == torch.bfloat16:
+            _b3_wide_probe(check, gen, dev, dtype)
 
         # large offsets: the whole tap is out of the image -> exact zeros
         layer, h, w, c = DCN_SHAPES[0]
@@ -738,9 +879,19 @@ def phase_path(check, report, recorded, card):
         check(bool((bias[idx.long()] == 0).all()),
               f'b1 {label}: no excluded row wins')
         ms, plain_ms = _b1_time(q, r, bias, label)
-        bound_ms, bound_by = bound(*_b1_work(q, r, bias), dtype)
+        moved, ops = _b1_work(q, r, bias)
+        if dtype == torch.float32:
+            # the kernel's pipe: three TF32 products per f32 product
+            simt_ms, _ = bound(moved, ops, torch.float32)
+            bound_ms, bound_by = bound(moved, B1_TF32_PRODUCTS * ops, 'tf32')
+            pipe = (f'3xTF32 at {PEAK_FLOPS["tf32"] / 1e12:g} TFLOP/s; '
+                    f'SIMT f32 at {PEAK_FLOPS[torch.float32] / 1e12:g} '
+                    f'TFLOP/s: {simt_ms:.3f} ms')
+        else:
+            bound_ms, bound_by = bound(moved, ops, dtype)
+            pipe = f'bf16 at {PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s'
         library_ms = _b1_library_ms(q, r, bias)
-        print(f'b1 {label}: bound {bound_ms:.3f} ms by {bound_by}, '
+        print(f'b1 {label}: bound {bound_ms:.3f} ms by {bound_by} ({pipe}), '
               f'torch.matmul + max {library_ms:.3f} ms ({card})', flush=True)
         report[f'b1_{name}'] = {'ms': ms, 'plain_ms': plain_ms,
                                 'max_abs_err': err, 'bound_ms': bound_ms,
