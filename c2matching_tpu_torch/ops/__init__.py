@@ -5,7 +5,8 @@ behind their wrappers."""
 from .dcn_window import (modulated_deform_conv_windowed,
                          modulated_deform_conv_windowed_chunked,
                          window_applicable)
-from .dcn_window_kernel import window_contract, window_contract_plain
+from .dcn_window_kernel import (window_contract, window_contract_plain,
+                                window_conv, window_conv_plain)
 from .deform_conv import (deform_conv, deform_im2col, deform_im2col_plain,
                           modulated_deform_conv)
 from .flow import batched_pre_offsets, match_to_pre_offsets
@@ -20,5 +21,5 @@ __all__ = [
     'modulated_deform_conv_windowed',
     'modulated_deform_conv_windowed_chunked', 'patch_match', 'pixel_shuffle',
     'upscale', 'window_applicable', 'window_contract',
-    'window_contract_plain',
+    'window_contract_plain', 'window_conv', 'window_conv_plain',
 ]

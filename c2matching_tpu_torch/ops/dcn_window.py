@@ -12,12 +12,13 @@ relu1 and 2 at relu2, nearest-upsampled): the pre-offset of tap k at
 output pixel p is a block-constant integer flow plus a small learned
 residual, so for an aligned ``blk x blk`` output block b and tap k, all
 blk^2 pixels x G groups sample inside one small window around a shared
-anchor. One ``win x win x C`` window per (block, tap) is gathered
-(``_window_gather``, plain torch) and the bilinear corner weights become
-tents, tent(d) = max(0, 1 - |d|), contracted over the window and then with
-the conv weight in kernel B2 (``window_contract``, ``csrc/dcn_window.cu``).
-Out-of-image cells are gathered as zeros, which reproduces the exact op's
-zero padding.
+anchor. The bilinear corner weights become tents, tent(d) = max(0,
+1 - |d|), contracted over one ``win x win x C`` window per (block, tap)
+and then with the conv weight in kernel B2 (``window_conv``,
+``csrc/dcn_window.cu``), which reads each window from the image at its
+origin: no window buffer is gathered (the JAX package gathers one because
+its Pallas kernel cannot). Out-of-image cells read as zeros, which
+reproduces the exact op's zero padding.
 
 The formulation is valid only when every in-bounds tap's bilinear support
 lies inside its block's window. ``modulated_deform_conv_windowed`` tests
@@ -26,18 +27,17 @@ kernel B3): the same semantics for arbitrary offsets. JAX switches with
 ``jax.lax.cond`` on the device; here the branch is a Python ``if`` on
 ``bool(ok)``, which costs one host sync per image. The JAX op's
 ``group_scan`` only tunes XLA's exact path and ``use_pallas`` picks the
-TPU kernel; the port has neither: ``window_contract`` launches its kernel
-on a CUDA tensor and takes its plain version on a CPU tensor.
+TPU kernel; the port has neither: ``window_conv`` launches its kernel on
+a CUDA tensor and takes its plain version (``_window_gather``, then the
+dense contraction) on a CPU tensor.
 
 Parity target: the sampling semantics of ops/deform_conv.py.
 """
 import torch
-import torch.nn.functional as F
 
-from .dcn_window_kernel import window_contract
+from .dcn_window_kernel import (  # noqa: F401 (_window_gather: re-exported)
+    MARGIN, _window_gather, window_conv)
 from .deform_conv import _base_grid, modulated_deform_conv
-
-MARGIN = 2  # zero-pad ring; window origin O = floor(anchor) - 1 >= -2
 
 
 def _window_prep(x, offset, mask, blk, win):
@@ -91,29 +91,13 @@ def _window_prep(x, offset, mask, blk, win):
     return origins, ry, rx, mm, ok
 
 
-def _window_gather(x, origins, win):
-    """(NB, K, win, win*C) window rows in x's dtype: one indexed copy from
-    a strided view of the zero-padded x, whose element [Y, X, i, j*C + c]
-    is xpad[Y + i, X + j, c]."""
-    h, w, c = x.shape
-    m = MARGIN
-    xpad = F.pad(x, (0, 0, m, m, m, m)).contiguous()
-    hp, wp = h + 2 * m, w + 2 * m
-    windows = xpad.as_strided((hp - win + 1, wp - win + 1, win, win * c),
-                              (wp * c, c, wp * c, 1))
-    oy = origins[..., 0].long() + m                       # (NB, K)
-    ox = origins[..., 1].long() + m
-    return windows[oy, ox]
-
-
 def _mdc_window_single(x, origins, ry, rx, mm, weight, blk, win,
                        out_hw=None):
     h, w, _ = x.shape
     if out_hw is None:
         out_hw = (h, w)
     nby, nbx = out_hw[0] // blk, out_hw[1] // blk
-    rows = _window_gather(x, origins, win)
-    return window_contract(rows, ry, rx, mm, weight, blk, win, nby, nbx)
+    return window_conv(x, origins, ry, rx, mm, weight, blk, win, nby, nbx)
 
 
 def window_applicable(x_shape, offset_shape, blk, win, kernel_size=(3, 3),
@@ -132,9 +116,10 @@ def modulated_deform_conv_windowed_chunked(x, offset, mask, weight,
                                            bias=None, blk=4, win=8,
                                            row_chunks=8):
     """Windowed path with the output rows taken in ``row_chunks``
-    sequential chunks, which bounds the memory of the windows and the
-    fields to one chunk's. The gather still reads the whole image
-    (windows near a chunk boundary reach outside the chunk's rows).
+    sequential chunks, which bounds the memory of the fields to one
+    chunk's. Each chunk's kernel reads the whole image at its windows'
+    origins (windows near a chunk boundary reach outside the chunk's
+    rows); no window buffer exists.
 
     Assumes the windowed formulation is valid for the given offsets (the
     DynAgg structure: block-constant integer flow + small residual);

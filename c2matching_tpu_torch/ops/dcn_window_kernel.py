@@ -2,11 +2,20 @@
 conv, forward only.
 
 Counterpart of ``c2matching_tpu/ops/pallas/dcn_window_kernel.py``
-(``window_contract_pallas``). The CUDA source is ``csrc/dcn_window.cu``. On
-a CPU tensor ``window_contract`` takes its plain version,
-``window_contract_plain`` (the dense einsums of the JAX package's
-``_tents`` and ``_window_contract_xla``); on a CUDA tensor it launches the
-kernel or raises.
+(``window_contract_pallas``). The CUDA source is ``csrc/dcn_window.cu``.
+One kernel serves two entry points, which differ only in where a window
+cell lives:
+
+- ``window_conv`` (image mode, what the windowed op runs) reads the image
+  at each window's origin, so no window buffer exists;
+- ``window_contract`` (rows mode, the Pallas kernel's own signature) reads
+  windows gathered by ``_window_gather``.
+
+On the same inputs the two give the same bits. On a CPU tensor each takes
+its plain version (the dense einsums of the JAX package's ``_tents`` and
+``_window_contract_xla``, after the gather in image mode); on a CUDA
+tensor it launches the kernel or raises. A launch in either mode counts
+on ``window_contract.launches``.
 
 The Pallas kernel's helpers ``_expand_field``, ``_fold_weight`` and
 ``_fold_r`` are not carried over: they pre-expand the (G, K, P) fields to
@@ -17,20 +26,16 @@ lanes below 128. The CUDA kernel reads the (G, K, P) fields and the
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+MARGIN = 2  # zero-pad ring; window origin O = floor(anchor) - 1 >= -2
+
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+             + [ctypes.c_void_p])
 _ENTRY = {torch.float32: 'c2m_window_contract_f32',
           torch.bfloat16: 'c2m_window_contract_bf16'}
-
-# the kernel's tiling (csrc/dcn_window.cu): output pixels per thread block,
-# weight rows staged per step, and the shared memory a block may opt into
-_PIX = 64
-_CCH = 32
-_MAX_SMEM = 232448
-_MAX_CO = 256
-
 
 def _kernel(dtype):
     fn = getattr(_build.load('dcn_window'), _ENTRY[dtype])
@@ -39,10 +44,19 @@ def _kernel(dtype):
     return fn
 
 
-def _smem_bytes(c, g, co):
-    """Dynamic shared memory of one thread block of the kernel."""
-    cop = -(-co // 64) * 64
-    return _PIX * g * (16 + 8) + _PIX * (c + 4) * 4 + _CCH * cop * 4
+def _window_gather(x, origins, win):
+    """(NB, K, win, win*C) window rows in x's dtype: one indexed copy from
+    a strided view of the zero-padded x, whose element [Y, X, i, j*C + c]
+    is xpad[Y + i, X + j, c]."""
+    h, w, c = x.shape
+    m = MARGIN
+    xpad = F.pad(x, (0, 0, m, m, m, m)).contiguous()
+    hp, wp = h + 2 * m, w + 2 * m
+    windows = xpad.as_strided((hp - win + 1, wp - win + 1, win, win * c),
+                              (wp * c, c, wp * c, 1))
+    oy = origins[..., 0].long() + m                       # (NB, K)
+    ox = origins[..., 1].long() + m
+    return windows[oy, ox]
 
 
 def _tents(ry, rx, mm, blk, win, nby, nbx):
@@ -77,6 +91,71 @@ def window_contract_plain(rows, ry, rx, mm, weight, blk, win, nby, nbx):
     return out.reshape(nby * blk, nbx * blk, co)
 
 
+def window_conv_plain(x, origins, ry, rx, mm, weight, blk, win, nby, nbx):
+    """Plain version of ``window_conv``: the gather, then the plain
+    contraction. Same arguments and result."""
+    return window_contract_plain(_window_gather(x, origins, win), ry, rx, mm,
+                                 weight, blk, win, nby, nbx)
+
+
+def _launch(name, src, origins, ry, rx, mm, weight, blk, win, nby, nbx, c,
+            image_hw):
+    """Checks what both modes share and launches the kernel on ``src``
+    (the image when ``origins`` is given, else the windows)."""
+    if src.dtype not in _ENTRY:
+        raise TypeError(f'{name}: the image or windows must be float32 or '
+                        f'bfloat16, got {src.dtype}')
+    fields = (ry, rx, mm)
+    if any(t.dtype != torch.float32 for t in fields):
+        raise TypeError(f'{name}: ry, rx and mm must be float32')
+    others = (*fields, weight) + (() if origins is None else (origins,))
+    if any(t.device != src.device for t in others):
+        raise ValueError(f'{name}: tensors lie on different devices')
+    g, k = ry.shape[:2]
+    kw, cw, co = weight.shape
+    nb = nby * nbx
+    if (nb == 0 or any(t.shape != (g, k, nb * blk * blk) for t in fields)
+            or (kw, cw) != (k, c) or c % g or co < 1):
+        raise ValueError(
+            f'{name}: fields {tuple(ry.shape)} and weight '
+            f'{tuple(weight.shape)} do not pair with C = {c} for blk {blk}, '
+            f'win {win}, {nby}x{nbx} blocks')
+    src = src.contiguous()
+    ry, rx, mm = (t.contiguous() for t in fields)
+    # 16-byte aligned weight rows for the kernel's cp.async copies
+    w32 = weight.float().contiguous()
+    ldw = -(-co // 4) * 4
+    if ldw != co or w32.data_ptr() % 16:
+        padded = w32.new_zeros((k, c, ldw))
+        padded[..., :co] = w32
+        w32 = padded
+    out = torch.empty((nby * blk, nbx * blk, co), dtype=torch.float32,
+                      device=src.device)
+    h, w = image_hw
+    with torch.cuda.device(src.device):
+        err = _kernel(src.dtype)(
+            src.data_ptr(), 0 if origins is None else origins.data_ptr(),
+            ry.data_ptr(), rx.data_ptr(), mm.data_ptr(), w32.data_ptr(),
+            out.data_ptr(), nb, k, blk, win, c, g, co, ldw, nbx, h, w,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        # the launcher refuses what its tiles cannot take (error 1: shared
+        # memory past a block's limit, an image or windows not aligned to
+        # its 4-channel loads, 32-bit cell indices overflowing) before any
+        # launch
+        raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
+                           f'{err} (C = {c}, G = {g}, Co = {co}, '
+                           f'{src.dtype}, {tuple(src.shape)})')
+    window_contract.launches += 1
+    return out
+
+
+def _check_device(name, t):
+    if t.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {t.device}')
+    return t.device.type == 'cpu'
+
+
 def window_contract(rows, ry, rx, mm, weight, blk, win, nby, nbx):
     """Tent-weighted window contraction, then the conv weight.
 
@@ -95,52 +174,43 @@ def window_contract(rows, ry, rx, mm, weight, blk, win, nby, nbx):
     Returns:
         (Ho, Wo, Co) float32, Ho = nby*blk, Wo = nbx*blk.
     """
-    if rows.device.type == 'cpu':
+    if _check_device('window_contract', rows):
         return window_contract_plain(rows, ry, rx, mm, weight, blk, win, nby,
                                      nbx)
-    if rows.device.type != 'cuda':
-        raise ValueError(f'window_contract: unsupported device {rows.device}')
-    if rows.dtype not in _ENTRY:
-        raise TypeError(f'window_contract: rows must be float32 or bfloat16, '
-                        f'got {rows.dtype}')
-    fields = (ry, rx, mm)
-    if any(t.dtype != torch.float32 for t in fields):
-        raise TypeError('window_contract: ry, rx and mm must be float32')
-    if any(t.device != rows.device for t in (*fields, weight)):
-        raise ValueError('window_contract: tensors lie on different devices')
     nb, k, wy, winc = rows.shape
-    g = ry.shape[0]
-    c = winc // win
-    kw, cw, co = weight.shape
-    if (wy != win or winc != win * c or nb != nby * nbx or nb == 0
-            or any(t.shape != (g, k, nb * blk * blk) for t in fields)
-            or (kw, cw) != (k, c) or c % g):
-        raise ValueError(
-            f'window_contract: rows {tuple(rows.shape)}, fields '
-            f'{tuple(ry.shape)}, weight {tuple(weight.shape)} do not pair '
-            f'for blk {blk}, win {win}, {nby}x{nbx} blocks')
-    if c % 4 or not 0 < co <= _MAX_CO:
-        raise ValueError(f'window_contract: C = {c} must be a multiple of 4 '
-                         f'and Co = {co} in 1..{_MAX_CO}')
-    if _smem_bytes(c, g, co) > _MAX_SMEM:
-        raise ValueError(f'window_contract: C = {c}, G = {g}, Co = {co} need '
-                         f'{_smem_bytes(c, g, co)} bytes of shared memory '
-                         f'per block, more than {_MAX_SMEM}')
-    rows = rows.contiguous()
-    ry, rx, mm = (t.contiguous() for t in fields)
-    w32 = weight.float().contiguous()
-    out = torch.empty((nby * blk, nbx * blk, co), dtype=torch.float32,
-                      device=rows.device)
-    with torch.cuda.device(rows.device):
-        err = _kernel(rows.dtype)(
-            rows.data_ptr(), ry.data_ptr(), rx.data_ptr(), mm.data_ptr(),
-            w32.data_ptr(), out.data_ptr(), nb, k, blk, win, c, g, co, nbx,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f'window_contract kernel launch failed: CUDA error '
-                           f'{err}')
-    window_contract.launches += 1
-    return out
+    if wy != win or winc % win or nb != nby * nbx:
+        raise ValueError(f'window_contract: rows {tuple(rows.shape)} do not '
+                         f'pair with win {win}, {nby}x{nbx} blocks')
+    return _launch('window_contract', rows, None, ry, rx, mm, weight, blk,
+                   win, nby, nbx, winc // win, (0, 0))
+
+
+def window_conv(x, origins, ry, rx, mm, weight, blk, win, nby, nbx):
+    """What ``window_contract(_window_gather(x, origins, win), ry, rx, mm,
+    weight, blk, win, nby, nbx)`` returns, read from the image itself: a
+    window cell (wy, wx) of (block b, tap k) is ``x[oy + wy, ox + wx]``
+    with (oy, ox) = origins[b, k], and zero outside the image.
+
+    Args:
+        x: (H, W, C) one image, float32 or bfloat16.
+        origins: (NB, K, 2) int32 window origins (y, x) from
+            ``_window_prep``, clamped to [-MARGIN, H + MARGIN - win] (and
+            the same for x), so every window lies in the zero-padded image.
+        ry, rx, mm, weight, blk, win, nby, nbx: as for ``window_contract``.
+    Returns:
+        (nby*blk, nbx*blk, Co) float32.
+    """
+    if _check_device('window_conv', x):
+        return window_conv_plain(x, origins, ry, rx, mm, weight, blk, win,
+                                 nby, nbx)
+    h, w, c = x.shape
+    if (origins.dtype != torch.int32
+            or origins.shape != (nby * nbx, ry.shape[1], 2)):
+        raise ValueError(f'window_conv: origins {tuple(origins.shape)} '
+                         f'{origins.dtype} must be int32 of shape '
+                         f'({nby * nbx}, {ry.shape[1]}, 2)')
+    return _launch('window_conv', x, origins.contiguous(), ry, rx, mm, weight,
+                   blk, win, nby, nbx, c, (h, w))
 
 
 window_contract.launches = 0

@@ -23,15 +23,21 @@ Phases:
      pass 2^31 elements (64-bit index math; its first and last rows
      against the plain version) and the large-offset probe, which must
      give exact zeros.
-  4. b2: the window-contraction kernel of the windowed deformable conv
-     against its plain version, and the windowed op against the exact op,
+  4. b2: the window-contraction kernel of the windowed deformable conv in
+     image mode (window_conv: it reads x at each window's origin) against
+     its plain version and, bit for bit, against rows mode (window_contract
+     on the gathered windows); and the windowed op against the exact op;
      on random DynAgg-structured inputs (G = 8; a block-constant integer
      flow in +-16 plus a residual in +-0.4) at relu1 512x384x64 (blk 4,
      win 8) and relu2 256x192x128 (blk 2, win 6), in f32 and bf16; a
      fallback probe (residual x 5) that must equal the exact op bit for
-     bit with no kernel launch; the row-chunked form (8 chunks); and odd
-     shapes (ragged tiles, C and Co off the tiles, window coordinates far
-     outside the window) against the plain version.
+     bit with no kernel launch; the row-chunked form (8 launches); rows
+     mode on odd shapes (ragged tiles, C and Co off the tiles, window
+     coordinates far outside the window); image mode on odd shapes with
+     origins at both clamps (window rows and columns in the zero ring),
+     an output grid smaller than the image, C and Co off the tiles, huge
+     coordinates and zero modulation; and shapes or types the kernel
+     refuses, which must raise on the card.
   5. main: RefRestorationModel.feed_data / test at full width (ngf 64,
      16 blocks, 8 groups; random weights from a seeded generator) in the
      f32 config and the serving config (bf16 gathers and match operands),
@@ -44,8 +50,9 @@ Phases:
      ref_bias; B3 at the padded 128x96, 256x192 and 512x384 DynAggs), in
      both configs; then the windowed op, which no model calls, on the
      relu1 (blk 4) and relu2 (blk 2) DynAggs' own tensors: the branch it
-     takes, B2 against its plain version there, and the windowed op against
-     the exact op. These are the times of the kernels line.
+     takes, B2 in image mode against its plain version and rows mode
+     there, the prep's and B2's times, and the windowed op against the
+     exact op. These are the times of the kernels line.
   7. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
@@ -527,59 +534,77 @@ def phase_b3(check, dev):
 
 # ----------------------------------------------------------------- B2
 def _b2_window(x, offset, mask, blk, win):
-    """The windowed op's own prep and gather for one image: (rows, ry, rx,
-    mm, ok, nby, nbx)."""
+    """The windowed op's own prep for one image: the image-mode arguments
+    of B2 (x, origins, ry, rx, mm), whether every tap lies in its window,
+    and the block counts."""
     dw = importlib.import_module('c2matching_tpu_torch.ops.dcn_window')
     origins, ry, rx, mm, ok = dw._window_prep(x, offset, mask, blk, win)
-    rows = dw._window_gather(x, origins, win)
     h, w, _ = x.shape
-    return rows, ry, rx, mm, bool(ok), h // blk, w // blk
+    return (x, origins, ry, rx, mm), bool(ok), h // blk, w // blk
+
+
+def _b2_tol(dtype):
+    return B2_F32_TOL if dtype == torch.float32 else B2_BF16_TOL
 
 
 def _b2_compare(check, args, label):
-    """Kernel output against the plain version's on the same windows and
-    fields; returns the max |difference|."""
-    from c2matching_tpu_torch.ops import window_contract, window_contract_plain
-    out_k = window_contract(*args)
-    err = (out_k - window_contract_plain(*args)).abs().max().item()
-    tol = B2_F32_TOL if args[0].dtype == torch.float32 else B2_BF16_TOL
+    """B2 in image mode (``window_conv``, args = x, origins, ry, rx, mm,
+    weight, blk, win, nby, nbx) against its plain version, and against
+    rows mode on the gathered windows, which must give the same bits.
+    Returns the max |difference| from the plain version."""
+    from c2matching_tpu_torch.ops import (window_contract, window_conv,
+                                          window_conv_plain)
+    dk = importlib.import_module('c2matching_tpu_torch.ops.'
+                                 'dcn_window_kernel')
+    x, origins = args[:2]
+    out_k = window_conv(*args)
+    err = (out_k - window_conv_plain(*args)).abs().max().item()
+    tol = _b2_tol(x.dtype)
     check(err <= tol, f'b2 {label}: max |out diff| {err:.3g} <= {tol:g}')
-    del out_k
+    rows = dk._window_gather(x, origins, args[7])
+    check(torch.equal(out_k, window_contract(rows, *args[2:])),
+          f'b2 {label}: image mode and rows mode equal bit for bit')
+    del out_k, rows
     torch.cuda.empty_cache()
     return err
 
 
 def _b2_time(args, label):
-    from c2matching_tpu_torch.ops import window_contract, window_contract_plain
-    ms = cuda_ms(lambda: window_contract(*args))
-    plain_ms = cuda_ms(lambda: window_contract_plain(*args))
-    print(f'b2 {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms',
-          flush=True)
+    """Times of B2 in image mode, of its plain version (the gather and the
+    dense contraction) and of rows mode on the gathered windows."""
+    from c2matching_tpu_torch.ops import (window_contract, window_conv,
+                                          window_conv_plain)
+    dk = importlib.import_module('c2matching_tpu_torch.ops.'
+                                 'dcn_window_kernel')
+    ms = cuda_ms(lambda: window_conv(*args))
+    plain_ms = cuda_ms(lambda: window_conv_plain(*args))
+    rows = dk._window_gather(args[0], args[1], args[7])
+    rows_ms = cuda_ms(lambda: window_contract(rows, *args[2:]))
+    print(f'b2 {label}: image mode {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+          f'rows mode {rows_ms:.3f} ms (on {nbytes(rows) / 1e9:.2f} GB of '
+          'gathered windows)', flush=True)
+    del rows
     torch.cuda.empty_cache()
-    return ms, plain_ms
+    return ms, plain_ms, rows_ms
 
 
-def _b2_work(rows, ry, rx, mm, weight, blk, win, nby, nbx):
-    """(bytes, operations) of B2: read once the window cells that a
-    non-zero tent weight needs (a tent is non-zero on at most 2 x 2 cells
-    of a window, and a cell is needed once per (block, tap, group) however
-    many pixels use it), the fields and the weight, write the output; the
-    contraction with the weight is dense, the tent sampling one
-    multiply-add per needed (pixel, tap, group, cell) and channel."""
+def _b2_needed_cells(ry, rx, mm, blk, win, nbx):
+    """Per (block, tap, group, window cell), whether a non-zero tent weight
+    needs it (a tent is non-zero on at most 2 x 2 cells of a window; a
+    cell is needed once however many pixels use it), and the number of
+    (pixel, tap, group, cell) samples with a non-zero weight."""
     g, k, p = ry.shape
-    c = rows.shape[-1] // win
-    co = weight.shape[-1]
     dev = ry.device
     pix = torch.arange(p, device=dev)
     wo = nbx * blk
     block = (pix // wo // blk) * nbx + (pix % wo) // blk
     base = ((block[None, None] * k + torch.arange(k, device=dev)[:, None])
             * g + torch.arange(g, device=dev)[:, None, None]) * win * win
-    need = torch.zeros(nby * nbx * k * g * win * win, dtype=torch.bool,
-                       device=dev)
+    need = torch.zeros(p // (blk * blk) * k * g * win * win,
+                       dtype=torch.bool, device=dev)
     y0 = ry.floor().clamp(-2, win)
     x0 = rx.floor().clamp(-2, win)
-    n_cells = 0
+    n_samples = 0
     for dy in (0, 1):
         cy = y0 + dy
         ty = (1 - (ry - cy).abs()).clamp_min(0) * ((cy >= 0) & (cy < win))
@@ -588,13 +613,39 @@ def _b2_work(rows, ry, rx, mm, weight, blk, win, nby, nbx):
             txm = ((1 - (rx - cx).abs()).clamp_min(0) * mm
                    * ((cx >= 0) & (cx < win)))
             used = (ty != 0) & (txm != 0)
-            n_cells += int(used.sum())
+            n_samples += int(used.sum())
             cell = (base + cy.clamp(0, win - 1).long() * win
                     + cx.clamp(0, win - 1).long())
             need[cell[used]] = True
-    moved = (int(need.sum()) * (c // g) * rows.element_size()
+    return need, n_samples
+
+
+def _b2_work(x, origins, ry, rx, mm, weight, blk, win, nby, nbx):
+    """(bytes, operations) of B2 in image mode: read x, the origins, the
+    three (G, K, P) fields and the weight once, write the f32 output once;
+    the contraction with the weight is dense (2 P K C Co), the tent
+    sampling one multiply-add per (pixel, tap, group, cell) with a
+    non-zero weight and channel of the group."""
+    g, k, p = ry.shape
+    c = x.shape[-1]
+    co = weight.shape[-1]
+    _, n_samples = _b2_needed_cells(ry, rx, mm, blk, win, nbx)
+    moved = (nbytes(x, origins, ry, rx, mm) + 4 * weight.numel()
+             + 4 * p * co)
+    return moved, 2 * p * k * c * co + 2 * n_samples * (c // g)
+
+
+def _b2_rows_work(x, ry, rx, mm, weight, blk, win, nby, nbx):
+    """(bytes, operations) of B2 in rows mode: the gathered window cells
+    that a non-zero tent needs, the fields, the weight and the output; the
+    same operations as image mode."""
+    g, k, p = ry.shape
+    c = x.shape[-1]
+    co = weight.shape[-1]
+    need, n_samples = _b2_needed_cells(ry, rx, mm, blk, win, nbx)
+    moved = (int(need.sum()) * (c // g) * x.element_size()
              + nbytes(ry, rx, mm) + 4 * weight.numel() + 4 * p * co)
-    return moved, 2 * p * k * c * co + 2 * n_cells * (c // g)
+    return moved, 2 * p * k * c * co + 2 * n_samples * (c // g)
 
 
 def _b2_inputs(gen, dev, h, w, c, blk, g=8, k=9):
@@ -651,10 +702,51 @@ def _windowed_vs_exact(check, x, offset, mask, weight, bias, blk, win,
     return launches, ms, exact_ms
 
 
+def _b2_coords(gen, dev, shape, win):
+    """Window coordinates reaching 3 cells past the window on both sides,
+    5% of them far outside it (huge ones too)."""
+    r = (win + 5) * torch.rand(shape, generator=gen, device=dev) - 3
+    far = torch.rand(shape, generator=gen, device=dev) < 0.05
+    huge = torch.tensor([1e6, -1e6, 3e30, -3e30], device=dev)[
+        torch.randint(0, 4, shape, generator=gen, device=dev)]
+    return torch.where(far, huge, r)
+
+
+def _b2_image_probe(check, gen, dev, h, w, c, g, co, blk, win, nby, nbx):
+    """Image mode on random windows: origins drawn from the two clamps
+    (-2 and H + 2 - win, and the same for x), so whole window rows and
+    columns lie in the zero ring, and from in between; coordinates past
+    the window, huge ones, and zero modulation; in f32 and bf16, against
+    the plain version and rows mode."""
+    nb, p = nby * nbx, nby * nbx * blk * blk
+
+    def origin(n, top):
+        pick = torch.randint(0, 3, (nb, 9), generator=gen, device=dev)
+        mid = torch.randint(-2, top + 1, (nb, 9), generator=gen, device=dev)
+        return torch.where(pick == 0, -2, torch.where(pick == 1, top, mid))
+
+    origins = torch.stack([origin(nb, h + 2 - win), origin(nb, w + 2 - win)],
+                          dim=-1).to(torch.int32)
+    ry = _b2_coords(gen, dev, (g, 9, p), win)
+    rx = _b2_coords(gen, dev, (g, 9, p), win)
+    mm = torch.rand(g, 9, p, generator=gen, device=dev)
+    mm = mm * (torch.rand(g, 9, p, generator=gen, device=dev) > 0.2)
+    weight = torch.randn(9, c, co, generator=gen, device=dev) / 12
+    x = torch.randn(h, w, c, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace('torch.', '')
+        _b2_compare(check, (x.to(dtype), origins, ry, rx, mm, weight, blk,
+                            win, nby, nbx),
+                    f'image probe {h}x{w}x{c} G {g} Co {co} blk {blk} '
+                    f'win {win} {nby}x{nbx} blocks, origins at both clamps '
+                    f'{name}')
+
+
 def phase_b2(check, dev, card):
     from c2matching_tpu_torch.ops import (modulated_deform_conv,
                                           modulated_deform_conv_windowed,
-                                          window_contract)
+                                          window_contract,
+                                          window_contract_plain)
     gen = torch.Generator(device=dev).manual_seed(4)
     for (h, w, c), (layer, blk, win) in WINDOWED.items():
         x32, flow, resid, mask, weight, bias = _b2_inputs(gen, dev, h, w, c,
@@ -664,13 +756,13 @@ def phase_b2(check, dev, card):
             label = f'{layer} {h}x{w}x{c} blk {blk} win {win} {name}'
             x = x32.to(dtype)
             offset = flow + resid
-            rows, ry, rx, mm, ok, nby, nbx = _b2_window(
-                x[0], offset[0], mask[0], blk, win)
+            args, ok, nby, nbx = _b2_window(x[0], offset[0], mask[0], blk,
+                                            win)
             check(ok, f'b2 {label}: every tap inside its window')
-            args = (rows, ry, rx, mm, weight, blk, win, nby, nbx)
+            args = (*args, weight, blk, win, nby, nbx)
             _b2_compare(check, args, label)
             _b2_time(args, label)
-            del rows, ry, rx, mm, args
+            del args
             launches, ms, exact_ms = _windowed_vs_exact(
                 check, x, offset, mask, weight, bias, blk, win,
                 f'b2 windowed op {label}')
@@ -699,31 +791,62 @@ def phase_b2(check, dev, card):
             del out, offset
             torch.cuda.empty_cache()
 
-    # odd shapes against the plain version: tiles that straddle blocks and
-    # end ragged, C and Co off the kernel's tiles, coordinates far outside
-    # the window (huge ones too) and zero modulation
+    # rows mode on odd shapes against the plain version: tiles that
+    # straddle blocks and end ragged, C and Co off the kernel's tiles (a
+    # group of 6 channels takes the scalar path; Co 200 two column tiles),
+    # coordinates far outside the window (huge ones too), zero modulation
     for blk, win, nby, nbx, c, g, co in ((3, 7, 5, 7, 24, 4, 40),
                                          (1, 5, 9, 11, 16, 2, 200)):
         nb, p = nby * nbx, nby * nbx * blk * blk
         rows = torch.randn(nb, 9, win, win * c, generator=gen, device=dev)
-
-        def coords():
-            r = (win + 5) * torch.rand(g, 9, p, generator=gen, device=dev) - 3
-            far = torch.rand(g, 9, p, generator=gen, device=dev) < 0.05
-            huge = torch.tensor([1e6, -1e6, 3e30, -3e30], device=dev)[
-                torch.randint(0, 4, (g, 9, p), generator=gen, device=dev)]
-            return torch.where(far, huge, r)
-
-        ry, rx = coords(), coords()
+        ry = _b2_coords(gen, dev, (g, 9, p), win)
+        rx = _b2_coords(gen, dev, (g, 9, p), win)
         mm = torch.rand(g, 9, p, generator=gen, device=dev)
         mm = mm * (torch.rand(g, 9, p, generator=gen, device=dev) > 0.2)
         weight = torch.randn(9, c, co, generator=gen, device=dev) / 12
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace('torch.', '')
-            _b2_compare(check, (rows.to(dtype), ry, rx, mm, weight, blk, win,
-                                nby, nbx),
-                        f'odd blk {blk} win {win} {nby}x{nbx} blocks C {c} '
-                        f'G {g} Co {co} {name}')
+            args = (rows.to(dtype), ry, rx, mm, weight, blk, win, nby, nbx)
+            err = (window_contract(*args)
+                   - window_contract_plain(*args)).abs().max().item()
+            tol = _b2_tol(dtype)
+            check(err <= tol, f'b2 rows probe blk {blk} win {win} {nby}x{nbx}'
+                  f' blocks C {c} G {g} Co {co} {name}: max |out diff| '
+                  f'{err:.3g} <= {tol:g}')
+
+    # image mode on odd shapes: the output grid smaller than the image (as
+    # a row chunk's), C off the 16-channel ring slots with a group of 6
+    # (scalar path) or of 4, Co off the 64-channel tiles, a 2-tile Co
+    for h, w, c, g, co, blk, win, nby, nbx in (
+            (37, 29, 24, 4, 40, 3, 7, 5, 7),
+            (40, 44, 20, 5, 72, 2, 6, 20, 22),
+            (16, 20, 48, 8, 200, 4, 8, 4, 5),
+            (12, 9, 16, 2, 3, 1, 5, 12, 9)):
+        _b2_image_probe(check, gen, dev, h, w, c, g, co, blk, win, nby, nbx)
+
+    # a CUDA tensor the kernel cannot take raises: no fallback hides it
+    from c2matching_tpu_torch.ops import window_conv
+    x = torch.randn(16, 16, 8, device=dev)
+    origins = torch.zeros(16, 9, 2, dtype=torch.int32, device=dev)
+    fields = torch.zeros(2, 9, 256, device=dev)
+    wide = torch.zeros(16, 16, 1024, device=dev)
+    out = window_conv(x, origins, fields, fields, fields,
+                      torch.zeros(9, 8, 8, device=dev), 4, 6, 4, 4)
+    check(tuple(out.shape) == (16, 16, 8), 'b2 image mode takes the valid '
+          'counterpart of the refused calls')
+    for what, bad in (
+            ('a float64 image', (x.double(), origins,
+                                 torch.zeros(9, 8, 8, device=dev))),
+            ('int64 origins', (x, origins.long(),
+                               torch.zeros(9, 8, 8, device=dev))),
+            ('C = 1024, past its shared memory',
+             (wide, origins, torch.zeros(9, 1024, 8, device=dev)))):
+        try:
+            window_conv(*bad[:2], fields, fields, fields, bad[2], 4, 6, 4, 4)
+            raised = False
+        except (TypeError, ValueError, RuntimeError):
+            raised = True
+        check(raised, f'b2 image mode refuses {what} on the card')
 
 
 # --------------------------------------------------------------- main path
@@ -937,12 +1060,14 @@ def phase_path(check, report, recorded, card):
 
 def _path_windowed(check, dcns, cfg, name, card):
     """The windowed op on the DynAggs it serves (relu1 blk 4, relu2 blk
-    2), with B2 against its plain version on the same windows whichever
-    branch the op takes. Returns the kernels-line entry of this config:
-    B2's launches in the windowed op's run, counted from 0 before each
-    call, and the sums over the two DynAggs."""
+    2), with B2 in image mode against its plain version and rows mode on
+    the same inputs whichever branch the op takes. Returns the kernels-line
+    entry of this config: B2's launches in the windowed op's run, counted
+    from 0 before each call, and the sums over the two DynAggs."""
+    dw = importlib.import_module('c2matching_tpu_torch.ops.dcn_window')
     total = {'launches': 0, 'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
-    moved = ops = 0
+    moved = ops = rows_moved = 0
+    rows_ms = 0.0
     served = 0
     for x, offset, mask, weight, bias in dcns:
         if tuple(x.shape) not in WINDOWED:
@@ -951,24 +1076,21 @@ def _path_windowed(check, dcns, cfg, name, card):
         layer, blk, win = WINDOWED[tuple(x.shape)]
         label = 'main path {} {}x{}x{} blk {} win {} {}'.format(
             layer, *x.shape, blk, win, name)
-        rows, ry, rx, mm, ok, nby, nbx = _b2_window(x, offset, mask, blk,
-                                                    win)
-        args = (rows, ry, rx, mm, weight, blk, win, nby, nbx)
+        args, ok, nby, nbx = _b2_window(x, offset, mask, blk, win)
+        args = (*args, weight, blk, win, nby, nbx)
         total['max_abs_err'] = max(total['max_abs_err'],
                                    _b2_compare(check, args, label))
-        ms, plain_ms = _b2_time(args, label)
-        dw = importlib.import_module('c2matching_tpu_torch.ops.dcn_window')
+        ms, plain_ms, r_ms = _b2_time(args, label)
         prep_ms = cuda_ms(lambda: dw._window_prep(x, offset, mask, blk, win))
-        origins = dw._window_prep(x, offset, mask, blk, win)[0]
-        gather_ms = cuda_ms(lambda: dw._window_gather(x, origins, win))
-        print(f'path windowed op {label}: prep {prep_ms:.3f} ms, window '
-              f'gather {gather_ms:.3f} ms ({nbytes(rows) / 1e9:.2f} GB), '
-              f'B2 {ms:.3f} ms ({card})', flush=True)
+        print(f'path windowed op {label}: prep {prep_ms:.3f} ms, B2 '
+              f'{ms:.3f} ms ({card})', flush=True)
         work = _b2_work(*args)
         moved, ops = moved + work[0], ops + work[1]
+        rows_moved += _b2_rows_work(x, *args[2:])[0]
         total['ms'] += ms
         total['plain_ms'] += plain_ms
-        del rows, ry, rx, mm, args
+        rows_ms += r_ms
+        del args
         launches, ms, exact_ms = _windowed_vs_exact(
             check, x[None], offset[None], mask[None], weight, bias, blk, win,
             f'path windowed op {label}')
@@ -983,11 +1105,19 @@ def _path_windowed(check, dcns, cfg, name, card):
           f'windowed op\'s shapes')
     check(total['launches'] > 0, f'path {cfg}: window_contract launched '
           f'{total["launches"]} times by the windowed op')
-    total['bound_ms'], total['bound_by'] = bound(moved, ops, torch.float32)
+    # the kernel's pipe: three TF32 products per f32 product
+    total['bound_ms'], total['bound_by'] = bound(
+        moved, B1_TF32_PRODUCTS * ops, 'tf32')
+    simt_ms, _ = bound(moved, ops, torch.float32)
+    rows_bound, rows_by = bound(rows_moved, B1_TF32_PRODUCTS * ops, 'tf32')
     total['library_ms'] = None
-    print(f'b2 main path {name}: kernel {total["ms"]:.3f} ms over the two '
+    print(f'b2 main path {name}: image mode {total["ms"]:.3f} ms over the two '
           f'DynAggs, bound {total["bound_ms"]:.3f} ms by {total["bound_by"]} '
-          f'({card})', flush=True)
+          f'({moved / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP; 3xTF32 at '
+          f'{PEAK_FLOPS["tf32"] / 1e12:g} TFLOP/s; SIMT f32 at '
+          f'{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s: {simt_ms:.3f} ms); '
+          f'rows mode {rows_ms:.3f} ms, bound {rows_bound:.3f} ms by '
+          f'{rows_by} ({rows_moved / 1e9:.3f} GB) ({card})', flush=True)
     return total
 
 

@@ -35,6 +35,15 @@ def test_every_source_of_the_port_finds_its_headers():
         _build.CSRC / 'patch_match.cu')
 
 
+@pytest.mark.parametrize('name', ['patch_match', 'dcn_window'])
+def test_tensor_core_kernels_share_their_helpers(name):
+    """B1 and B2 take their mma.sync, cp.async, ldmatrix and 3xTF32 split
+    helpers from one header, so an edit there rebuilds both."""
+    assert (_build.CSRC / 'mma.cuh') in _build.local_headers(
+        _build.CSRC / f'{name}.cu')
+    assert _build.library_path(name).name.startswith(f'{name}-')
+
+
 @pytest.mark.parametrize('edited', ['a.cu', 'one.cuh', 'two.cuh'])
 def test_an_edited_source_or_header_changes_the_library(csrc, edited):
     before = _build.library_path('a')
