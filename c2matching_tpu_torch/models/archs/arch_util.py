@@ -4,6 +4,10 @@ Counterpart of ``c2matching_tpu/models/archs/arch_util.py``. Modules take
 and return NHWC tensors; their convolutions run in cuDNN on the
 ``permute(0, 3, 1, 2)`` view, which is free and already in channels_last
 memory order. Parameters carry the reference's torch state-dict names.
+
+``dtype`` is the compute dtype of the convolutions, as the JAX package's
+``dtype`` field on every network block: parameters stay float32, and each
+conv casts its input, weight and bias to it (None is float32).
 """
 import math
 
@@ -12,23 +16,31 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
+from ...ops.patch_match import as_dtype
+
 
 class Conv2d(nn.Conv2d):
-    """3x3, stride-1, same-padded convolution on NHWC tensors."""
+    """3x3, stride-1, same-padded convolution on NHWC tensors, computed in
+    ``compute_dtype`` (float32 unless given) from float32 parameters."""
 
-    def __init__(self, in_channels, out_channels, device=None):
+    def __init__(self, in_channels, out_channels, device=None,
+                 compute_dtype=None):
         super().__init__(in_channels, out_channels, 3, padding=1,
                          device=device)
+        self.compute_dtype = as_dtype(compute_dtype) or torch.float32
 
     def forward(self, x):
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        dt = self.compute_dtype
+        return self._conv_forward(x.permute(0, 3, 1, 2).to(dt),
+                                  self.weight.to(dt),
+                                  self.bias.to(dt)).permute(0, 2, 3, 1)
 
 
-def conv(in_channels, out_channels, generator=None, std=0.02):
-    """A 3x3 ``Conv2d`` with weights drawn from normal(0, std) by
-    ``generator`` (std 0 gives zeros) and a zero bias. ``std=None`` draws
-    He-normal weights, normal(0, sqrt(2 / fan_in))."""
-    layer = skip_init(Conv2d, in_channels, out_channels)
+def conv(in_channels, out_channels, generator=None, std=0.02, dtype=None):
+    """A 3x3 ``Conv2d`` computing in ``dtype``, with weights drawn from
+    normal(0, std) by ``generator`` (std 0 gives zeros) and a zero bias.
+    ``std=None`` draws He-normal weights, normal(0, sqrt(2 / fan_in))."""
+    layer = skip_init(Conv2d, in_channels, out_channels, compute_dtype=dtype)
     if std is None:
         std = math.sqrt(2.0 / (in_channels * 9))
     with torch.no_grad():
@@ -79,10 +91,10 @@ class ResidualBlockNoBN(nn.Module):
     """Conv-ReLU-Conv residual block without BN; each conv output is
     masked to the valid region when a mask is given."""
 
-    def __init__(self, nf=64, generator=None):
+    def __init__(self, nf=64, generator=None, dtype=None):
         super().__init__()
-        self.conv1 = conv(nf, nf, generator)
-        self.conv2 = conv(nf, nf, generator)
+        self.conv1 = conv(nf, nf, generator, dtype=dtype)
+        self.conv2 = conv(nf, nf, generator, dtype=dtype)
 
     def forward(self, x, mask=None):
         out = self.conv1(x)
@@ -98,8 +110,8 @@ class ResBlockStack(nn.ModuleList):
     """n sequential ResidualBlockNoBN (the reference's make_layer), with
     parameters named ``{i}.conv{1,2}.*``."""
 
-    def __init__(self, nf=64, n_blocks=16, generator=None):
-        super().__init__([ResidualBlockNoBN(nf, generator)
+    def __init__(self, nf=64, n_blocks=16, generator=None, dtype=None):
+        super().__init__([ResidualBlockNoBN(nf, generator, dtype)
                           for _ in range(n_blocks)])
 
     def forward(self, x, mask=None):

@@ -17,19 +17,21 @@ class CorrespondenceGenerationArch(nn.Module):
     features of the HR reference.
 
     ``match_dtype``: dtype of the correlation operands only (the serving
-    knob); None keeps f32.
+    knob); None keeps f32. ``dtype``: compute dtype of the VGG19's convs.
     """
 
     def __init__(self, patch_size=3, stride=1,
                  vgg_layer_list=('relu3_1', 'relu2_1', 'relu1_1'),
-                 vgg_type='vgg19', match_dtype=None, generator=None):
+                 vgg_type='vgg19', match_dtype=None, generator=None,
+                 dtype=None):
         super().__init__()
         if stride != 1:
             raise NotImplementedError(f'matching stride {stride}')
         self.patch_size = patch_size
         self.match_dtype = match_dtype
         self.vgg = VGGFeatureExtractor(layer_name_list=list(vgg_layer_list),
-                                       vgg_type=vgg_type, generator=generator)
+                                       vgg_type=vgg_type, generator=generator,
+                                       dtype=dtype)
 
     def forward(self, dense_features, img_ref_hr, valid_shape=None):
         """

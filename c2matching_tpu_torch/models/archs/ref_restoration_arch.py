@@ -8,6 +8,9 @@ are the reference's torch state-dict keys (``content_extractor.*``,
 Init: normal(0, 0.02) for every conv, zero ``conv_offset_mask``, and the
 DCN main weight uniform(-1/sqrt(C*9), 1/sqrt(C*9)) with zero bias, all
 drawn from an explicit ``torch.Generator``.
+
+``dtype`` (None is float32) is the compute dtype of every conv, as in the
+JAX package; the DCN's offsets and mask stay float32 whatever it is.
 """
 import math
 
@@ -27,17 +30,17 @@ class DynAgg(nn.Module):
 
     ``gather_dtype``: dtype of the deformable sampling and the weight
     contraction only; sampling coordinates stay f32. None keeps
-    ref_feat's dtype.
+    ref_feat's dtype. ``dtype``: compute dtype of ``conv_offset_mask``.
     """
 
     def __init__(self, channels, deformable_groups=8, gather_dtype=None,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
         self.groups = deformable_groups
         self.k = 9
         self.gather_dtype = as_dtype(gather_dtype)
         self.conv_offset_mask = conv(channels, 3 * deformable_groups * 9,
-                                     generator, std=0)
+                                     generator, std=0, dtype=dtype)
         stdv = 1.0 / math.sqrt(channels * 9)
         self.weight = nn.Parameter(
             torch.empty(channels, channels, 3, 3).uniform_(
@@ -81,10 +84,10 @@ class DynAgg(nn.Module):
 class ContentExtractor(nn.Module):
     """conv + n residual blocks on the LR input."""
 
-    def __init__(self, nf=64, n_blocks=16, generator=None):
+    def __init__(self, nf=64, n_blocks=16, generator=None, dtype=None):
         super().__init__()
-        self.conv_first = conv(3, nf, generator)
-        self.body = ResBlockStack(nf, n_blocks, generator)
+        self.conv_first = conv(3, nf, generator, dtype=dtype)
+        self.body = ResBlockStack(nf, n_blocks, generator, dtype)
 
     def forward(self, x, mask=None):
         feat = lrelu(self.conv_first(x))
@@ -101,26 +104,30 @@ class DynamicAggregationRestoration(nn.Module):
     """3-scale coarse-to-fine decoder with a DynAgg at each scale."""
 
     def __init__(self, ngf=64, n_blocks=16, groups=8, gather_dtype=None,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
         gen = generator
+
+        def conv_(cin, cout):
+            return conv(cin, cout, gen, dtype=dtype)
+
         for scale, _, ref_ch in _SCALES:
-            setattr(self, f'{scale}_offset_conv1', conv(ngf + ref_ch, ref_ch,
-                                                        gen))
-            setattr(self, f'{scale}_offset_conv2', conv(ref_ch, ref_ch, gen))
+            setattr(self, f'{scale}_offset_conv1', conv_(ngf + ref_ch, ref_ch))
+            setattr(self, f'{scale}_offset_conv2', conv_(ref_ch, ref_ch))
             setattr(self, f'{scale}_dyn_agg',
-                    DynAgg(ref_ch, groups, gather_dtype, gen))
+                    DynAgg(ref_ch, groups, gather_dtype, gen, dtype))
             setattr(self, f'head_{scale}', nn.Sequential(
-                conv(ngf + ref_ch, ngf, gen), nn.LeakyReLU(0.1)))
-            setattr(self, f'body_{scale}', ResBlockStack(ngf, n_blocks, gen))
-        self.tail_small = nn.Sequential(conv(ngf, ngf * 4, gen),
+                conv_(ngf + ref_ch, ngf), nn.LeakyReLU(0.1)))
+            setattr(self, f'body_{scale}',
+                    ResBlockStack(ngf, n_blocks, gen, dtype))
+        self.tail_small = nn.Sequential(conv_(ngf, ngf * 4),
                                         nn.PixelShuffle(2), nn.LeakyReLU(0.1))
-        self.tail_medium = nn.Sequential(conv(ngf, ngf * 4, gen),
+        self.tail_medium = nn.Sequential(conv_(ngf, ngf * 4),
                                          nn.PixelShuffle(2),
                                          nn.LeakyReLU(0.1))
-        self.tail_large = nn.Sequential(conv(ngf, ngf // 2, gen),
+        self.tail_large = nn.Sequential(conv_(ngf, ngf // 2),
                                         nn.LeakyReLU(0.1),
-                                        conv(ngf // 2, 3, gen))
+                                        conv_(ngf // 2, 3))
 
     def _scale_stage(self, x, scale, ref, pre_offset, vs):
         mask = None if vs is None else valid_mask(x, vs)
@@ -166,11 +173,12 @@ class RestorationNet(nn.Module):
     bilinear x4 base."""
 
     def __init__(self, ngf=64, n_blocks=16, groups=8, gather_dtype=None,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
-        self.content_extractor = ContentExtractor(ngf, n_blocks, generator)
+        self.content_extractor = ContentExtractor(ngf, n_blocks, generator,
+                                                  dtype)
         self.dyn_agg_restore = DynamicAggregationRestoration(
-            ngf, n_blocks, groups, gather_dtype, generator)
+            ngf, n_blocks, groups, gather_dtype, generator, dtype)
 
     def forward(self, x, pre_offset, img_ref_feat, valid_shape=None):
         """

@@ -4,6 +4,8 @@ Counterpart of ``c2matching_tpu/models/archs/vgg_arch.py``. Parameter and
 buffer names follow the reference (``vgg_net.{name}.*`` and ``mean`` /
 ``std`` for VGGFeatureExtractor, ``model.{name}.*`` and ``mean`` / ``std``
 for ContrasExtractorLayer), so its state dicts load with strict=True.
+``dtype`` (None is float32) is the compute dtype of the convs, as in the JAX
+package; the input normalisation stays in the input's dtype.
 """
 import torch
 import torch.nn.functional as F
@@ -58,13 +60,14 @@ def vgg_layer_prefix(vgg_type, last_layer):
     return names[:names.index(last_layer) + 1]
 
 
-def _vgg_convs(names, generator):
-    """A ModuleDict of the convs among ``names``, He-normal initialized."""
+def _vgg_convs(names, generator, dtype=None):
+    """A ModuleDict of the convs among ``names``, He-normal initialized,
+    computing in ``dtype``."""
     layers, cin = {}, 3
     for name in names:
         if name.startswith('conv'):
             cout = _BLOCK_CHANNELS[int(name[4])]
-            layers[name] = conv(cin, cout, generator, std=None)
+            layers[name] = conv(cin, cout, generator, std=None, dtype=dtype)
             cin = cout
     return nn.ModuleDict(layers)
 
@@ -110,13 +113,14 @@ class VGGFeatureExtractor(nn.Module):
     The JAX package's ``use_input_norm`` / ``remove_pooling`` /
     ``pooling_stride`` options, which no config sets, are not ported."""
 
-    def __init__(self, layer_name_list, vgg_type='vgg19', generator=None):
+    def __init__(self, layer_name_list, vgg_type='vgg19', generator=None,
+                 dtype=None):
         super().__init__()
         self.layer_name_list = list(layer_name_list)
         names = NAMES[vgg_type]
         last = max(names.index(v) for v in self.layer_name_list)
         self.names = names[:last + 1]
-        self.vgg_net = _vgg_convs(self.names, generator)
+        self.vgg_net = _vgg_convs(self.names, generator, dtype)
         _imagenet_buffers(self)
 
     def forward(self, x, valid_shape=None):
@@ -132,10 +136,10 @@ class ContrasExtractorLayer(nn.Module):
     """VGG16 prefix up to and including conv3_1 (pre-activation output),
     with ImageNet input normalization."""
 
-    def __init__(self, generator=None):
+    def __init__(self, generator=None, dtype=None):
         super().__init__()
         self.names = vgg_layer_prefix('vgg16', 'conv3_1')
-        self.model = _vgg_convs(self.names, generator)
+        self.model = _vgg_convs(self.names, generator, dtype)
         _imagenet_buffers(self)
 
     def forward(self, x, valid_shape=None):
@@ -146,10 +150,12 @@ class ContrasExtractorSep(nn.Module):
     """Two separate (non-shared) contrastive extractors, for the input and
     for the reference."""
 
-    def __init__(self, generator=None):
+    def __init__(self, generator=None, dtype=None):
         super().__init__()
-        self.feature_extraction_image1 = ContrasExtractorLayer(generator)
-        self.feature_extraction_image2 = ContrasExtractorLayer(generator)
+        self.feature_extraction_image1 = ContrasExtractorLayer(generator,
+                                                               dtype)
+        self.feature_extraction_image2 = ContrasExtractorLayer(generator,
+                                                               dtype)
 
     def forward(self, image1, image2, valid_shape=None):
         return {

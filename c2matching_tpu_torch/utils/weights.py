@@ -16,7 +16,7 @@ arrays or anything ``np.asarray`` takes; a variables dict with a
 import numpy as np
 import torch
 
-from ..models.archs.vgg_arch import IMAGENET_MEAN, IMAGENET_STD
+from ..models.archs.vgg_arch import IMAGENET_MEAN, IMAGENET_STD, NAMES
 
 
 def _params(tree):
@@ -24,7 +24,7 @@ def _params(tree):
 
 
 def _tensor(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.from_numpy(np.array(a))
 
 
 def _conv(out, key, leaf):
@@ -101,4 +101,18 @@ def corres_generation_state_dict(tree):
     _imagenet(out, 'vgg')
     for name, leaf in p['vgg'].items():
         _conv(out, f'vgg.vgg_net.{name}', leaf)
+    return out
+
+
+def torchvision_vgg_state_dict(tree, vgg_type='vgg19'):
+    """VGGFeatureExtractor flax params (or CorrespondenceGenerationArch's,
+    whose VGG sits under 'vgg') -> a torchvision VGG state dict,
+    ``features.{i}.weight`` / ``.bias`` with i the layer's index in
+    NAMES[vgg_type]: the file ``path.pretrain_model_vgg`` names."""
+    p = _params(tree)
+    p = p.get('vgg', p)
+    out = {}
+    for idx, name in enumerate(NAMES[vgg_type]):
+        if name in p:
+            _conv(out, f'features.{idx}', p[name])
     return out

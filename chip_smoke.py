@@ -53,7 +53,21 @@ Phases:
      takes, B2 in image mode against its plain version and rows mode
      there, the prep's and B2's times, and the windowed op against the
      exact op. These are the times of the kernels line.
-  7. one JSON line of kernels, the card's line, and last the JSON result.
+  7. eval: the port's test runner (c2matching_tpu_torch.test.run, what
+     `python -m c2matching_tpu_torch.test` calls) on the card, through
+     options files written from options/test/test_synth_smoke.yml (f32)
+     and test_synth_smoke_serving.yml (bf16 gathers and match operands)
+     with their dataroots and pretrain paths replaced: two sets, the
+     3-pair synth set at 160 from the port's generator and one
+     CUFED5-shaped pair (input 332x500, reference 340x512, which takes
+     the dataset's padding branch), and the nets' seeded init saved as
+     the reference's .pth files the options name. Each config runs once to
+     warm up, then three times more with the launch counters at 0 (both
+     kernels must launch); the f32 metrics on the synth set are held
+     against the same runner on the CPU. Prints PSNR, PSNR_Y, SSIM_Y and
+     the median ms per image over the three passes for each config and
+     set.
+  8. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -62,6 +76,7 @@ import contextlib
 import importlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -90,6 +105,12 @@ WIN_F32_REL = 1e-4   # windowed op vs exact op, of max |out|: tents and
                      # bilinear corner weights round apart
 WIN_BF16_REL = 0.03  # bf16 x: the exact op rounds the weight to bf16, the
                      # windowed op keeps it f32
+EVAL_PSNR_TOL = 0.01  # dB, card vs CPU f32 runner on the synth set: the
+                      # outputs agree to ~1e-6, so only a rare uint8
+                      # rounding flips
+EVAL_SSIM_TOL = 1e-4
+EVAL_SERVING_PSNR_TOL = 0.5  # dB, serving vs f32 on the card: bf16 gathers
+                             # and near-tie match flips; a sanity bound
 
 F32_BLOCKS = {
     'network_g': {'type': 'RestorationNet', 'ngf': 64, 'n_blocks': 16,
@@ -1121,6 +1142,185 @@ def _path_windowed(check, dcns, cfg, name, card):
     return total
 
 
+# ------------------------------------------------------------------ eval
+EVAL_OPTIONS = (('f32', 'options/test/test_synth_smoke.yml'),
+                ('serving', 'options/test/test_synth_smoke_serving.yml'))
+EVAL_METRICS = ('psnr', 'psnr_y', 'ssim_y')
+EVAL_PASSES = 3   # timed runs of each config; the host clock varies by tens
+                  # of % from one run to the next, so the median is printed
+
+
+def _eval_data(root):
+    """The synth set (3 pairs at 160) and one CUFED5-shaped pair, input
+    332x500 and a larger 340x512 reference, under ``root``."""
+    import numpy as np
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    from c2matching_tpu_torch.utils.util import imwrite
+    synth.write_dataset(f'{root}/synth', n=3, size=(160,))
+    rng = np.random.RandomState(1)
+    imwrite(synth.to_bgr_u8(synth.synth_image(rng, 332, 500)),
+            f'{root}/cufed/input/000_0.png')
+    imwrite(synth.to_bgr_u8(synth.synth_image(rng, 340, 512)),
+            f'{root}/cufed/ref/000_1.png')
+    with open(f'{root}/cufed/pairs.txt', 'w') as f:
+        f.write('000_0.png 000_1.png\n')
+
+
+def _eval_weights(root):
+    """The nets' seeded init (manual_seed 0, full width) as the reference's
+    .pth files: net_g and net_extractor state dicts and a torchvision VGG19
+    (``features.{i}.*``). Returns {options key: path}."""
+    from c2matching_tpu_torch.models import define_network
+    from c2matching_tpu_torch.models.archs.vgg_arch import NAMES
+    gen = torch.Generator().manual_seed(0)
+    nets = {k: define_network(F32_BLOCKS[k], gen)
+            for k in ('network_g', 'network_map', 'network_extractor')}
+    vgg = {}
+    for key, value in nets['network_map'].state_dict().items():
+        if key.startswith('vgg.vgg_net.'):
+            name, leaf = key[len('vgg.vgg_net.'):].split('.')
+            vgg[f'features.{NAMES["vgg19"].index(name)}.{leaf}'] = value
+    files = {'pretrain_model_g': nets['network_g'].state_dict(),
+             'pretrain_model_feature_extractor':
+                 nets['network_extractor'].state_dict(),
+             'pretrain_model_vgg': vgg}
+    paths = {}
+    for key, state in files.items():
+        paths[key] = f'{root}/{key}.pth'
+        torch.save(state, paths[key])
+    return paths
+
+
+def _eval_options(template, root, weights, sets):
+    """Options text: ``template`` (a repo options file) with its synth
+    dataroots under ``root``, the pretrain paths ``weights``, and the
+    CUFED5-shaped pair as dataset test_2 when ``sets`` names it."""
+    import os.path as osp
+    here = osp.dirname(osp.abspath(__file__))
+    with open(osp.join(here, template)) as f:
+        text = f.read().replace('./datasets/synth', f'{root}/synth')
+    for key, path in weights.items():
+        if f'  {key}: ~' in text:
+            text = text.replace(f'  {key}: ~', f'  {key}: {path}')
+        else:
+            text = text.replace('  strict_load: true',
+                                f'  {key}: {path}\n  strict_load: true')
+    if 'cufed' in sets:
+        text = text.replace('\nval_func:', f"""
+  test_2:
+    name: cufed
+    type: RefCUFEDDataset
+    dataroot_in: {root}/cufed/input
+    dataroot_ref: {root}/cufed/ref
+    io_backend:
+      type: disk
+    ann_file: {root}/cufed/pairs.txt
+
+val_func:""", 1)
+    return text
+
+
+@contextlib.contextmanager
+def _timed_validation():
+    """Host time of each image's model part (feed_data, test, crop, and the
+    copy to uint8 images, which waits for the card) and of each dataset's
+    whole validation loop (decode, bicubic chain, model, metrics, PNG
+    save): {dataset name: [(loop seconds, [image seconds]) per pass]}."""
+    from c2matching_tpu_torch.models.ref_restoration_model import \
+        RefRestorationModel
+    from c2matching_tpu_torch.models.sr_model import SRModel
+    times = {'images': [], 'sets': {}}
+    images, loop = (RefRestorationModel._validation_images,
+                    SRModel._validation_loop)
+
+    def images_timed(self, val_data):
+        t0 = time.perf_counter()
+        out = images(self, val_data)
+        times['images'].append(time.perf_counter() - t0)
+        return out
+
+    def loop_timed(self, dataloader, *args, **kwargs):
+        first = len(times['images'])
+        t0 = time.perf_counter()
+        avgs = loop(self, dataloader, *args, **kwargs)
+        times['sets'].setdefault(dataloader.dataset.opt['name'], []).append(
+            (time.perf_counter() - t0, times['images'][first:]))
+        return avgs
+
+    RefRestorationModel._validation_images = images_timed
+    SRModel._validation_loop = loop_timed
+    try:
+        yield times
+    finally:
+        RefRestorationModel._validation_images = images
+        SRModel._validation_loop = loop
+
+
+def phase_eval(check, card):
+    import os
+    import tempfile
+    from c2matching_tpu_torch.ops import deform_im2col, match_argmax
+    from c2matching_tpu_torch.test import run
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_eval_') as root:
+        _eval_data(root)
+        weights = _eval_weights(root)
+        results = {}
+        for cfg, template in EVAL_OPTIONS:
+            path = f'{root}/{cfg}.yml'
+            with open(path, 'w') as f:
+                f.write(_eval_options(template, root, weights,
+                                      ('synth', 'cufed')))
+            os.environ['C2MATCHING_ROOT'] = f'{root}/out_{cfg}_warm'
+            run(path)                      # warm-up: cuDNN plans, allocator
+            os.environ['C2MATCHING_ROOT'] = f'{root}/out_{cfg}'
+            match_argmax.launches = 0
+            deform_im2col.launches = 0
+            with _timed_validation() as times:
+                for _ in range(EVAL_PASSES):
+                    results[cfg] = run(path)
+            launches = {'match_argmax': match_argmax.launches,
+                        'deform_im2col': deform_im2col.launches}
+            for name, count in launches.items():
+                check(count > 0, f'eval {cfg}: {name} launched {count} times '
+                      'by the test runner')
+            for name, avgs in results[cfg].items():
+                passes = times['sets'][name]
+                n_img = len(passes[0][1])
+                model = sorted(1e3 * sum(p[1]) / n_img for p in passes)
+                runner = sorted(1e3 * p[0] / n_img for p in passes)
+                check(all(math.isfinite(avgs[k]) for k in EVAL_METRICS),
+                      f'eval {cfg} {name}: finite metrics')
+                print(f'eval {cfg} {name}: PSNR {avgs["psnr"]:.4f} dB, '
+                      f'PSNR_Y {avgs["psnr_y"]:.4f} dB, SSIM_Y '
+                      f'{avgs["ssim_y"]:.5f}; {n_img} images, median of '
+                      f'{len(passes)} passes (min-max): model '
+                      f'{statistics.median(model):.1f} ({model[0]:.1f}-'
+                      f'{model[-1]:.1f}) ms/image (feed_data + test + crop + '
+                      f'uint8), runner {statistics.median(runner):.1f} '
+                      f'({runner[0]:.1f}-{runner[-1]:.1f}) ms/image (decode, '
+                      'bicubic chain, model, metrics, PNG save) '
+                      f'({card})', flush=True)
+        # the same runner on the CPU, where the plain versions run
+        cpu_path = f'{root}/f32_cpu.yml'
+        with open(cpu_path, 'w') as f:
+            f.write(_eval_options(EVAL_OPTIONS[0][1], root, weights,
+                                  ('synth',)))
+        os.environ['C2MATCHING_ROOT'] = f'{root}/out_cpu'
+        cpu = run(cpu_path, 'cpu')['synth']
+        card_f32 = results['f32']['synth']
+        for k in EVAL_METRICS:
+            tol = EVAL_SSIM_TOL if k == 'ssim_y' else EVAL_PSNR_TOL
+            diff = abs(card_f32[k] - cpu[k])
+            check(diff <= tol, f'eval f32 synth: {k} card {card_f32[k]:.6f} '
+                  f'vs CPU {cpu[k]:.6f}, |diff| {diff:.3g} <= {tol:g}')
+        for name, avgs in results['serving'].items():
+            diff = abs(avgs['psnr'] - results['f32'][name]['psnr'])
+            check(diff <= EVAL_SERVING_PSNR_TOL,
+                  f'eval serving {name}: PSNR within {diff:.4f} dB of f32 '
+                  f'(<= {EVAL_SERVING_PSNR_TOL:g})')
+        del os.environ['C2MATCHING_ROOT']
+
+
 def main():
     if len(sys.argv) > 1:
         sys.exit(f'chip_smoke.py takes no arguments, got {sys.argv[1:]}')
@@ -1155,7 +1355,8 @@ def main():
             ('b3', lambda: phase_b3(check, dev)),
             ('b2', lambda: phase_b2(check, dev, card)),
             ('main', lambda: phase_main(check, dev, report, card, recorded)),
-            ('path', lambda: phase_path(check, report, recorded, card))):
+            ('path', lambda: phase_path(check, report, recorded, card)),
+            ('eval', lambda: phase_eval(check, card))):
         try:
             fn()
         except Exception as exc:  # a phase fails; the others still run
