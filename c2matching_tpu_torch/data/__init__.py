@@ -1,12 +1,15 @@
-"""Datasets and loaders of the port (evaluation).
+"""Datasets, samplers and loaders of the port.
 
-Counterpart of ``c2matching_tpu/data/__init__.py`` for the val/test
-phases: ``create_dataset`` dispatches on the YAML ``type``, and
-``create_dataloader`` gives the batch-1 in-order loader the reference
-uses for evaluation.
+Counterpart of ``c2matching_tpu/data/__init__.py``: ``create_dataset``
+dispatches on the YAML ``type``; ``create_dataloader`` gives the train
+loader (``batch_size``, ``drop_last``, a shuffle or a sampler, prefetch
+threads for ``n_workers``) or the batch-1 in-order loader of evaluation;
+``create_train_sampler`` the ratio-enlarged sampler. One process: the
+per-process split of a multi-GPU run is not ported.
 """
 import logging
 
+from .data_sampler import EnlargedIterSampler
 from .loader import DataLoader, default_collate
 from .ref_cufed_dataset import RefCUFEDDataset
 
@@ -28,15 +31,32 @@ def create_dataset(dataset_opt):
     return dataset
 
 
-def create_dataloader(dataset, dataset_opt):
-    """The batch-1 in-order loader of the val/test phases."""
+def create_dataloader(dataset, dataset_opt, sampler=None, seed=0):
+    """The loader of the block's phase: in train, batches of
+    ``batch_size`` with the last partial one dropped, shuffled by
+    ``RandomState(seed + epoch)`` (``use_shuffle``, default on) unless a
+    ``sampler`` gives the order, read by ``n_workers`` threads (at least
+    1); in val / test, one item a batch in order."""
     phase = dataset_opt['phase']
+    if phase == 'train':
+        shuffle = dataset_opt.get('use_shuffle', True)
+        return DataLoader(dataset, batch_size=dataset_opt['batch_size'],
+                          sampler=sampler,
+                          shuffle=shuffle and sampler is None,
+                          num_workers=dataset_opt.get('n_workers', 1) or 1,
+                          drop_last=True, seed=seed)
     if phase in ('val', 'test'):
         return DataLoader(dataset)
-    if phase == 'train':
-        raise NotImplementedError('train loaders come with the train runner')
     raise ValueError(f'Wrong dataset phase: {phase}.')
 
 
-__all__ = ['DATASETS', 'DataLoader', 'RefCUFEDDataset', 'create_dataloader',
-           'create_dataset', 'default_collate']
+def create_train_sampler(dataset, dataset_opt):
+    """The sampler that enlarges the dataset by ``dataset_enlarge_ratio``
+    (default 1)."""
+    ratio = dataset_opt.get('dataset_enlarge_ratio', 1) or 1
+    return EnlargedIterSampler(len(dataset), ratio=ratio)
+
+
+__all__ = ['DATASETS', 'DataLoader', 'EnlargedIterSampler', 'RefCUFEDDataset',
+           'create_dataloader', 'create_dataset', 'create_train_sampler',
+           'default_collate']

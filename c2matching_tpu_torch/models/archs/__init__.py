@@ -1,6 +1,7 @@
 """Network architectures of the port (NHWC modules with the reference's
 torch state-dict names)."""
 from .corres_generation_arch import CorrespondenceGenerationArch
+from .discriminator_arch import ImageDiscriminator
 from .ref_restoration_arch import (ContentExtractor, DynAgg,
                                    DynamicAggregationRestoration,
                                    RestorationNet)
@@ -8,11 +9,12 @@ from .vgg_arch import (ContrasExtractorLayer, ContrasExtractorSep,
                        VGGFeatureExtractor)
 
 ARCHS = {cls.__name__: cls for cls in (
-    ContrasExtractorSep, CorrespondenceGenerationArch, RestorationNet,
-    VGGFeatureExtractor)}
+    ContrasExtractorSep, CorrespondenceGenerationArch, ImageDiscriminator,
+    RestorationNet, VGGFeatureExtractor)}
 
 __all__ = [
     'ARCHS', 'ContentExtractor', 'ContrasExtractorLayer',
     'ContrasExtractorSep', 'CorrespondenceGenerationArch', 'DynAgg',
-    'DynamicAggregationRestoration', 'RestorationNet', 'VGGFeatureExtractor',
+    'DynamicAggregationRestoration', 'ImageDiscriminator', 'RestorationNet',
+    'VGGFeatureExtractor',
 ]

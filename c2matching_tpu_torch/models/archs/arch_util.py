@@ -84,6 +84,12 @@ def scale_valid(valid_shape, factor):
 
 
 def lrelu(x, slope=0.1):
+    """Leaky ReLU whose derivative at exactly 0 is 1, as JAX's
+    ``where(x >= 0, x, slope * x)`` gives (torch's ``leaky_relu`` gives
+    ``slope`` there); the same values either way, so without a gradient
+    the single fused op runs."""
+    if x.requires_grad:
+        return torch.where(x >= 0, x, x * slope)
     return F.leaky_relu(x, negative_slope=slope)
 
 

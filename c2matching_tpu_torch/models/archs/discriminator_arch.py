@@ -1,0 +1,98 @@
+"""Image discriminator of the stage-3 GAN.
+
+Counterpart of ``c2matching_tpu/models/archs/discriminator_arch.py``: five
+conv-BN-LReLU(0.2) double blocks (the second conv of each with stride 2),
+a global mean, then 1x1 convs to a sigmoid score. NHWC in, (B, 1, 1, 1)
+out. Parameters carry the reference's torch names (``conv_block{i}.{0,1,
+3,4}``, ``out_block.{1,3}``), the ones ``c2matching_tpu/utils/
+pth_import.py::import_discriminator`` reads.
+
+Init (srntt): conv weights normal(0, 0.02), zero biases, BN scale
+N(1, 0.02) and zero shift, all from an explicit ``torch.Generator``. It
+computes in float32: the JAX package's ``dtype`` field is not ported.
+
+BatchNorm is the JAX package's (flax ``nn.BatchNorm``, momentum 0.9,
+epsilon 1e-5), not torch's: in train mode it normalizes by the batch's
+mean and biased variance, var = max(0, E[x^2] - E[x]^2), and moves the
+running statistics by 0.1 toward the batch's mean and that same biased
+variance (torch would store the unbiased one). ``forward(x,
+update_stats=False)`` leaves the running statistics as they are, as the
+JAX package does for the gradient-penalty pass. In eval mode the running
+statistics normalize.
+"""
+import torch
+from torch import nn
+
+from .arch_util import lrelu
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over NCHW with flax's arithmetic (see module docstring);
+    the state dict is torch's."""
+
+    def __init__(self, num_features):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x, update_stats=True):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.)
+            if update_stats:
+                with torch.no_grad():
+                    self.running_mean.mul_(1 - self.momentum).add_(
+                        self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(
+                        self.momentum * var)
+                    self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
+                + self.bias[None, :, None, None])
+
+
+def _conv(cin, cout, ksize, stride, generator):
+    layer = nn.Conv2d(cin, cout, ksize, stride=stride, padding=ksize // 2)
+    with torch.no_grad():
+        layer.weight.normal_(0.0, 0.02, generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+def _bn(channels, generator):
+    layer = FlaxBatchNorm2d(channels)
+    with torch.no_grad():
+        layer.weight.normal_(1.0, 0.02, generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+class ImageDiscriminator(nn.Module):
+    """Stage-3 discriminator (see module docstring)."""
+
+    def __init__(self, in_nc=3, ndf=32, generator=None):
+        super().__init__()
+        channels, cin = ndf, in_nc
+        for i in range(1, 6):
+            setattr(self, f'conv_block{i}', nn.Sequential(
+                _conv(cin, channels, 3, 1, generator),
+                _bn(channels, generator), nn.LeakyReLU(0.2),
+                _conv(channels, channels, 3, 2, generator),
+                _bn(channels, generator), nn.LeakyReLU(0.2)))
+            cin = channels
+            if i < 5:
+                channels *= 2
+        self.out_block = nn.Sequential(
+            nn.AdaptiveAvgPool2d(1), _conv(channels, 1024, 1, 1, generator),
+            nn.LeakyReLU(0.2), _conv(1024, 1, 1, 1, generator), nn.Sigmoid())
+
+    def forward(self, x, update_stats=True):
+        """x: (B, H, W, in_nc). Returns the (B, 1, 1, 1) score."""
+        feat = x.permute(0, 3, 1, 2)
+        for i in range(1, 6):
+            conv1, bn1, _, conv2, bn2, _ = getattr(self, f'conv_block{i}')
+            feat = lrelu(bn1(conv1(feat), update_stats), 0.2)
+            feat = lrelu(bn2(conv2(feat), update_stats), 0.2)
+        _, conv3, _, conv4, sigmoid = self.out_block
+        feat = lrelu(conv3(feat.mean(dim=(2, 3), keepdim=True)), 0.2)
+        return sigmoid(conv4(feat)).permute(0, 2, 3, 1)

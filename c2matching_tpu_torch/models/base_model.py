@@ -1,14 +1,31 @@
-"""Base model: device and weight loading.
+"""Base model: device, weight loading, optimizers and checkpoints.
 
-Counterpart of the evaluation half of ``c2matching_tpu/models/
-base_model.py``: ``load_network`` reads the reference's ``.pth`` state
-dicts (a 'state_dict' wrapper and 'module.' prefixes are stripped) under
-``path.strict_load``. The JAX package's flax ``.ckpt`` files wait for the
-train checkpoints.
+Counterpart of ``c2matching_tpu/models/base_model.py``:
+
+- ``load_network`` reads the reference's ``.pth`` state dicts (a
+  'state_dict' wrapper and 'module.' prefixes are stripped) under
+  ``path.strict_load``. The JAX package's flax ``.ckpt`` (msgpack) and
+  orbax checkpoints are not read: they raise, naming the ``.pth``
+  alternative.
+- ``make_adam`` is ``torch.optim.Adam`` over named parameter groups, each
+  with its base LR: the JAX package's torch-faithful Adam (L2 decay added
+  to the gradient, eps outside the square root).
+- ``ScheduleCounts`` keeps the schedule counts of ``shift_schedule_count``:
+  a scheduled optimizer's LR is ``schedule_fn(count, base_lr)`` per group,
+  its count advances on each update and can be shifted without one, and
+  Adam's own step count advances only on updates.
+- Checkpoints: ``net_<label>_<iter>.pth`` and ``net_<label>_latest.pth``
+  (``-1``: the latest only), and ``<iter>.state`` with the epoch, the
+  iteration, the optimizers' state dicts and the schedule counts (none for
+  ``-1``).
 """
 import logging
+import os
+import os.path as osp
 
 import torch
+
+from .lr_scheduler import build_schedule
 
 logger = logging.getLogger('base')
 
@@ -16,13 +33,74 @@ logger = logging.getLogger('base')
 def load_state_dict_file(path):
     """The state dict of a reference ``.pth`` file, on the CPU."""
     if not str(path).endswith('.pth'):
-        raise ValueError(f'{path}: the port loads .pth state dicts only '
-                         '(flax .ckpt files are not ported yet)')
+        raise ValueError(
+            f'{path}: the port loads .pth state dicts only; flax .ckpt '
+            '(msgpack) and orbax checkpoints of the JAX package are not read '
+            '(convert the weights with c2matching_tpu_torch/utils/weights.py '
+            'and torch.save them as .pth)')
     state = torch.load(path, map_location='cpu', weights_only=True)
     if isinstance(state, dict) and 'state_dict' in state:
         state = state['state_dict']
     return {k[7:] if k.startswith('module.') else k: v
             for k, v in state.items()}
+
+
+def make_adam(groups, betas=(0.9, 0.999), weight_decay=0.0, eps=1e-8):
+    """``torch.optim.Adam`` over ``groups``, a list of (name, params,
+    base_lr): update = -lr * m_hat / (sqrt(v_hat) + eps), with L2 weight
+    decay added to the gradient before the moments. Each param group keeps
+    its ``name`` and ``base_lr``."""
+    return torch.optim.Adam(
+        [{'params': list(params), 'lr': lr, 'base_lr': lr, 'name': name}
+         for name, params, lr in groups],
+        betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+
+
+class ScheduleCounts:
+    """The schedule count of each named optimizer and whether its LR
+    follows ``schedule_fn``. ``step(name)`` sets the groups' LRs from the
+    count, runs the optimizer's update and advances the count; ``shift``
+    advances it without an update (the JAX package's
+    ``shift_schedule_count``)."""
+
+    def __init__(self, schedule_fn):
+        self.schedule_fn = schedule_fn
+        self.optimizers = {}
+        self.counts = {}
+        self.scheduled = {}
+
+    def add(self, name, optimizer, scheduled, count=0):
+        self.optimizers[name] = optimizer
+        self.scheduled[name] = scheduled
+        self.counts[name] = count
+
+    def lrs(self, name):
+        """The LR of each group at the optimizer's current count."""
+        groups = self.optimizers[name].param_groups
+        if not (self.scheduled[name] and self.schedule_fn is not None):
+            return [g['base_lr'] for g in groups]
+        return [self.schedule_fn(self.counts[name], g['base_lr'])
+                for g in groups]
+
+    def step(self, name):
+        optimizer = self.optimizers[name]
+        for group, lr in zip(optimizer.param_groups, self.lrs(name)):
+            group['lr'] = lr
+        optimizer.step()
+        self.counts[name] += 1
+
+    def shift(self, name, by=1):
+        self.counts[name] += by
+
+    def state_dict(self):
+        return {'optimizers': {k: v.state_dict()
+                               for k, v in self.optimizers.items()},
+                'counts': dict(self.counts)}
+
+    def load_state_dict(self, state):
+        for name, optimizer in self.optimizers.items():
+            optimizer.load_state_dict(state['optimizers'][name])
+        self.counts.update(state['counts'])
 
 
 class BaseModel:
@@ -35,13 +113,15 @@ class BaseModel:
     def __init__(self, opt, device='cuda'):
         self.opt = opt
         self.is_train = bool(opt.get('is_train'))
-        if self.is_train:
-            raise NotImplementedError('training is not ported yet')
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(
                 f'device {self.device} asked for, but no CUDA card is '
                 "available; pass device='cpu' to run on the CPU")
+        self.log_dict = {}
+        self.schedule_fn = None
+        if self.is_train and opt.get('train'):
+            self.schedule_fn = build_schedule(opt['train'])
 
     def load_network(self, net, path, strict=True):
         """Load a ``.pth`` state dict into ``net``. With ``strict`` every key
@@ -56,3 +136,38 @@ class BaseModel:
             logger.warning(f'missing key in checkpoint: {key}')
         for key in result.unexpected_keys:
             logger.warning(f'unexpected key in checkpoint: {key}')
+
+    @staticmethod
+    def print_network(net):
+        n = sum(p.numel() for p in net.parameters())
+        logger.info(f'Network: {net.__class__.__name__}, with parameters: '
+                    f'{n:,d}')
+
+    # ---------------------------------------------------------- checkpoints
+    def save_network(self, net, net_label, current_iter):
+        """net_<label>_<iter>.pth and net_<label>_latest.pth (-1: the latest
+        only), the state dict in the reference's key names."""
+        model_dir = self.opt['path']['models']
+        os.makedirs(model_dir, exist_ok=True)
+        state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+        names = [f'{net_label}_latest.pth']
+        if current_iter != -1:
+            names.insert(0, f'{net_label}_{current_iter}.pth')
+        for name in names:
+            torch.save(state, osp.join(model_dir, name))
+
+    def save_training_state(self, epoch, current_iter, state):
+        """<iter>.state: {'epoch', 'iter', **state}; none for the latest
+        save (-1), as the reference."""
+        if current_iter == -1:
+            return
+        state_dir = self.opt['path']['training_state']
+        os.makedirs(state_dir, exist_ok=True)
+        torch.save({'epoch': epoch, 'iter': current_iter, **state},
+                   osp.join(state_dir, f'{current_iter}.state'))
+
+    @staticmethod
+    def load_training_state(path):
+        """(epoch, iter, the whole state dict) of a .state file."""
+        state = torch.load(path, map_location='cpu', weights_only=True)
+        return int(state['epoch']), int(state['iter']), state

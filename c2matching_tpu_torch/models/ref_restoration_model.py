@@ -1,14 +1,40 @@
-"""Reference-based restoration model, eval half.
+"""Reference-based restoration model (stage 3): evaluation and training.
 
-Counterpart of the inference and validation path of
-``c2matching_tpu/models/ref_restoration_model.py``: the three nets come
-from the options' ``network_g`` / ``network_map`` / ``network_extractor``
-blocks with a random init seeded from ``manual_seed``, then the
-``path.pretrain_model_*`` weights; ``feed_data`` pads a batch to the
+Counterpart of ``c2matching_tpu/models/ref_restoration_model.py``. The
+three nets come from the options' ``network_g`` / ``network_map`` /
+``network_extractor`` blocks with a random init seeded from
+``manual_seed``, then the ``path.pretrain_model_*`` weights.
+
+Evaluation (``is_train`` false): ``feed_data`` pads a batch to the
 16-LR-pixel bucket, ``test`` runs ContrasExtractorSep ->
 CorrespondenceGenerationArch -> RestorationNet, ``cropped_output`` crops
 the result back and warns on exploding offsets, and ``validation`` scores
-PSNR, PSNR_Y and SSIM_Y over a loader. Training is not ported yet.
+PSNR, PSNR_Y and SSIM_Y over a loader.
+
+Training (``is_train`` true; ``init_training_settings``): net_g trains,
+the extractor and net_map stay frozen and match under ``no_grad``.
+``optimize_parameters(step)`` runs, as the JAX package's steps do:
+
+- up to ``net_g_pretrain_steps``, the G-pretrain step: the pixel loss
+  only;
+- after it, the GAN iteration: the match, ONE G forward, the D update on
+  the detached output (WGAN real/fake and the gradient penalty, whose D
+  pass leaves BN's running statistics alone), then the G update (pixel,
+  perceptual and GAN-G losses) whose GAN term reads the updated D in train
+  mode, with D's parameters frozen so that no gradient reaches them. The
+  ``net_d_steps`` / ``net_d_init_steps`` gating is a Python ``do_g``; a
+  D-only iteration runs the G forward without a graph and advances G's
+  schedule count. Without ``network_d`` (the MSE config) the iteration is
+  the G update on its losses.
+
+The optimizers are ``torch.optim.Adam``: G's parameters in four LR groups
+by name ('offset' x 'small' / 'medium', the JAX package's
+``_offset_lr_tree``), unscheduled unless ``train.schedule_net_g``; D in
+one group, scheduled, its count starting at ``net_g_pretrain_steps``. The
+gradient-penalty coefficients come from a CPU ``torch.Generator`` seeded
+with ``manual_seed`` (so the card and the CPU draw the same), or from
+``gp_alpha`` when a caller sets it (used once). ``train.remat_policy``
+other than 'none' is not ported: the whole graph is kept.
 """
 import logging
 
@@ -18,7 +44,9 @@ import torch.nn.functional as F
 
 from ..utils import metrics, tensor2img
 from .archs.vgg_arch import NAMES
-from .base_model import load_state_dict_file
+from .base_model import ScheduleCounts, load_state_dict_file, make_adam
+from .losses import PIXEL_LOSSES, PerceptualLoss, gan_loss, \
+    gradient_penalty_loss
 from .networks import define_network
 from .sr_model import SRModel
 
@@ -45,10 +73,39 @@ def torchvision_vgg_keys(state, vgg_type, names):
     return out
 
 
+# the four LR groups of G, in the order of base_lrs()
+G_GROUPS = ('g', 'offset', 'relu3_offset', 'relu2_offset')
+
+
+def lr_group(name):
+    """The LR group of a net_g parameter by its name, as the JAX package
+    labels its flax path: 'offset' with 'small' (relu3) or 'medium' (relu2),
+    other 'offset' names, and the rest."""
+    if 'offset' in name:
+        if 'small' in name:
+            return 'relu3_offset'
+        if 'medium' in name:
+            return 'relu2_offset'
+        return 'offset'
+    return 'g'
+
+
+def group_lrs(train_opt):
+    """{group: base LR} of G's groups (``_offset_lr_tree``'s defaults)."""
+    lr_g = train_opt['lr_g']
+    lr_offset = train_opt.get('lr_offset', lr_g) or lr_g
+    return {'g': lr_g, 'offset': lr_offset,
+            'relu3_offset': train_opt.get('lr_relu3_offset',
+                                          lr_offset) or lr_offset,
+            'relu2_offset': train_opt.get('lr_relu2_offset',
+                                          lr_offset) or lr_offset}
+
+
 class RefRestorationModel(SRModel):
-    """Eval model built from an options dict shaped like the YAML test
+    """Stage-3 model built from an options dict shaped like the YAML
     configs (``network_g``, ``network_map``, ``network_extractor``, and
-    optionally ``path``, ``manual_seed``, ``crop_border``).
+    optionally ``path``, ``manual_seed``, ``crop_border``; for training
+    ``is_train``, ``train`` and optionally ``network_d``).
 
     Args:
         opt: the options dict.
@@ -75,13 +132,18 @@ class RefRestorationModel(SRModel):
         self.net_extractor = define_network(opt['network_extractor'],
                                             generator)
         self._load_pretrained(opt.get('path') or {})
-        for net in (self.net_g, self.net_map, self.net_extractor):
+        for net in (self.net_map, self.net_extractor):
             net.to(self.device).eval().requires_grad_(False)
+        self.net_g.to(self.device)
         self.batch = None
         self.output = None
         self._eval_crop = None
         self._valid_lr = None
         self._offset_warn_stats = {}
+        if self.is_train:
+            self.init_training_settings()
+        else:
+            self.net_g.eval().requires_grad_(False)
 
     def _load_pretrained(self, path_opt):
         """``pretrain_model_g`` into net_g, ``pretrain_model_feature_
@@ -109,22 +171,27 @@ class RefRestorationModel(SRModel):
             self.load_state(self.net_map, state, strict=False)
 
     def feed_data(self, batch):
-        """Move a batch to the device, bucket-padded.
+        """Move a batch to the device, bucket-padded in evaluation.
 
         ``batch`` holds NHWC float arrays or tensors: 'img_in_lq' (B, h, w, 3),
-        'img_in_up' and 'img_ref' (B, 4h, 4w, 3). When (h, w) is off the
-        bucket, all three are zero-padded bottom/right and the valid sizes
-        are kept, so the nets mask the pad bands and ``cropped_output``
-        crops back to (4h, 4w). Other keys, such as the loader's 'img_in',
-        'padding', 'original_size' and 'lq_path', are not read here.
+        'img_in_up' and 'img_ref' (B, 4h, 4w, 3), and in training the ground
+        truth 'img_in' (B, 4h, 4w, 3). In evaluation, when (h, w) is off the
+        bucket, the three inputs are zero-padded bottom/right and the valid
+        sizes are kept, so the nets mask the pad bands and
+        ``cropped_output`` crops back to (4h, 4w). Training batches are not
+        padded. Other keys, such as the loader's 'padding',
+        'original_size' and 'lq_path', are not read here.
         """
+        keys = ('img_in_lq', 'img_ref', 'img_in_up')
+        if self.is_train:
+            keys += ('img_in',)
         arrays = {k: torch.as_tensor(batch[k], dtype=torch.float32)
-                  for k in ('img_in_lq', 'img_ref', 'img_in_up')}
+                  for k in keys}
         self._eval_crop = None
         self._valid_lr = None
         bucket = self.EVAL_BUCKET
         h, w = arrays['img_in_lq'].shape[1:3]
-        if h % bucket or w % bucket:
+        if not self.is_train and (h % bucket or w % bucket):
             arrays['img_in_lq'] = _pad_to(arrays['img_in_lq'], bucket)
             arrays['img_ref'] = _pad_to(arrays['img_ref'], 4 * bucket)
             arrays['img_in_up'] = _pad_to(arrays['img_in_up'], 4 * bucket)
@@ -184,3 +251,223 @@ class RefRestorationModel(SRModel):
             sr_img = sr_img[:int(orig[0]), :int(orig[1])]
             gt_img = gt_img[:int(orig[0]), :int(orig[1])]
         return sr_img, gt_img
+
+    # ------------------------------------------------------------ training
+    def init_training_settings(self):
+        """Discriminator, losses, optimizers and schedule counts from the
+        options' ``train`` block (and ``network_d``)."""
+        train_opt = self.opt['train']
+        path_opt = self.opt.get('path') or {}
+        if (train_opt.get('remat_policy') or 'none') != 'none':
+            raise NotImplementedError(
+                f"train.remat_policy {train_opt['remat_policy']!r} is not "
+                "ported: the port keeps the whole graph ('none')")
+        self.net_g.train()
+
+        self.net_d = None
+        if self.opt.get('network_d'):
+            self.net_d = define_network(self.opt['network_d'],
+                                        torch.Generator().manual_seed(7))
+            if path_opt.get('pretrain_model_d'):
+                self.load_network(self.net_d, path_opt['pretrain_model_d'],
+                                  path_opt.get('strict_load', True)
+                                  is not False)
+            self.net_d.to(self.device).train()
+            self.print_network(self.net_d)
+        else:
+            logger.info('No discriminator.')
+
+        self.cri_pix = None
+        if (train_opt.get('pixel_weight') or 0) > 0:
+            self.cri_pix = PIXEL_LOSSES[train_opt['pixel_criterion']](
+                loss_weight=train_opt['pixel_weight'], reduction='mean')
+        else:
+            logger.info('Remove pixel loss.')
+        self.cri_perceptual = None
+        if train_opt.get('perceptual_opt'):
+            self.cri_perceptual = PerceptualLoss(
+                **dict(train_opt['perceptual_opt']),
+                generator=torch.Generator().manual_seed(11)).to(self.device)
+        else:
+            logger.info('Remove perceptual loss.')
+        self.gan_type = train_opt.get('gan_type')
+        self.gan_weight = train_opt.get('gan_weight') or 0
+        self.grad_penalty_weight = train_opt.get('grad_penalty_weight') or 0
+        if not self.gan_type:
+            logger.info('Remove GAN loss.')
+
+        self.net_g_pretrain_steps = train_opt['net_g_pretrain_steps']
+        self.net_d_steps = train_opt.get('net_d_steps') or 1
+        self.net_d_init_steps = train_opt.get('net_d_init_steps') or 0
+
+        # G: four LR groups, unscheduled unless schedule_net_g (the
+        # reference schedules only D in stage 3); D: one, scheduled, its
+        # count starting after the G-pretrain phase
+        lrs = group_lrs(train_opt)
+        named = [(lr_group(n), p) for n, p in self.net_g.named_parameters()]
+        self.optimizer_g = make_adam(
+            [(k, [p for label, p in named if label == k], lrs[k])
+             for k in G_GROUPS],
+            betas=train_opt.get('beta_g') or (0.9, 0.999),
+            weight_decay=train_opt.get('weight_decay_g') or 0)
+        self.schedules = ScheduleCounts(self.schedule_fn)
+        self.schedules.add('g', self.optimizer_g,
+                           bool(train_opt.get('schedule_net_g')))
+        if self.net_d is not None:
+            self.optimizer_d = make_adam(
+                [('d', self.net_d.parameters(), train_opt['lr_d'])],
+                betas=train_opt.get('beta_d') or (0.9, 0.999),
+                weight_decay=train_opt.get('weight_decay_d') or 0)
+            self.schedules.add('d', self.optimizer_d, True,
+                               count=self.net_g_pretrain_steps)
+        self.gp_generator = torch.Generator().manual_seed(
+            self.opt.get('manual_seed') or 0)
+        self.gp_alpha = None
+        self.log_dict = {}
+
+    def base_lrs(self):
+        t = self.opt['train']
+        lrs = [t['lr_g'], t.get('lr_offset', t['lr_g']),
+               t.get('lr_relu3_offset', t['lr_g']),
+               t.get('lr_relu2_offset', t['lr_g'])]
+        if self.net_d is not None:
+            lrs.append(t['lr_d'])
+        return lrs
+
+    def current_learning_rates(self, step):
+        """The LR report of the log line: G's four base LRs (scheduled only
+        under ``schedule_net_g``) and D's scheduled LR, at ``step``."""
+        out = []
+        for i, lr in enumerate(self.base_lrs()):
+            scheduled = i >= len(G_GROUPS) or self.schedules.scheduled['g']
+            out.append(float(self.schedule_fn(step, lr))
+                       if scheduled and self.schedule_fn is not None
+                       else float(lr))
+        return out
+
+    def optimize_parameters(self, step):
+        if step <= self.net_g_pretrain_steps:
+            self._pretrain_iteration()
+            return
+        since = step - self.net_g_pretrain_steps
+        do_g = since % self.net_d_steps == 0 and since > self.net_d_init_steps
+        self._gan_iteration(do_g)
+
+    def _match(self):
+        with torch.no_grad():
+            feats = self.net_extractor(self.batch['img_in_up'],
+                                       self.batch['img_ref'])
+            return self.net_map(feats, self.batch['img_ref'])
+
+    def _offset_stats(self):
+        return self.net_g.dyn_agg_restore.offset_stats()
+
+    def _pretrain_iteration(self):
+        pre_offset, ref_feat = self._match()
+        self.optimizer_g.zero_grad(set_to_none=True)
+        output = self.net_g(self.batch['img_in_lq'], pre_offset, ref_feat)
+        l_pix = self.cri_pix(output, self.batch['img_in'])
+        l_pix.backward()
+        self.schedules.step('g')
+        self.output = output.detach()
+        self.log_dict = {'l_pix': l_pix.detach(), **self._offset_stats()}
+
+    def _gan_iteration(self, do_g):
+        pre_offset, ref_feat = self._match()
+        gt = self.batch['img_in']
+        with torch.set_grad_enabled(do_g):
+            output = self.net_g(self.batch['img_in_lq'], pre_offset, ref_feat)
+        self.output = output.detach()
+        logs = self._offset_stats()
+        if self.net_d is not None:
+            logs.update(self._d_update(gt, self.output))
+        if do_g:
+            self.optimizer_g.zero_grad(set_to_none=True)
+            total, g_logs = self._out_losses(output, gt)
+            total.backward()
+            self.schedules.step('g')
+            logs.update(g_logs)
+        else:
+            # a D-only iteration still steps G's schedule
+            self.schedules.shift('g')
+        self.log_dict = logs
+
+    def _next_gp_alpha(self, b):
+        """(B, 1, 1, 1) interpolation coefficients: ``gp_alpha`` when set
+        (then cleared), else a draw of the CPU generator."""
+        alpha, self.gp_alpha = self.gp_alpha, None
+        if alpha is None:
+            alpha = torch.rand((b, 1, 1, 1), generator=self.gp_generator)
+        else:
+            alpha = torch.tensor(np.asarray(alpha), dtype=torch.float32)
+        return alpha.to(self.device)
+
+    def _d_update(self, gt, fake):
+        """One D update: WGAN real/fake and the gradient penalty."""
+        self.optimizer_d.zero_grad(set_to_none=True)
+        real_pred = self.net_d(gt)
+        l_d_real = gan_loss(real_pred, True, self.gan_type, is_disc=True)
+        fake_pred = self.net_d(fake)
+        l_d_fake = gan_loss(fake_pred, False, self.gan_type, is_disc=True)
+        total = l_d_real + l_d_fake
+        logs = {'l_d_real': l_d_real.detach(), 'l_d_fake': l_d_fake.detach(),
+                'out_d_real': real_pred.detach().mean(),
+                'out_d_fake': fake_pred.detach().mean()}
+        if self.grad_penalty_weight > 0:
+            alpha = self._next_gp_alpha(gt.shape[0])
+            l_gp = gradient_penalty_loss(
+                lambda x: self.net_d(x, update_stats=False), gt, fake, alpha,
+                loss_weight=self.grad_penalty_weight)
+            total = total + l_gp
+            logs['l_grad_penalty'] = l_gp.detach()
+        total.backward()
+        self.schedules.step('d')
+        return logs
+
+    def _out_losses(self, output, gt):
+        """G's losses on its output: pixel, perceptual (and style) and, with
+        a D, the GAN-G term through D in train mode, whose parameters get
+        no gradient."""
+        logs = {}
+        total = 0.
+        if self.cri_pix is not None:
+            l_g_pix = self.cri_pix(output, gt)
+            total = total + l_g_pix
+            logs['l_g_pix'] = l_g_pix.detach()
+        if self.cri_perceptual is not None:
+            l_g_percep, l_g_style = self.cri_perceptual(output, gt)
+            if l_g_percep is not None:
+                total = total + l_g_percep
+                logs['l_g_percep'] = l_g_percep.detach()
+            if l_g_style is not None:
+                total = total + l_g_style
+                logs['l_g_style'] = l_g_style.detach()
+        if self.net_d is not None:
+            self.net_d.requires_grad_(False)
+            try:
+                fake_pred = self.net_d(output)
+            finally:
+                self.net_d.requires_grad_(True)
+            l_g_gan = gan_loss(fake_pred, True, self.gan_type,
+                               loss_weight=self.gan_weight, is_disc=False)
+            total = total + l_g_gan
+            logs['l_g_gan'] = l_g_gan.detach()
+        return total, logs
+
+    def save(self, epoch, current_iter):
+        self.save_network(self.net_g, 'net_g', current_iter)
+        if self.net_d is not None:
+            self.save_network(self.net_d, 'net_d', current_iter)
+        self.save_training_state(epoch, current_iter, {
+            **self.schedules.state_dict(),
+            'gp_generator': self.gp_generator.get_state()})
+
+    def resume_training(self, state_path):
+        """Restore the optimizers, the schedule counts and the GP generator
+        from a .state file (the nets come from ``path.pretrain_model_*``,
+        which ``check_resume`` points at the matching .pth files). Returns
+        (epoch, iter)."""
+        epoch, it, state = self.load_training_state(state_path)
+        self.schedules.load_state_dict(state)
+        self.gp_generator.set_state(state['gp_generator'])
+        return epoch, it

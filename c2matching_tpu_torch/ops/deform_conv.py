@@ -1,4 +1,4 @@
-"""Modulated deformable convolution (DCNv2), forward.
+"""Modulated deformable convolution (DCNv2), forward and backward.
 
 Counterpart of ``c2matching_tpu/ops/deform_conv.py``. The bilinear
 sampling at the learned offsets, times the modulation mask, runs in kernel
@@ -11,6 +11,15 @@ contraction with the weight is one ``torch.matmul``. On a CPU tensor
 ``deform_im2col`` takes its plain version, the per-tap gather of the JAX
 package's ``_mdc_reference_single``; on a CUDA tensor it launches the
 kernel or raises.
+
+The gradient is a ``torch.autograd.Function`` around the columns. Its
+backward takes grad_cols (P, K*C) f32 to the offset, mask and x gradients
+in B3's second kernel (``deform_col2im``), each only when autograd asks for
+it; the weight and bias gradients come from autograd through the
+``torch.matmul``. The semantics are those of ``jax.grad`` through the JAX
+package's ``_mdc_fast_single``: floor has zero derivative, a sample
+outside the image contributes nothing, and corners outside the image are
+zeros that receive no gradient.
 
 Layout, as in the JAX package:
     x:      (B, H, W, C)          NHWC, float32 or bfloat16
@@ -35,11 +44,16 @@ from . import _build
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 _ENTRY = {torch.float32: 'c2m_mdc_im2col_f32',
           torch.bfloat16: 'c2m_mdc_im2col_bf16'}
+_BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+                      + [ctypes.c_void_p])
+_BACKWARD_ENTRY = {torch.float32: 'c2m_mdc_col2im_f32',
+                   torch.bfloat16: 'c2m_mdc_col2im_bf16'}
 
 
-def _kernel(dtype):
-    fn = getattr(_build.load('deform_conv'), _ENTRY[dtype])
-    fn.argtypes = _ARGTYPES
+def _kernel(dtype, backward=False):
+    entry = _BACKWARD_ENTRY if backward else _ENTRY
+    fn = getattr(_build.load('deform_conv'), entry[dtype])
+    fn.argtypes = _BACKWARD_ARGTYPES if backward else _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -174,10 +188,163 @@ def deform_im2col(x, offset, mask, kernel_size=(3, 3), stride=(1, 1),
 deform_im2col.launches = 0
 
 
+def deform_im2col_backward_plain(x, offset, mask, grad_cols,
+                                 kernel_size=(3, 3), stride=(1, 1),
+                                 padding=(1, 1), dilation=(1, 1),
+                                 needs=(True, True, True)):
+    """Plain version of ``deform_col2im``: per tap, the four corners'
+    values dotted with the group's grad_cols, and grad_x scattered with
+    ``index_put_``. ``needs`` says which of (grad_x, grad_offset, grad_mask)
+    to compute; the others are None. grad_x is in x's dtype, the other two
+    f32."""
+    _check(x, offset, mask)
+    h, w, c = x.shape
+    ho, wo, g, k, _ = offset.shape
+    p = ho * wo
+    cg = c // g
+    base_y, base_x, ky, kx = _base_grid(
+        ho, wo, *_pair(kernel_size), _pair(stride), _pair(padding),
+        _pair(dilation), x.device)
+    off = offset.float().reshape(p, g, k, 2)
+    m = mask.float().reshape(p, g, k)
+    xf = x.float().reshape(h * w, g, cg)
+    gc = grad_cols.float().reshape(p, k, g, cg)
+    groups = torch.arange(g, device=x.device)[None, :].expand(p, g)
+    grad_x = torch.zeros_like(xf) if needs[0] else None
+    grad_off = torch.zeros(p, g, k, 2, device=x.device) if needs[1] else None
+    grad_m = torch.zeros(p, g, k, device=x.device) if needs[2] else None
+    for t in range(k):
+        sy = base_y[:, None] + ky[t] + off[:, :, t, 0]
+        sx = base_x[:, None] + kx[t] + off[:, :, t, 1]
+        valid = (sy > -1.0) & (sy < h) & (sx > -1.0) & (sx < w)
+        y0 = torch.floor(sy)
+        x0 = torch.floor(sx)
+        fy = sy - y0
+        fx = sx - x0
+        y0i = y0.clamp(-2, h).to(torch.int64)
+        x0i = x0.clamp(-2, w).to(torch.int64)
+        mt = torch.where(valid, m[:, :, t], 0.0)
+        g_t = gc[:, t]                                    # (P, G, Cg)
+        d_y = d_x = sample = 0
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yy = y0i + dy
+                xx = x0i + dx
+                inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                flat = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+                vals = xf[flat, groups] * inb[..., None].to(xf.dtype)
+                dot = (vals * g_t).sum(-1)                # (P, G)
+                wy = fy if dy else 1.0 - fy
+                wx = fx if dx else 1.0 - fx
+                sample = sample + wy * wx * dot
+                # d wy / d fy = +1 for the lower corner row, -1 for the upper
+                d_y = d_y + (wx if dy else -wx) * dot
+                d_x = d_x + (wy if dx else -wy) * dot
+                if grad_x is not None:
+                    coef = torch.where(inb, mt * wy * wx, 0.0)
+                    grad_x.index_put_((flat, groups), g_t * coef[..., None],
+                                      accumulate=True)
+        if grad_off is not None:
+            grad_off[:, :, t, 0] = torch.where(valid, mt * d_y, 0.0)
+            grad_off[:, :, t, 1] = torch.where(valid, mt * d_x, 0.0)
+        if grad_m is not None:
+            grad_m[:, :, t] = torch.where(valid, sample, 0.0)
+    return (None if grad_x is None else grad_x.reshape(h, w, c).to(x.dtype),
+            None if grad_off is None else grad_off.reshape(ho, wo, g, k, 2),
+            None if grad_m is None else grad_m.reshape(ho, wo, g, k))
+
+
+def deform_col2im(x, offset, mask, grad_cols, kernel_size=(3, 3),
+                  stride=(1, 1), padding=(1, 1), dilation=(1, 1),
+                  needs=(True, True, True)):
+    """The gradients of ``deform_im2col`` from grad_cols (Ho*Wo, K*C):
+    (grad_x (H, W, C) in x's dtype, grad_offset (Ho, Wo, G, K, 2) f32,
+    grad_mask (Ho, Wo, G, K) f32), each None unless ``needs`` asks for it.
+    On a CPU tensor the plain version runs; on a CUDA tensor the kernel
+    launches or raises."""
+    if x.device.type == 'cpu':
+        return deform_im2col_backward_plain(x, offset, mask, grad_cols,
+                                            kernel_size, stride, padding,
+                                            dilation, needs=needs)
+    if x.device.type != 'cuda':
+        raise ValueError(f'deform_col2im: unsupported device {x.device}')
+    _check(x, offset, mask)
+    if x.dtype not in _BACKWARD_ENTRY:
+        raise TypeError(f'deform_col2im: x must be float32 or bfloat16, got '
+                        f'{x.dtype}')
+    if (offset.dtype != torch.float32 or mask.dtype != torch.float32
+            or grad_cols.dtype != torch.float32):
+        raise TypeError('deform_col2im: offset, mask and grad_cols must be '
+                        'float32')
+    if any(t.device != x.device for t in (offset, mask, grad_cols)):
+        raise ValueError('deform_col2im: tensors lie on different devices')
+    h, w, c = x.shape
+    ho, wo, g, k, _ = offset.shape
+    kh, kw = _pair(kernel_size)
+    if kh * kw != k:
+        raise ValueError(f'kernel_size {kh}x{kw} does not give {k} taps')
+    if tuple(grad_cols.shape) != (ho * wo, k * c):
+        raise ValueError(f'grad_cols {tuple(grad_cols.shape)} is not '
+                         f'{(ho * wo, k * c)}')
+    x = x.contiguous()
+    offset = offset.contiguous()
+    mask = mask.contiguous()
+    grad_cols = grad_cols.contiguous()
+    need_x, need_offset, need_mask = needs
+    if not any(needs):
+        return None, None, None
+    # grad_x accumulates with f32 atomics; a bf16 x is cast once at the end
+    grad_x = (torch.zeros((h, w, c), dtype=torch.float32, device=x.device)
+              if need_x else None)
+    grad_offset = torch.empty_like(offset) if need_offset else None
+    grad_mask = torch.empty_like(mask) if need_mask else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        err = _kernel(x.dtype, backward=True)(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            grad_cols.data_ptr(), ptr(grad_offset), ptr(grad_mask),
+            ptr(grad_x), h, w, c, ho, wo, g, kh, kw, *_pair(stride),
+            *_pair(padding), *_pair(dilation),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f'deform_col2im kernel launch failed: CUDA error '
+                           f'{err}')
+    deform_col2im.launches += 1
+    if grad_x is not None:
+        grad_x = grad_x.to(x.dtype)
+    return grad_x, grad_offset, grad_mask
+
+
+deform_col2im.launches = 0
+
+
+class _DeformColumns(torch.autograd.Function):
+    """The columns of ``deform_im2col`` as f32 (bf16 columns are rounded in
+    x's dtype first, as the forward stores them), differentiable in x,
+    offset and mask through ``deform_col2im``."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, conv):
+        ctx.save_for_backward(x, offset, mask)
+        ctx.conv = conv
+        return deform_im2col(x, offset, mask, *conv).float()
+
+    @staticmethod
+    def backward(ctx, grad_cols):
+        x, offset, mask = ctx.saved_tensors
+        grad_x, grad_offset, grad_mask = deform_col2im(
+            x, offset, mask, grad_cols.float(), *ctx.conv,
+            needs=tuple(ctx.needs_input_grad[:3]))
+        return grad_x, grad_offset, grad_mask, None
+
+
 def modulated_deform_conv(x, offset, mask, weight, bias=None,
                           kernel_size=(3, 3), stride=(1, 1), padding=(1, 1),
                           dilation=(1, 1)):
-    """Batched modulated deformable convolution (DCNv2 forward).
+    """Batched modulated deformable convolution (DCNv2).
 
     Args:
         x:      (B, H, W, C) the feature to sample (f32 or bf16).
@@ -188,8 +355,9 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None,
 
     Returns:
         (B, Ho, Wo, Cout) float32. Images run one at a time, which bounds
-        the columns' memory to one image. Forward only: the kernel has no
-        backward yet.
+        the columns' memory to one image. Differentiable in every argument:
+        the columns' gradient runs in ``deform_col2im``, the weight's and
+        bias's in autograd.
     """
     b, _, _, c = x.shape
     _, ho, wo, _, k, _ = offset.shape
@@ -198,9 +366,10 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None,
     w_kc = weight.reshape(k * c, co).to(x.dtype).float()
     offset = offset.float()
     mask = mask.float()
+    conv = (kernel_size, stride, padding, dilation)
     out = torch.stack([
-        torch.matmul(deform_im2col(x[i], offset[i], mask[i], kernel_size,
-                                   stride, padding, dilation).float(), w_kc)
+        torch.matmul(_DeformColumns.apply(x[i], offset[i], mask[i], conv),
+                     w_kc)
         for i in range(b)]).reshape(b, ho, wo, co)
     if bias is not None:
         out = out + bias.float()

@@ -1,0 +1,194 @@
+"""Training entry point of the port, the counterpart of ``mmsr/train.py``:
+
+    python -m c2matching_tpu_torch.train -opt options/train/<config>.yml \
+        [--device cpu]
+
+Parses the options file (``is_train``), seeds ``random``, ``np.random``
+and torch's default generator from ``train.manual_seed``, builds the
+train loader (with the ratio-enlarged sampler when
+``dataset_enlarge_ratio`` > 1) and the val loader, creates the model and
+runs ``niter`` iterations: ``feed_data`` + ``optimize_parameters``, the
+log line every ``logger.print_freq``, validation every ``val.val_freq``,
+checkpoints every ``logger.save_checkpoint_freq`` and the latest at the
+end. ``path.resume_state`` (a ``<iter>.state`` file) resumes: the nets
+from that iteration's ``.pth`` files, the optimizers and schedule counts
+from the state. SIGTERM or SIGINT saves a resumable checkpoint and
+returns. Outputs go under ``experiments/<name>/`` (or
+``$C2MATCHING_ROOT``). The model runs on the CUDA card unless ``--device``
+names another device; with no card it raises rather than fall back to the
+CPU. One process on one device: multi-GPU, ``use_tb_logger`` (outside
+debug runs) and ``logger.trace_dir`` are not ported and raise.
+"""
+import argparse
+import logging
+import math
+import os.path as osp
+import random
+import signal
+import time
+
+import numpy as np
+import torch
+
+from .data import create_dataloader, create_dataset, create_train_sampler
+from .models import create_model
+from .utils import (MessageLogger, check_resume, dict2str, dict_to_nonedict,
+                    get_root_logger, make_exp_dirs)
+from .utils.options import parse
+
+
+def _loaders(opt, seed, logger):
+    """(train loader, val loader or None, total epochs)."""
+    train_loader = val_loader = None
+    total_epochs = 0
+    for phase, dataset_opt in opt['datasets'].items():
+        if phase == 'train':
+            train_set = create_dataset(dataset_opt)
+            train_size = int(
+                math.ceil(len(train_set) / dataset_opt['batch_size']))
+            total_iters = int(opt['train']['niter'])
+            total_epochs = int(math.ceil(total_iters / train_size))
+            sampler = None
+            enlarge = dataset_opt.get('dataset_enlarge_ratio', 1) or 1
+            if enlarge > 1:
+                sampler = create_train_sampler(train_set, dataset_opt)
+                total_epochs = int(
+                    math.ceil(total_iters / (train_size * enlarge)))
+            train_loader = create_dataloader(train_set, dataset_opt, sampler,
+                                             seed=seed)
+            logger.info(f'Number of train images: {len(train_set)}, '
+                        f'iters: {train_size}')
+            logger.info(f'Total epochs needed: {total_epochs} for iters '
+                        f'{total_iters}')
+        elif phase == 'val':
+            val_set = create_dataset(dataset_opt)
+            val_loader = create_dataloader(val_set, dataset_opt)
+            logger.info(
+                f"Number of val images/folders in {dataset_opt['name']}: "
+                f'{len(val_set)}')
+        else:
+            raise NotImplementedError(f'Phase {phase} is not recognized.')
+    if train_loader is None:
+        raise ValueError('the options have no datasets.train block')
+    return train_loader, val_loader, total_epochs
+
+
+def run(opt_path, device='cuda'):
+    """Train the model of ``opt_path``. Returns the model."""
+    opt = parse(opt_path, is_train=True)
+    resume_state_path = opt['path'].get('resume_state')
+    if resume_state_path:
+        check_resume(opt, osp.splitext(osp.basename(resume_state_path))[0])
+    else:
+        make_exp_dirs(opt)
+    stamp = time.strftime('%Y%m%d_%H%M%S', time.localtime())
+    log_file = osp.join(opt['path']['log'], f"train_{opt['name']}_{stamp}.log")
+    logger = get_root_logger(logger_name='base', log_level=logging.INFO,
+                             log_file=log_file)
+    logger.info(dict2str(opt))
+    if opt.get('use_tb_logger') and 'debug' not in opt['name']:
+        raise NotImplementedError(
+            'use_tb_logger: the tensorboard logger is not ported; set '
+            'use_tb_logger: false')
+    if (opt.get('logger') or {}).get('trace_dir'):
+        raise NotImplementedError('logger.trace_dir: the profiler window is '
+                                  'not ported')
+    opt = dict_to_nonedict(opt)
+
+    seed = opt['train']['manual_seed']
+    if seed is None:
+        seed = random.randint(1, 10000)
+    logger.info(f'Random seed: {seed}')
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+    train_loader, val_loader, total_epochs = _loaders(opt, seed, logger)
+    total_iters = int(opt['train']['niter'])
+    model = create_model(opt, device)
+    if resume_state_path:
+        start_epoch, current_iter = model.resume_training(resume_state_path)
+        logger.info(f'Resuming training from epoch: {start_epoch}, '
+                    f'iter: {current_iter}.')
+    else:
+        start_epoch, current_iter = 0, 0
+    msg_logger = MessageLogger(opt, current_iter)
+    logger.info(f'Start training from epoch: {start_epoch}, iter: '
+                f'{current_iter}')
+
+    # a preemption signal saves a resumable checkpoint before returning
+    preempted = []
+
+    def on_signal(signum, frame):
+        preempted.append(signum)
+        logger.warning(f'signal {signum} received; checkpointing before '
+                       'exit')
+
+    handlers = {s: signal.signal(s, on_signal)
+                for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        epoch = start_epoch
+        data_time, iter_time = time.time(), time.time()
+        for epoch in range(start_epoch, total_epochs + 1):
+            train_loader.set_epoch(epoch)
+            for train_data in train_loader:
+                data_time = time.time() - data_time
+                current_iter += 1
+                if current_iter > total_iters:
+                    break
+                if preempted:
+                    # current_iter - 1 is the last completed iteration
+                    logger.info('Saving models and training states '
+                                '(preemption).')
+                    model.save(epoch, current_iter - 1)
+                    return model
+                model.feed_data(train_data)
+                model.optimize_parameters(current_iter)
+                iter_time = time.time() - iter_time
+                if preempted:
+                    logger.info('Saving models and training states '
+                                '(preemption).')
+                    model.save(epoch, current_iter)
+                    return model
+
+                if current_iter % opt['logger']['print_freq'] == 0:
+                    log_vars = {'epoch': epoch, 'iter': current_iter,
+                                'lrs': model.current_learning_rates(
+                                    current_iter),
+                                'time': iter_time, 'data_time': data_time}
+                    log_vars.update(model.log_dict)
+                    msg_logger(log_vars)
+                if (val_loader is not None
+                        and current_iter % opt['val']['val_freq'] == 0):
+                    model.validation(val_loader, current_iter, None,
+                                     opt['val']['save_img'])
+                if current_iter % opt['logger']['save_checkpoint_freq'] == 0:
+                    logger.info('Saving models and training states.')
+                    model.save(epoch, current_iter)
+                data_time = time.time()
+                iter_time = time.time()
+            if current_iter > total_iters:
+                break
+    finally:
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+
+    logger.info('End of training.')
+    logger.info('Saving the latest model.')
+    model.save(epoch=-1, current_iter=-1)
+    return model
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('-opt', type=str, required=True,
+                        help='Path to option YAML file.')
+    parser.add_argument('--device', default='cuda',
+                        help="torch device of the model (default: the CUDA "
+                             "card; 'cpu' runs on the CPU)")
+    args = parser.parse_args(argv)
+    run(args.opt, args.device)
+
+
+if __name__ == '__main__':
+    main()

@@ -1,12 +1,13 @@
 """Host-side utilities of the port."""
-from .logger import get_root_logger
+from .logger import MessageLogger, get_root_logger
 from .metrics import bgr2ycbcr, psnr, ssim
 from .options import NoneDict, dict2str, dict_to_nonedict, parse
-from .util import (ProgressBar, imfrombytes, impad, imwrite, make_exp_dirs,
-                   mkdir_and_rename, tensor2img)
+from .util import (ProgressBar, check_resume, imfrombytes, impad, imwrite,
+                   make_exp_dirs, mkdir_and_rename, tensor2img)
 
 __all__ = [
-    'get_root_logger', 'bgr2ycbcr', 'psnr', 'ssim', 'NoneDict', 'dict2str',
-    'dict_to_nonedict', 'parse', 'ProgressBar', 'imfrombytes', 'impad',
-    'imwrite', 'make_exp_dirs', 'mkdir_and_rename', 'tensor2img',
+    'MessageLogger', 'check_resume', 'get_root_logger', 'bgr2ycbcr', 'psnr',
+    'ssim', 'NoneDict', 'dict2str', 'dict_to_nonedict', 'parse',
+    'ProgressBar', 'imfrombytes', 'impad', 'imwrite', 'make_exp_dirs',
+    'mkdir_and_rename', 'tensor2img',
 ]

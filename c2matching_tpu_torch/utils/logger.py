@@ -1,11 +1,13 @@
-"""The framework's root logger.
+"""The framework's root logger and the training message logger.
 
-Counterpart of ``c2matching_tpu/utils/logger.py::get_root_logger``, with
-its format. Single process: every message at ``log_level`` goes to the
-stream and, when given, to ``log_file``. The per-iteration training
-logger waits for the train runner.
+Counterpart of ``c2matching_tpu/utils/logger.py`` (``get_root_logger``,
+``MessageLogger``), with its formats. Single process: every message at
+``log_level`` goes to the stream and, when given, to ``log_file``. The
+tensorboard logger is not ported (the card's machine has no tensorboard).
 """
+import datetime
 import logging
+import time
 
 _initialized_loggers = set()
 
@@ -29,3 +31,42 @@ def get_root_logger(logger_name='base', log_level=logging.INFO,
         logger.addHandler(file_handler)
     _initialized_loggers.add(logger_name)
     return logger
+
+
+class MessageLogger:
+    """Per-iteration training log line with ETA:
+    ``[name..][epoch:E, iter:I, lr:(...)] [eta: .., time: .., data_time: ..]
+    loss_a: v loss_b: v``. Values are read (a wait for the device) only
+    when the line is written; an ``offset_absmean_*`` above 100 warns."""
+
+    def __init__(self, opt, start_iter=1):
+        self.exp_name = opt['name']
+        self.interval = opt['logger']['print_freq']
+        self.start_iter = start_iter
+        self.max_iters = opt['train']['niter']
+        self.start_time = time.time()
+        self.logger = get_root_logger()
+
+    def __call__(self, log_vars):
+        log_vars = dict(log_vars)
+        epoch = log_vars.pop('epoch')
+        current_iter = log_vars.pop('iter')
+        lrs = log_vars.pop('lrs')
+        message = (f'[{self.exp_name[:5]}..][epoch:{epoch:3d}, '
+                   f'iter:{current_iter:8,d}, lr:(')
+        message += ', '.join(f'{v:.3e}' for v in lrs) + ')] '
+        if 'time' in log_vars:
+            iter_time = log_vars.pop('time')
+            data_time = log_vars.pop('data_time')
+            total_time = time.time() - self.start_time
+            time_sec_avg = total_time / (current_iter - self.start_iter + 1)
+            eta_sec = time_sec_avg * (self.max_iters - current_iter - 1)
+            eta_str = str(datetime.timedelta(seconds=int(eta_sec)))
+            message += (f'[eta: {eta_str}, time: {iter_time:.3f}, '
+                        f'data_time: {data_time:.3f}] ')
+        for k, v in log_vars.items():
+            v = float(v)
+            message += f'{k}: {v:.4e} '
+            if k.startswith('offset_absmean') and v > 100:
+                self.logger.warning(f'Offset mean is {v}, larger than 100.')
+        self.logger.info(message)

@@ -1,10 +1,10 @@
 """Misc utilities: experiment dirs, image IO helpers, progress bar.
 
 Counterpart of ``c2matching_tpu/utils/util.py`` (``mkdir_and_rename``,
-``make_exp_dirs``, ``tensor2img``, ``imwrite``, ``imfrombytes``,
-``impad``, ``ProgressBar``). Images go through the port's own PNG codec
-(``utils/png.py``) instead of cv2; they are BGR uint8 HWC, as cv2 gives
-them.
+``make_exp_dirs``, ``check_resume``, ``tensor2img``, ``imwrite``,
+``imfrombytes``, ``impad``, ``ProgressBar``). Images go through the
+port's own PNG codec (``utils/png.py``) instead of cv2; they are BGR uint8
+HWC, as cv2 gives them.
 """
 import os
 import os.path as osp
@@ -40,6 +40,22 @@ def make_exp_dirs(opt):
                 isinstance(path, str)):
             continue
         os.makedirs(path, exist_ok=True)
+
+
+def check_resume(opt, resume_iter):
+    """When resuming, point ``path.pretrain_model_g`` / ``_d`` at the run's
+    ``net_{g,d}_<resume_iter>.pth`` where that file exists (the nets stage
+    3 saves)."""
+    if not opt['path'].get('resume_state'):
+        return
+    for net in ('g', 'd'):
+        key = f'pretrain_model_{net}'
+        path = osp.join(opt['path']['models'], f'net_{net}_{resume_iter}.pth')
+        if osp.exists(path):
+            if opt['path'].get(key) is not None:
+                print(f'[resume] ignoring {key}; using resume-state nets.',
+                      flush=True)
+            opt['path'][key] = path
 
 
 def tensor2img(tensor, out_type=np.uint8, min_max=(0, 1)):

@@ -116,3 +116,27 @@ def torchvision_vgg_state_dict(tree, vgg_type='vgg19'):
         if name in p:
             _conv(out, f'features.{idx}', p[name])
     return out
+
+
+def discriminator_state_dict(variables):
+    """ImageDiscriminator flax variables ('params' and 'batch_stats') ->
+    the reference's state dict: ``conv_block{i}.{0,3}`` convs and
+    ``conv_block{i}.{1,4}`` BatchNorms with their running statistics, and
+    the ``out_block.{1,3}`` 1x1 convs."""
+    p = variables['params']
+    stats = variables['batch_stats']
+    out = {}
+    for i in range(1, 6):
+        for j, (conv_idx, bn_idx) in enumerate(((0, 1), (3, 4)), start=1):
+            _conv(out, f'conv_block{i}.{conv_idx}', p[f'block{i}_conv{j}'])
+            bn = f'conv_block{i}.{bn_idx}'
+            leaf = p[f'block{i}_bn{j}']
+            out[f'{bn}.weight'] = _tensor(leaf['scale'])
+            out[f'{bn}.bias'] = _tensor(leaf['bias'])
+            out[f'{bn}.running_mean'] = _tensor(
+                stats[f'block{i}_bn{j}']['mean'])
+            out[f'{bn}.running_var'] = _tensor(stats[f'block{i}_bn{j}']['var'])
+            out[f'{bn}.num_batches_tracked'] = torch.tensor(0)
+    _conv(out, 'out_block.1', p['out_conv1'])
+    _conv(out, 'out_block.3', p['out_conv2'])
+    return out

@@ -67,7 +67,32 @@ Phases:
      against the same runner on the CPU. Prints PSNR, PSNR_Y, SSIM_Y and
      the median ms per image over the three passes for each config and
      set.
-  8. one JSON line of kernels, the card's line, and last the JSON result.
+  8. b3bwd: the deformable conv's backward kernel (deform_col2im) against
+     its plain version on random inputs at the three per-image shapes of
+     stage-3 training at gt 160 (relu3 40x40x256, relu2 80x80x128, relu1
+     160x160x64; G = 8, K = 9) in f32 and bf16, offsets on exact integers
+     and past the image's edges, the offset and mask gradients alone (the
+     training path's call) and with grad_x (f32 atomics); the large-offset
+     probe must give exact zeros. Times the kernel, the plain version and
+     F.grid_sample's backward (the library yardstick) at those shapes.
+  9. train: `python -m c2matching_tpu_torch.train`'s run() on the card with
+     options/train/stage3_restoration_gan.yml at full width (ngf 64, 16
+     blocks, 8 groups, D ndf 32, VGG19 relu5_1 perceptual, WGAN-GP) and its
+     batch of 9 at gt 160, on a 10-pair 160-px synth set and the seeded
+     extractor saved as .pth: 2 G-pretrain and 3 GAN iterations, the
+     launch counters at 0 before the run. Checks the losses are finite,
+     every LR group and D moved, B3's forward and backward launched; prints
+     ms per pretrain and GAN iteration (host clock around a synchronised
+     optimize_parameters), peak memory and launches per iteration, then a
+     torch.profiler breakdown of one more GAN iteration by kernel, and the
+     backward kernel against its plain version on the tensors one more GAN
+     iteration hands it (image 0 of each DynAgg; these are the times of
+     the kernels line).
+ 10. train_cpu: one G-pretrain step and one GAN step of a small config
+     (ngf 16, 2 blocks, ndf 4, batch 2 at gt 64) on the card against the
+     same steps on the CPU (plain versions) from the same weights: losses
+     and G gradients.
+ 11. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -111,6 +136,14 @@ EVAL_PSNR_TOL = 0.01  # dB, card vs CPU f32 runner on the synth set: the
 EVAL_SSIM_TOL = 1e-4
 EVAL_SERVING_PSNR_TOL = 0.5  # dB, serving vs f32 on the card: bf16 gathers
                              # and near-tie match flips; a sanity bound
+B3B_REL = 1e-5       # |kernel - plain| of the offset and mask gradients, of
+                     # their largest magnitude: f32 dots over the group's
+                     # channels in another order (bf16 x is read alike)
+B3B_X_REL = 1e-5     # grad_x in f32: atomics add in a run-dependent order
+B3B_X_BF16_REL = 2 ** -7  # grad_x cast to bf16 once: one rounding apart
+TRAIN_CPU_REL = 1e-3  # card vs CPU, small config: the losses, and the G
+                      # gradients of G's largest gradient (cuDNN and the
+                      # kernels sum in other orders)
 
 F32_BLOCKS = {
     'network_g': {'type': 'RestorationNet', 'ngf': 64, 'n_blocks': 16,
@@ -149,6 +182,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, 'tf32': 495e12}
 # B1 runs f32 operands as 3xTF32: three TF32 products per f32 product
 B1_TF32_PRODUCTS = 3
+# stage-3 training at gt 160 (LR 40): the DynAggs' per-image shapes
+TRAIN_B3 = (('relu3_1', 40, 40, 256), ('relu2_1', 80, 80, 128),
+            ('relu1_1', 160, 160, 64))
+TRAIN_OPTIONS = 'options/train/stage3_restoration_gan.yml'
+TRAIN_PRETRAIN, TRAIN_GAN = 2, 3    # iterations of phase train
 
 
 class Checks:
@@ -1272,11 +1310,13 @@ def phase_eval(check, card):
                                       ('synth', 'cufed')))
             os.environ['C2MATCHING_ROOT'] = f'{root}/out_{cfg}_warm'
             run(path)                      # warm-up: cuDNN plans, allocator
-            os.environ['C2MATCHING_ROOT'] = f'{root}/out_{cfg}'
             match_argmax.launches = 0
             deform_im2col.launches = 0
             with _timed_validation() as times:
-                for _ in range(EVAL_PASSES):
+                for i in range(EVAL_PASSES):
+                    # a results tree of its own per pass: the runner archives
+                    # an existing one under a name stamped to the second
+                    os.environ['C2MATCHING_ROOT'] = f'{root}/out_{cfg}_{i}'
                     results[cfg] = run(path)
             launches = {'match_argmax': match_argmax.launches,
                         'deform_im2col': deform_im2col.launches}
@@ -1321,6 +1361,427 @@ def phase_eval(check, card):
         del os.environ['C2MATCHING_ROOT']
 
 
+# ------------------------------------------------------------- B3 backward
+def _b3b_inputs(gen, dev, h, w, c, dtype):
+    """x, offsets (integer shifts; a third of the residuals exactly 0, so
+    taps sit on integer coordinates; shifts of +-16 carry taps past the
+    edges), mask and grad_cols of one image."""
+    x, offset, mask = _dcn_inputs(gen, dev, h, w, c, dtype)
+    exact = torch.rand(offset.shape, generator=gen, device=dev) < 1 / 3
+    offset = torch.where(exact, offset.round(), offset)
+    gcols = torch.randn(h * w, 9 * c, generator=gen, device=dev)
+    return x, offset, mask, gcols
+
+
+def _b3b_compare(check, x, offset, mask, gcols, label, needs):
+    """The backward kernel's gradients against its plain version's;
+    returns the max |difference| of the offset and mask gradients."""
+    from c2matching_tpu_torch.ops import (deform_col2im,
+                                          deform_im2col_backward_plain)
+    got = deform_col2im(x, offset, mask, gcols, needs=needs)
+    want = deform_im2col_backward_plain(x, offset, mask, gcols, needs=needs)
+    worst = 0.0
+    for name, g, w in zip(('x', 'offset', 'mask'), got, want):
+        if w is None:
+            check(g is None, f'b3bwd {label}: no grad_{name} asked, none '
+                  'given')
+            continue
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        if name == 'x':
+            rel = B3B_X_REL if x.dtype == torch.float32 else B3B_X_BF16_REL
+        else:
+            rel = B3B_REL
+            worst = max(worst, err)
+        check(err <= rel * scale, f'b3bwd {label}: grad_{name} max |diff| '
+              f'{err:.3g} <= {rel:g} x {scale:.3g}')
+    del got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+# operations per grad_cols element: four corner products into the dots
+B3B_OPS_PER_COL = 8
+
+
+def _b3b_work(x, offset, mask, gcols):
+    """(bytes, operations) of the offset and mask gradients: read x, the
+    offsets, the mask and grad_cols once, write the two gradients once."""
+    moved = nbytes(x, offset, mask, gcols) + nbytes(offset, mask)
+    return moved, B3B_OPS_PER_COL * gcols.numel()
+
+
+def _b3b_library_ms(x, offset, mask, gcols):
+    """F.grid_sample's backward to its grid (the input needs no gradient,
+    as on the training path) for B3's samples, one batch entry per group."""
+    h, w, c = x.shape
+    ho, wo, g, k, _ = offset.shape
+    base_y = torch.arange(ho, device=x.device, dtype=torch.float32) - 1
+    base_x = torch.arange(wo, device=x.device, dtype=torch.float32) - 1
+    tap = torch.arange(k, device=x.device)
+    sy = base_y[:, None, None, None] + (tap // 3).float() + offset[..., 0]
+    sx = base_x[None, :, None, None] + (tap % 3).float() + offset[..., 1]
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1)
+    grid = grid.reshape(ho * wo, g, k, 2).permute(1, 0, 2, 3).contiguous()
+    grid.requires_grad_(True)
+    inp = x.float().reshape(h, w, g, c // g).permute(2, 3, 0, 1).contiguous()
+    out = F.grid_sample(inp, grid, mode='bilinear', padding_mode='zeros',
+                        align_corners=True)
+    gout = gcols.reshape(ho * wo, k, g, c // g).permute(2, 3, 0, 1)
+    gout = gout.contiguous()
+    ms = cuda_ms(lambda: torch.autograd.grad(out, grid, gout,
+                                             retain_graph=True))
+    del out, grid, inp
+    return ms
+
+
+def _b3b_measure(check, inputs, label, card, with_x=True):
+    """Checks and times of the backward kernel on each (x, offset, mask,
+    grad_cols) of ``inputs``: its offset and mask gradients (the training
+    path's call) against the plain version, and with ``with_x`` also with
+    grad_x; the kernel, plain and grid_sample-backward times and the
+    bytes bound. Returns the sums over ``inputs`` (a kernels-line
+    entry)."""
+    from c2matching_tpu_torch.ops import (deform_col2im,
+                                          deform_im2col_backward_plain)
+    only = (False, True, True)
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'max_abs_err': 0.0,
+             'library_ms': 0.0}
+    moved = ops = 0
+    for x, offset, mask, gcols in inputs:
+        shape = '{} {}x{}x{}'.format(label, *x.shape)
+        total['max_abs_err'] = max(total['max_abs_err'], _b3b_compare(
+            check, x, offset, mask, gcols, shape, only))
+        if with_x:
+            _b3b_compare(check, x, offset, mask, gcols,
+                         f'{shape} with grad_x', (True, True, True))
+        ms = cuda_ms(lambda: deform_col2im(x, offset, mask, gcols,
+                                           needs=only))
+        plain_ms = cuda_ms(lambda: deform_im2col_backward_plain(
+            x, offset, mask, gcols, needs=only))
+        x_ms = cuda_ms(lambda: deform_col2im(x, offset, mask, gcols))
+        lib_ms = _b3b_library_ms(x, offset, mask, gcols)
+        work = _b3b_work(x, offset, mask, gcols)
+        moved, ops = moved + work[0], ops + work[1]
+        b_ms, b_by = bound(*work, torch.float32)
+        print(f'b3bwd {shape}: kernel {ms:.4f} ms (with grad_x '
+              f'{x_ms:.4f}), plain {plain_ms:.3f} ms, grid_sample '
+              f'backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} '
+              f'({card})', flush=True)
+        total['ms'] += ms
+        total['plain_ms'] += plain_ms
+        total['library_ms'] += lib_ms
+        torch.cuda.empty_cache()
+    total['bound_ms'], total['bound_by'] = bound(moved, ops, torch.float32)
+    print(f'b3bwd {label}: kernel {total["ms"]:.4f} ms over the three '
+          f'DynAggs of one image, bound {total["bound_ms"]:.4f} ms by '
+          f'{total["bound_by"]} ({moved / 1e9:.4f} GB) ({card})', flush=True)
+    return total
+
+
+def phase_b3_backward(check, dev, card):
+    from c2matching_tpu_torch.ops import deform_col2im
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace('torch.', '')
+        _b3b_measure(check, [_b3b_inputs(gen, dev, h, w, c, dtype)
+                             for _, h, w, c in TRAIN_B3],
+                     f'random {name}', card)
+
+        # large offsets: every tap outside the image -> exact zeros
+        layer, h, w, c = TRAIN_B3[0]
+        x, offset, mask, gcols = _b3b_inputs(gen, dev, h, w, c, dtype)
+        big = torch.tensor([1e4, -1e4, 1e6, -3e30], device=dev)
+        offset = big[torch.randint(0, 4, offset.shape, generator=gen,
+                                   device=dev)]
+        gx, goff, gm = deform_col2im(x, offset, mask, gcols)
+        check(bool((gx == 0).all() and (goff == 0).all()
+                   and (gm == 0).all()),
+              f'b3bwd large-offset probe {name}: gradients exactly zero')
+
+
+# ----------------------------------------------------------------- train
+TRAIN_ANN = """    io_backend:
+      type: disk
+
+    gt_size: 160"""
+
+
+def _train_options(root, extractor):
+    """stage3_restoration_gan.yml for the synth set under ``root``: its
+    networks, losses, batch (9) and gt size (160) as they are; 2 + 3
+    iterations, a log line each and a checkpoint at the end, no
+    tensorboard."""
+    import os.path as osp
+    here = osp.dirname(osp.abspath(__file__))
+    with open(osp.join(here, TRAIN_OPTIONS)) as f:
+        text = f.read()
+    swaps = (
+        ('use_tb_logger: true', 'use_tb_logger: false'),
+        ('./datasets/CUFED/input', f'{root}/input'),
+        ('./datasets/CUFED/ref', f'{root}/ref'),
+        ('./datasets/CUFED5_pairs.txt', f'{root}/pairs.txt'),
+        ('dataroot_in: ./datasets/CUFED5', f'dataroot_in: {root}/input'),
+        ('dataroot_ref: ./datasets/CUFED5', f'dataroot_ref: {root}/ref'),
+        ('./experiments/stage2_student_contras_network/models/'
+         'net_student_latest.ckpt', extractor),
+        ('niter: 255000', f'niter: {TRAIN_PRETRAIN + TRAIN_GAN}'),
+        ('net_g_pretrain_steps: 10000',
+         f'net_g_pretrain_steps: {TRAIN_PRETRAIN}'),
+        ('print_freq: 100', 'print_freq: 1'),
+        ('save_checkpoint_freq: !!float 5e3',
+         f'save_checkpoint_freq: {TRAIN_PRETRAIN + TRAIN_GAN}'),
+        # the train block reads its pairs from the annotation file too
+        (TRAIN_ANN, TRAIN_ANN.replace(
+            '\n\n', f'\n    ann_file: {root}/pairs.txt\n\n')))
+    for old, new in swaps:
+        if old not in text:
+            raise ValueError(f'{TRAIN_OPTIONS} has no {old!r}')
+        text = text.replace(old, new)
+    return text
+
+
+@contextlib.contextmanager
+def _timed_iterations():
+    """Per iteration of RefRestorationModel.optimize_parameters: host
+    seconds around the call between two synchronises, the kernels' launch
+    counts and the losses; at the first call, the model and its
+    parameters."""
+    from c2matching_tpu_torch.models.ref_restoration_model import \
+        RefRestorationModel
+    from c2matching_tpu_torch.ops import (deform_col2im, deform_im2col,
+                                          match_argmax)
+    counters = (deform_im2col, deform_col2im, match_argmax)
+    rec = {'iters': [], 'first': None}
+    real = RefRestorationModel.optimize_parameters
+
+    def timed(self, step):
+        if rec['first'] is None:
+            rec['first'] = {
+                'g': {grp['name']: [p.detach().clone() for p in grp['params']]
+                      for grp in self.optimizer_g.param_groups},
+                'd': [p.detach().clone() for p in self.net_d.parameters()]}
+            rec['model'] = self
+        torch.cuda.synchronize()
+        before = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        real(self, step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec['iters'].append({
+            'step': step, 's': dt,
+            'launches': [c.launches - b for c, b in zip(counters, before)],
+            'logs': {k: float(v) for k, v in self.log_dict.items()}})
+
+    RefRestorationModel.optimize_parameters = timed
+    try:
+        yield rec
+    finally:
+        RefRestorationModel.optimize_parameters = real
+
+
+def phase_train(check, dev, report, card):
+    import os
+    import tempfile
+    from c2matching_tpu_torch.models import define_network
+    from c2matching_tpu_torch.ops import (deform_col2im, deform_im2col,
+                                          match_argmax)
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    from c2matching_tpu_torch.train import run
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as root:
+        synth.write_dataset(f'{root}/synth', n=10, size=(160,))
+        extractor = f'{root}/extractor.pth'
+        torch.save(define_network({'type': 'ContrasExtractorSep'},
+                                  torch.Generator().manual_seed(0))
+                   .state_dict(), extractor)
+        path = f'{root}/train.yml'
+        with open(path, 'w') as f:
+            f.write(_train_options(f'{root}/synth', extractor))
+        os.environ['C2MATCHING_ROOT'] = f'{root}/out'
+        for counter in (deform_im2col, deform_col2im, match_argmax):
+            counter.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _timed_iterations() as rec:
+            run(path)
+        wall = time.perf_counter() - t0
+        launches = {'match_argmax': match_argmax.launches,
+                    'deform_im2col': deform_im2col.launches,
+                    'deform_col2im': deform_col2im.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del os.environ['C2MATCHING_ROOT']
+        saved = sorted(os.listdir(f'{root}/out/experiments/'
+                                  'stage3_restoration_gan/models'))
+
+    iters = rec['iters']
+    n_iters = TRAIN_PRETRAIN + TRAIN_GAN
+    check(len(iters) == n_iters, f'train: {len(iters)} iterations run')
+    for it in iters:
+        kind = 'pretrain' if it['step'] <= TRAIN_PRETRAIN else 'GAN'
+        keys = ('l_pix',) if kind == 'pretrain' else (
+            'l_g_pix', 'l_g_percep', 'l_g_gan', 'l_d_real', 'l_d_fake',
+            'l_grad_penalty')
+        logs = it['logs']
+        check(all(k in logs for k in keys)
+              and all(math.isfinite(v) for v in logs.values()),
+              f'train iteration {it["step"]} ({kind}): finite losses '
+              + ', '.join(f'{k} {logs[k]:.5g}' for k in keys if k in logs))
+        n_im2col, n_col2im, n_match = it['launches']
+        print(f'train iteration {it["step"]} ({kind}): {1e3 * it["s"]:.1f} ms'
+              f' (host clock, synchronised), launches: deform_im2col '
+              f'{n_im2col}, deform_col2im {n_col2im}, match_argmax {n_match} '
+              f'({card})', flush=True)
+    first, model = rec['first'], rec['model']
+    for grp in model.optimizer_g.param_groups:
+        moved = any(not torch.equal(a, p.detach())
+                    for a, p in zip(first['g'][grp['name']], grp['params']))
+        check(moved, f'train: G LR group {grp["name"]} moved')
+    check(any(not torch.equal(a, p.detach()) for a, p in
+              zip(first['d'], model.net_d.parameters())), 'train: D moved')
+    for name, n in launches.items():
+        check(n > 0, f'train: {name} launched {n} times')
+    check('net_g_latest.pth' in saved and f'net_d_{n_iters}.pth' in saved,
+          f'train: checkpoints {saved}')
+    pre = [1e3 * it['s'] for it in iters if it['step'] <= TRAIN_PRETRAIN]
+    gan = [1e3 * it['s'] for it in iters if it['step'] > TRAIN_PRETRAIN]
+    print(f'train stage3_restoration_gan, batch 9 at gt 160, full width: '
+          f'pretrain iterations {", ".join(f"{v:.1f}" for v in pre)} ms, '
+          f'GAN iterations {", ".join(f"{v:.1f}" for v in gan)} ms; peak '
+          f'device memory {peak:.2f} GiB; the run (options to the last '
+          f'checkpoint) {wall:.1f} s; launches over the run {launches} '
+          f'({card})', flush=True)
+    report['train_launches'] = launches
+    _train_profile(model, card)
+    # the backward kernel on the tensors one GAN iteration hands it
+    with _record_col2im() as seen:
+        model.optimize_parameters(n_iters + 1)
+    check(sorted(tuple(d[0].shape) for d in seen)
+          == sorted((h, w, c) for _, h, w, c in TRAIN_B3),
+          f'train: deform_col2im gets x {[tuple(d[0].shape) for d in seen]}')
+    report['b3bwd_float32'] = _b3b_measure(check, seen, 'train path', card,
+                                           with_x=False)
+    del model, rec, first, seen
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _record_col2im():
+    """The (x, offset, mask, grad_cols) of the first backward of the
+    deformable columns at each DynAgg shape (image 0 of each scale), taken
+    in the autograd Function's backward; the kernel and its counter stay
+    as they are."""
+    dc = importlib.import_module('c2matching_tpu_torch.ops.deform_conv')
+    seen, shapes = [], set()
+    real = dc._DeformColumns.backward
+
+    def rec(ctx, grad_cols):
+        x, offset, mask = ctx.saved_tensors
+        if tuple(x.shape) not in shapes:
+            shapes.add(tuple(x.shape))
+            seen.append((x, offset, mask, grad_cols.float()))
+        return real(ctx, grad_cols)
+
+    dc._DeformColumns.backward = staticmethod(rec)
+    try:
+        yield seen
+    finally:
+        dc._DeformColumns.backward = staticmethod(real)
+
+
+def _train_profile(model, card, top=12):
+    """One more GAN iteration on the run's last batch under torch.profiler:
+    the device time by kernel (the largest ``top``) and the device's busy
+    share of the iteration (the kernels' summed time over the host clock,
+    an upper bound where kernels overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    step = TRAIN_PRETRAIN + TRAIN_GAN + 1
+    model.optimize_parameters(step)          # the same iteration, warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.optimize_parameters(step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernels only: a user annotation (Optimizer.step) carries the device
+    # time of the kernels inside it
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    device_us = sum(e.self_device_time_total for e in events)
+    print(f'train profile, one GAN iteration: {1e3 * wall:.1f} ms host '
+          f'clock, {device_us / 1e3:.1f} ms of kernels '
+          f'({100 * device_us / 1e6 / wall:.1f}% busy), {len(events)} '
+          f'kernel names ({card})', flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f'  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d} x  '
+              f'{e.key[:90]}', flush=True)
+
+
+def _small_train_opt(out):
+    """debug_stage3_synth.yml's train block (its losses and LRs) on a small
+    model."""
+    import os.path as osp
+    from c2matching_tpu_torch.utils import dict_to_nonedict, options
+    here = osp.dirname(osp.abspath(__file__))
+    train = dict(options.load(osp.join(
+        here, 'options/train/debug_stage3_synth.yml'))['train'])
+    return dict_to_nonedict({
+        'name': 'chip_train_cpu', 'is_train': True,
+        'model_type': 'RefRestorationModel', 'scale': 4, 'manual_seed': 0,
+        'network_g': {'type': 'RestorationNet', 'ngf': 16, 'n_blocks': 2,
+                      'groups': 8},
+        'network_d': {'type': 'ImageDiscriminator', 'in_nc': 3, 'ndf': 4},
+        'network_map': F32_BLOCKS['network_map'],
+        'network_extractor': F32_BLOCKS['network_extractor'],
+        'path': {'models': f'{out}/models',
+                 'training_state': f'{out}/training_state'},
+        'train': train})
+
+
+def phase_train_cpu(check, dev):
+    """One pretrain and one GAN step of a small config, card vs CPU, each
+    from fresh models with the same seeded weights, on the same batch."""
+    import tempfile
+    from c2matching_tpu_torch.data import DataLoader, create_dataset
+    from c2matching_tpu_torch.models import RefRestorationModel
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_train_cpu_') as root:
+        synth.write_dataset(f'{root}/synth', n=2, size=(64,))
+        data = create_dataset({
+            'name': 'synth', 'type': 'RefCUFEDDataset', 'phase': 'train',
+            'scale': 4, 'dataroot_in': f'{root}/synth/input',
+            'dataroot_ref': f'{root}/synth/ref',
+            'io_backend': {'type': 'disk'},
+            'ann_file': f'{root}/synth/pairs.txt', 'gt_size': 64,
+            'use_flip': False, 'use_rot': False})
+        batch = next(iter(DataLoader(data, batch_size=2)))
+        opt = _small_train_opt(f'{root}/out')
+        pretrain = opt['train']['net_g_pretrain_steps']
+        for step, kind in ((1, 'pretrain'), (pretrain + 1, 'GAN')):
+            models = []
+            for where in (dev, 'cpu'):
+                model = RefRestorationModel(opt, where)
+                model.feed_data(batch)
+                model.optimize_parameters(step)
+                models.append(model)
+            card, cpu = models
+            for k, v in cpu.log_dict.items():
+                want, got = float(v), float(card.log_dict[k])
+                ok = abs(got - want) <= TRAIN_CPU_REL * max(abs(want), 1e-12)
+                check(ok, f'train_cpu {kind} step: {k} card {got:.6g} vs CPU '
+                      f'{want:.6g} (rel {TRAIN_CPU_REL:g})')
+            grads = dict(cpu.net_g.named_parameters())
+            top = max(p.grad.abs().max().item() for p in grads.values())
+            err = max((p.grad.cpu() - grads[n].grad).abs().max().item()
+                      for n, p in card.net_g.named_parameters())
+            check(err <= TRAIN_CPU_REL * top, f'train_cpu {kind} step: G '
+                  f'gradients max |card - CPU| {err:.3g} <= '
+                  f'{TRAIN_CPU_REL:g} x {top:.3g}')
+            del models, card, cpu
+        torch.cuda.empty_cache()
+
+
 def main():
     if len(sys.argv) > 1:
         sys.exit(f'chip_smoke.py takes no arguments, got {sys.argv[1:]}')
@@ -1356,7 +1817,10 @@ def main():
             ('b2', lambda: phase_b2(check, dev, card)),
             ('main', lambda: phase_main(check, dev, report, card, recorded)),
             ('path', lambda: phase_path(check, report, recorded, card)),
-            ('eval', lambda: phase_eval(check, card))):
+            ('eval', lambda: phase_eval(check, card)),
+            ('b3bwd', lambda: phase_b3_backward(check, dev, card)),
+            ('train', lambda: phase_train(check, dev, report, card)),
+            ('train_cpu', lambda: phase_train_cpu(check, dev))):
         try:
             fn()
         except Exception as exc:  # a phase fails; the others still run
@@ -1368,17 +1832,23 @@ def main():
         sys.exit(1)
 
     # f32 numbers; B1 and B3 launch on the main path, B2 in the windowed
-    # op's run on the main path's DynAgg tensors (phase path)
+    # op's run on the main path's DynAgg tensors (phase path), B3's backward
+    # in the training run, timed on one iteration's tensors (phase train)
     launches = dict(report['main_f32_launches'],
-                    window_contract=report['b2_float32'].pop('launches'))
+                    window_contract=report['b2_float32'].pop('launches'),
+                    deform_col2im=report['train_launches']['deform_col2im'])
     kernels = []
     for name, key, source, replaces in (
             ('match_argmax', 'b1', 'c2matching_tpu_torch/csrc/patch_match.cu',
              'c2matching_tpu/ops/pallas/patch_match_kernel.py:81'),
             ('deform_im2col', 'b3', 'c2matching_tpu_torch/csrc/deform_conv.cu',
              'c2matching_tpu/ops/deform_conv.py:214'),
-            ('window_contract', 'b2', 'c2matching_tpu_torch/csrc/dcn_window.cu',
-             'c2matching_tpu/ops/pallas/dcn_window_kernel.py:125')):
+            ('window_contract', 'b2',
+             'c2matching_tpu_torch/csrc/dcn_window.cu',
+             'c2matching_tpu/ops/pallas/dcn_window_kernel.py:125'),
+            ('deform_col2im', 'b3bwd',
+             'c2matching_tpu_torch/csrc/deform_conv.cu',
+             'c2matching_tpu/ops/deform_conv.py:214')):
         kernels.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': launches[name],
                         **report[f'{key}_float32']})

@@ -97,16 +97,14 @@ def test_loader_batches_as_jax(synth_root):
 
 
 def test_refusals(synth_root):
-    with pytest.raises(NotImplementedError, match='train'):
-        RefCUFEDDataset(_opt(synth_root, phase='train'))
     with pytest.raises(ValueError, match='lmdb'):
         RefCUFEDDataset(_opt(synth_root, io_backend={'type': 'lmdb'}))
     with pytest.raises(ValueError, match='not supported'):
         FileClient('memcached')
     with pytest.raises(ValueError, match='not ported'):
         create_dataset(_opt(synth_root, type='ContrasDataset'))
-    with pytest.raises(NotImplementedError):
-        create_dataloader(None, {'phase': 'train'})
+    with pytest.raises(ValueError, match='phase'):
+        create_dataloader(None, {'phase': 'bogus'})
 
 
 @pytest.mark.parametrize('layout,size', [('cufed', ['160']),
