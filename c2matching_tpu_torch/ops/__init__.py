@@ -1,13 +1,14 @@
 """Tensor ops of the port: resize, flow, patch matching and the deformable
 conv (exact and windowed), with the hand-written kernels (patch-match
-argmax, the deformable im2col and its backward, and the window
-contraction) behind their wrappers."""
+argmax, the deformable im2col, the deformable conv's backward, and the
+window contraction) behind their wrappers."""
 from .dcn_window import (modulated_deform_conv_windowed,
                          modulated_deform_conv_windowed_chunked,
                          window_applicable)
 from .dcn_window_kernel import (window_contract, window_contract_plain,
                                 window_conv, window_conv_plain)
-from .deform_conv import (deform_col2im, deform_conv, deform_im2col,
+from .deform_conv import (deform_col2im, deform_conv, deform_conv_backward,
+                          deform_conv_backward_plain, deform_im2col,
                           deform_im2col_backward_plain, deform_im2col_plain,
                           modulated_deform_conv)
 from .flow import batched_pre_offsets, match_to_pre_offsets
@@ -17,7 +18,8 @@ from .resize import pixel_shuffle, upscale
 
 __all__ = [
     'batched_patch_match', 'batched_pre_offsets', 'deform_col2im',
-    'deform_conv', 'deform_im2col', 'deform_im2col_backward_plain',
+    'deform_conv', 'deform_conv_backward', 'deform_conv_backward_plain',
+    'deform_im2col', 'deform_im2col_backward_plain',
     'deform_im2col_plain', 'match_argmax',
     'match_argmax_plain', 'match_to_pre_offsets', 'modulated_deform_conv',
     'modulated_deform_conv_windowed',

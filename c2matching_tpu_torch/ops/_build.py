@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and
 compiles on its own into ``build/kernels/<name>-<hash>.so`` at the root of
 the checkout. ``<hash>`` covers the source, every ``csrc/*.cuh`` header it
-includes (``#include "..."``, followed into headers) and the flags, so an
-edited source or header rebuilds and an unchanged one is loaded from the
-cache. The build
+includes (``#include "..."``, followed into headers), the flags and any
+macros defined for a build (``defines``: a measurement's variant of a
+source), so an edited source or header rebuilds and an unchanged one is
+loaded from the cache. The build
 happens at first use, never at import: the CPU tests import every module
 on hosts without nvcc.
 """
@@ -22,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
-SOURCES = ('patch_match', 'deform_conv', 'dcn_window')
+SOURCES = ('patch_match', 'deform_conv', 'deform_conv_backward',
+           'dcn_window')
 
 _libs = {}
 _lock = threading.Lock()
@@ -56,30 +58,39 @@ def local_headers(path):
     return seen
 
 
-def library_path(name):
+def _flags(defines):
+    return NVCC_FLAGS + tuple(f'-D{d}' for d in defines)
+
+
+def library_path(name, defines=()):
     src = CSRC / f'{name}.cu'
     digest = hashlib.sha256(src.read_bytes())
     for header in local_headers(src):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(' '.join(NVCC_FLAGS).encode())
+    digest.update(' '.join(_flags(defines)).encode())
     return BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
 
 
 def build(names=SOURCES, verbose=False):
     """Compile every named source whose library is missing: one nvcc per
-    source, all started together. Returns ``{name: compiler output}`` for
-    the sources built now (with ``verbose``, ptxas reports registers,
-    shared memory and spills). Raises with nvcc's output if one fails."""
+    source, all started together. ``names`` holds source names or (name,
+    defines) pairs, ``defines`` a tuple of ``'MACRO=value'`` strings.
+    Returns ``{name: compiler output}`` for the builds made now (with
+    ``verbose``, ptxas reports registers, shared memory and spills). Raises
+    with nvcc's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     extra = ('-Xptxas', '-v') if verbose else ()
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for entry in names:
+        name, defs = (entry, ()) if isinstance(entry, str) else entry
+        out = library_path(name, defs)
         if out.exists():
             continue
         tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, '-o', str(tmp),
+        cmd = [nvcc_path(), *_flags(defs), *extra, '-o', str(tmp),
                str(CSRC / f'{name}.cu')]
+        if defs:
+            name = f'{name} ({" ".join(defs)})'
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -97,12 +108,14 @@ def build(names=SOURCES, verbose=False):
     return logs
 
 
-def load(name):
-    """The ctypes handle of kernel library ``name``, built on first use."""
+def load(name, defines=()):
+    """The ctypes handle of kernel library ``name`` (built with the macros
+    ``defines``), built on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            build((key,))
+            lib = ctypes.CDLL(str(library_path(*key)))
+            _libs[key] = lib
         return lib

@@ -12,14 +12,16 @@ contraction with the weight is one ``torch.matmul``. On a CPU tensor
 package's ``_mdc_reference_single``; on a CUDA tensor it launches the
 kernel or raises.
 
-The gradient is a ``torch.autograd.Function`` around the columns. Its
-backward takes grad_cols (P, K*C) f32 to the offset, mask and x gradients
-in B3's second kernel (``deform_col2im``), each only when autograd asks for
-it; the weight and bias gradients come from autograd through the
-``torch.matmul``. The semantics are those of ``jax.grad`` through the JAX
-package's ``_mdc_fast_single``: floor has zero derivative, a sample
-outside the image contributes nothing, and corners outside the image are
-zeros that receive no gradient.
+The gradient is the ``torch.autograd.Function`` ``_ModulatedDeformConv``
+over the whole op of a batch. Its backward computes the offset and mask
+gradients, and grad_x when autograd asks for it, for every image in one
+launch of B3's backward kernel (``csrc/deform_conv_backward.cu``,
+``deform_conv_backward``), which forms the columns' gradient
+``grad_out @ w_kc^T`` on the tensor cores and never stores it; the weight
+and bias gradients are ``torch.matmul`` and a sum. The semantics are those
+of ``jax.grad`` through the JAX package's ``_mdc_fast_single``: floor has
+zero derivative, a sample outside the image contributes nothing, and
+corners outside the image are zeros that receive no gradient.
 
 Layout, as in the JAX package:
     x:      (B, H, W, C)          NHWC, float32 or bfloat16
@@ -44,17 +46,31 @@ from . import _build
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 _ENTRY = {torch.float32: 'c2m_mdc_im2col_f32',
           torch.bfloat16: 'c2m_mdc_im2col_bf16'}
-_BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+_COL2IM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+                    + [ctypes.c_void_p])
+_COL2IM_ENTRY = {torch.float32: 'c2m_mdc_col2im_f32',
+                 torch.bfloat16: 'c2m_mdc_col2im_bf16'}
+_BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
                       + [ctypes.c_void_p])
-_BACKWARD_ENTRY = {torch.float32: 'c2m_mdc_col2im_f32',
-                   torch.bfloat16: 'c2m_mdc_col2im_bf16'}
+_BACKWARD_ENTRY = {torch.float32: 'c2m_mdc_backward_f32',
+                   torch.bfloat16: 'c2m_mdc_backward_bf16'}
+# the backward kernel takes groups of at most this many channels, and
+# grad_out rows of at most this many (its tile of them in shared memory)
+BACKWARD_MAX_GROUP = 64
+BACKWARD_MAX_CO = 320
+
+_fns = {}
 
 
-def _kernel(dtype, backward=False):
-    entry = _BACKWARD_ENTRY if backward else _ENTRY
-    fn = getattr(_build.load('deform_conv'), entry[dtype])
-    fn.argtypes = _BACKWARD_ARGTYPES if backward else _ARGTYPES
-    fn.restype = ctypes.c_int
+def _kernel(lib, name, argtypes):
+    """The C entry ``name`` of kernel library ``lib``, its argument types
+    set at the first call."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 
@@ -174,7 +190,7 @@ def deform_im2col(x, offset, mask, kernel_size=(3, 3), stride=(1, 1),
     mask = mask.contiguous()
     cols = torch.empty((ho * wo, k * c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _kernel(x.dtype)(
+        err = _kernel('deform_conv', _ENTRY[x.dtype], _ARGTYPES)(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
             h, w, c, ho, wo, g, kh, kw, *_pair(stride), *_pair(padding),
             *_pair(dilation), torch.cuda.current_stream().cuda_stream)
@@ -257,11 +273,14 @@ def deform_im2col_backward_plain(x, offset, mask, grad_cols,
 def deform_col2im(x, offset, mask, grad_cols, kernel_size=(3, 3),
                   stride=(1, 1), padding=(1, 1), dilation=(1, 1),
                   needs=(True, True, True)):
-    """The gradients of ``deform_im2col`` from grad_cols (Ho*Wo, K*C):
-    (grad_x (H, W, C) in x's dtype, grad_offset (Ho, Wo, G, K, 2) f32,
-    grad_mask (Ho, Wo, G, K) f32), each None unless ``needs`` asks for it.
-    On a CPU tensor the plain version runs; on a CUDA tensor the kernel
-    launches or raises."""
+    """The gradients of ``deform_im2col`` of one image from grad_cols
+    (Ho*Wo, K*C): (grad_x (H, W, C) in x's dtype, grad_offset
+    (Ho, Wo, G, K, 2) f32, grad_mask (Ho, Wo, G, K) f32), each None unless
+    ``needs`` asks for it. The columns' route: grad_cols is formed in device
+    memory first (``grad_out @ w_kc^T``). No path of the port calls it;
+    chip_smoke.py times it as the yardstick of ``deform_conv_backward``,
+    which forms grad_cols inside its kernel. On a CPU tensor the plain
+    version runs; on a CUDA tensor the kernel launches or raises."""
     if x.device.type == 'cpu':
         return deform_im2col_backward_plain(x, offset, mask, grad_cols,
                                             kernel_size, stride, padding,
@@ -269,7 +288,7 @@ def deform_col2im(x, offset, mask, grad_cols, kernel_size=(3, 3),
     if x.device.type != 'cuda':
         raise ValueError(f'deform_col2im: unsupported device {x.device}')
     _check(x, offset, mask)
-    if x.dtype not in _BACKWARD_ENTRY:
+    if x.dtype not in _COL2IM_ENTRY:
         raise TypeError(f'deform_col2im: x must be float32 or bfloat16, got '
                         f'{x.dtype}')
     if (offset.dtype != torch.float32 or mask.dtype != torch.float32
@@ -303,7 +322,8 @@ def deform_col2im(x, offset, mask, grad_cols, kernel_size=(3, 3),
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(x.device):
-        err = _kernel(x.dtype, backward=True)(
+        err = _kernel('deform_conv', _COL2IM_ENTRY[x.dtype],
+                      _COL2IM_ARGTYPES)(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             grad_cols.data_ptr(), ptr(grad_offset), ptr(grad_mask),
             ptr(grad_x), h, w, c, ho, wo, g, kh, kw, *_pair(stride),
@@ -321,24 +341,171 @@ def deform_col2im(x, offset, mask, grad_cols, kernel_size=(3, 3),
 deform_col2im.launches = 0
 
 
-class _DeformColumns(torch.autograd.Function):
-    """The columns of ``deform_im2col`` as f32 (bf16 columns are rounded in
-    x's dtype first, as the forward stores them), differentiable in x,
-    offset and mask through ``deform_col2im``."""
+def _backward_check(x, offset, mask, grad_out, w_kc):
+    if x.dim() != 4 or offset.dim() != 6 or mask.dim() != 5:
+        raise ValueError('deform_conv_backward takes a batch: x '
+                         '(B, H, W, C), offset (B, Ho, Wo, G, K, 2), mask '
+                         '(B, Ho, Wo, G, K)')
+    b, _, _, c = x.shape
+    _, ho, wo, g, k, _ = offset.shape
+    if offset.shape[0] != b or offset.shape[:5] != mask.shape:
+        raise ValueError(f'x {tuple(x.shape)}, offset {tuple(offset.shape)} '
+                         f'and mask {tuple(mask.shape)} do not pair')
+    if w_kc.dim() != 2 or w_kc.shape[0] != k * c:
+        raise ValueError(f'w_kc {tuple(w_kc.shape)} is not (K*C, Co) with '
+                         f'K*C = {k * c}')
+    if tuple(grad_out.shape) != (b, ho, wo, w_kc.shape[1]):
+        raise ValueError(f'grad_out {tuple(grad_out.shape)} is not '
+                         f'{(b, ho, wo, w_kc.shape[1])}')
+    if c % g:
+        raise ValueError('channels must divide into the deformable groups')
+
+
+def deform_conv_backward_plain(x, offset, mask, grad_out, w_kc,
+                               kernel_size=(3, 3), stride=(1, 1),
+                               padding=(1, 1), dilation=(1, 1),
+                               needs=(True, True, True)):
+    """Plain version of ``deform_conv_backward``: per image, the columns'
+    gradient ``grad_out[i] @ w_kc^T`` by ``torch.matmul``, then
+    ``deform_im2col_backward_plain``."""
+    _backward_check(x, offset, mask, grad_out, w_kc)
+    b, ho, wo, co = grad_out.shape
+    outs = []
+    for i in range(b):
+        grad_cols = torch.matmul(grad_out[i].reshape(ho * wo, co).float(),
+                                 w_kc.t())
+        outs.append(deform_im2col_backward_plain(
+            x[i], offset[i], mask[i], grad_cols, kernel_size, stride, padding,
+            dilation, needs=needs))
+    return tuple(None if outs[0][j] is None
+                 else torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+def deform_conv_backward(x, offset, mask, grad_out, w_kc, kernel_size=(3, 3),
+                         stride=(1, 1), padding=(1, 1), dilation=(1, 1),
+                         needs=(True, True, True)):
+    """The x, offset and mask gradients of the batched deformable conv
+    ``out[b, p] = cols_b[p] @ w_kc`` from grad_out (B, Ho, Wo, Co) f32 and
+    w_kc (K*C, Co) f32: (grad_x (B, H, W, C) in x's dtype, grad_offset
+    (B, Ho, Wo, G, K, 2) f32, grad_mask (B, Ho, Wo, G, K) f32), each None
+    unless ``needs`` asks for it. On a CUDA tensor one launch of the kernel
+    covers the whole batch and forms the columns' gradient on the tensor
+    cores (groups of at most ``BACKWARD_MAX_GROUP`` channels, Co a multiple
+    of 4 and at most ``BACKWARD_MAX_CO``; anything else raises); on a CPU
+    tensor the plain version runs."""
+    if not any(needs):
+        return None, None, None
+    if x.device.type == 'cpu':
+        return deform_conv_backward_plain(x, offset, mask, grad_out, w_kc,
+                                          kernel_size, stride, padding,
+                                          dilation, needs=needs)
+    if x.device.type != 'cuda':
+        raise ValueError(f'deform_conv_backward: unsupported device '
+                         f'{x.device}')
+    _backward_check(x, offset, mask, grad_out, w_kc)
+    if x.dtype not in _BACKWARD_ENTRY:
+        raise TypeError(f'deform_conv_backward: x must be float32 or '
+                        f'bfloat16, got {x.dtype}')
+    if any(t.dtype != torch.float32 for t in (offset, mask, grad_out, w_kc)):
+        raise TypeError('deform_conv_backward: offset, mask, grad_out and '
+                        'w_kc must be float32')
+    if any(t.device != x.device for t in (offset, mask, grad_out, w_kc)):
+        raise ValueError('deform_conv_backward: tensors lie on different '
+                         'devices')
+    b, h, w, c = x.shape
+    _, ho, wo, g, k, _ = offset.shape
+    co = w_kc.shape[1]
+    kh, kw = _pair(kernel_size)
+    if kh * kw != k:
+        raise ValueError(f'kernel_size {kh}x{kw} does not give {k} taps')
+    if c // g > BACKWARD_MAX_GROUP or co % 4 or co > BACKWARD_MAX_CO:
+        raise ValueError(f'deform_conv_backward: the kernel takes groups of '
+                         f'at most {BACKWARD_MAX_GROUP} channels and Co a '
+                         f'multiple of 4 up to {BACKWARD_MAX_CO}, got '
+                         f'{c // g} and {co}')
+    need_x, need_offset, need_mask = needs
+    x = x.contiguous()
+    offset = offset.contiguous()
+    mask = mask.contiguous()
+    grad_out = grad_out.contiguous()
+    w_kc = w_kc.contiguous()
+    # grad_x accumulates with f32 atomics; a bf16 x is cast once at the end
+    grad_x = (torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
+              if need_x else None)
+    grad_offset = torch.empty_like(offset) if need_offset else None
+    grad_mask = torch.empty_like(mask) if need_mask else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        err = _kernel('deform_conv_backward', _BACKWARD_ENTRY[x.dtype],
+                      _BACKWARD_ARGTYPES)(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            grad_out.data_ptr(), w_kc.data_ptr(), ptr(grad_offset),
+            ptr(grad_mask), ptr(grad_x), b, h, w, c, ho, wo, g, kh, kw,
+            *_pair(stride), *_pair(padding), *_pair(dilation), co,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f'deform_conv_backward kernel launch failed: CUDA '
+                           f'error {err}')
+    deform_conv_backward.launches += 1
+    if grad_x is not None:
+        grad_x = grad_x.to(x.dtype)
+    return grad_x, grad_offset, grad_mask
+
+
+deform_conv_backward.launches = 0
+
+
+class _ModulatedDeformConv(torch.autograd.Function):
+    """The deformable conv of a batch, differentiable in x, offset, mask,
+    w_kc and bias. Forward: B3's columns per image (bf16 columns are
+    rounded in x's dtype, as the forward stores them, then taken to f32)
+    times w_kc by ``torch.matmul``, plus the bias, one image at a time. An
+    image's f32 columns are kept for the weight's gradient only when w_kc
+    needs one; otherwise they take one image's memory. Backward: the x,
+    offset and mask gradients of the whole batch in one
+    ``deform_conv_backward``, grad_x only when autograd asks for it (never
+    on the training path, whose sampled feature comes from the frozen
+    VGG19); w_kc's gradient ``sum_i cols_i^T @ grad_out_i`` and the bias's
+    by torch."""
 
     @staticmethod
-    def forward(ctx, x, offset, mask, conv):
-        ctx.save_for_backward(x, offset, mask)
+    def forward(ctx, x, offset, mask, w_kc, bias, conv):
+        b = x.shape[0]
+        _, ho, wo, _, _, _ = offset.shape
+        outs, kept = [], []
+        for i in range(b):
+            col = deform_im2col(x[i], offset[i], mask[i], *conv).float()
+            outs.append(torch.matmul(col, w_kc))
+            if ctx.needs_input_grad[3]:
+                kept.append(col)
+            del col
+        out = torch.stack(outs).reshape(b, ho, wo, w_kc.shape[1])
+        if bias is not None:
+            out = out + bias
+        ctx.save_for_backward(x, offset, mask, w_kc, *kept)
         ctx.conv = conv
-        return deform_im2col(x, offset, mask, *conv).float()
+        return out
 
     @staticmethod
-    def backward(ctx, grad_cols):
-        x, offset, mask = ctx.saved_tensors
-        grad_x, grad_offset, grad_mask = deform_col2im(
-            x, offset, mask, grad_cols.float(), *ctx.conv,
-            needs=tuple(ctx.needs_input_grad[:3]))
-        return grad_x, grad_offset, grad_mask, None
+    def backward(ctx, grad_out):
+        x, offset, mask, w_kc, *cols = ctx.saved_tensors
+        need_x, need_offset, need_mask, need_w, need_bias = \
+            ctx.needs_input_grad[:5]
+        grad_out = grad_out.float().contiguous()
+        grad_x, grad_offset, grad_mask = deform_conv_backward(
+            x, offset, mask, grad_out, w_kc, *ctx.conv,
+            needs=(need_x, need_offset, need_mask))
+        grad_w = grad_bias = None
+        if need_w:
+            rows = grad_out.reshape(len(cols), -1, grad_out.shape[-1])
+            grad_w = sum(torch.matmul(col.t(), rows[i])
+                         for i, col in enumerate(cols))
+        if need_bias:
+            grad_bias = grad_out.sum(dim=(0, 1, 2))
+        return grad_x, grad_offset, grad_mask, grad_w, grad_bias, None
 
 
 def modulated_deform_conv(x, offset, mask, weight, bias=None,
@@ -354,26 +521,20 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None,
         bias:   (Cout,) or None.
 
     Returns:
-        (B, Ho, Wo, Cout) float32. Images run one at a time, which bounds
-        the columns' memory to one image. Differentiable in every argument:
-        the columns' gradient runs in ``deform_col2im``, the weight's and
-        bias's in autograd.
+        (B, Ho, Wo, Cout) float32. The columns are formed one image at a
+        time. Differentiable in every argument through
+        ``_ModulatedDeformConv``: one launch of B3's backward kernel gives
+        the x, offset and mask gradients of the whole batch.
     """
-    b, _, _, c = x.shape
-    _, ho, wo, _, k, _ = offset.shape
+    _, _, _, c = x.shape
+    _, _, _, _, k, _ = offset.shape
     co = weight.shape[-1]
     # bf16 columns meet bf16-rounded weights; products accumulate in f32
     w_kc = weight.reshape(k * c, co).to(x.dtype).float()
-    offset = offset.float()
-    mask = mask.float()
-    conv = (kernel_size, stride, padding, dilation)
-    out = torch.stack([
-        torch.matmul(_DeformColumns.apply(x[i], offset[i], mask[i], conv),
-                     w_kc)
-        for i in range(b)]).reshape(b, ho, wo, co)
-    if bias is not None:
-        out = out + bias.float()
-    return out
+    return _ModulatedDeformConv.apply(
+        x, offset.float(), mask.float(), w_kc,
+        None if bias is None else bias.float(),
+        (kernel_size, stride, padding, dilation))
 
 
 def deform_conv(x, offset, weight, bias=None, kernel_size=(3, 3),

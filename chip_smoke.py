@@ -67,27 +67,36 @@ Phases:
      against the same runner on the CPU. Prints PSNR, PSNR_Y, SSIM_Y and
      the median ms per image over the three passes for each config and
      set.
-  8. b3bwd: the deformable conv's backward kernel (deform_col2im) against
-     its plain version on random inputs at the three per-image shapes of
-     stage-3 training at gt 160 (relu3 40x40x256, relu2 80x80x128, relu1
-     160x160x64; G = 8, K = 9) in f32 and bf16, offsets on exact integers
-     and past the image's edges, the offset and mask gradients alone (the
-     training path's call) and with grad_x (f32 atomics); the large-offset
-     probe must give exact zeros. Times the kernel, the plain version and
-     F.grid_sample's backward (the library yardstick) at those shapes.
+  8. b3bwd: the deformable conv's backward kernel (deform_conv_backward:
+     one launch per DynAgg covers the whole batch, and the columns'
+     gradient grad_out @ w_kc^T is formed on the tensor cores inside it)
+     against its plain version on random inputs at stage-3 training's
+     three DynAggs at gt 160 and batch 9 (relu3 40x40x256, relu2
+     80x80x128, relu1 160x160x64; G = 8, K = 9, Co = C) in f32 and bf16,
+     offsets on exact integers and past the image's edges, the offset and
+     mask gradients alone (the training path's call) and with grad_x (f32
+     atomics); the columns' route it replaced (grad_cols by torch.matmul
+     into device memory, then deform_col2im, image by image), kept as its
+     yardstick, against the same plain version; the large-offset probe
+     must give exact zeros; batch-2 probes (B3B_ODD) reach every
+     instantiation of the kernel, the widest group and Co it takes. Times the kernel (CUDA
+     events and torch.profiler), the columns' route (both), the plain
+     version and the library route (torch.matmul + F.grid_sample's
+     backward), beside the bound.
   9. train: `python -m c2matching_tpu_torch.train`'s run() on the card with
      options/train/stage3_restoration_gan.yml at full width (ngf 64, 16
      blocks, 8 groups, D ndf 32, VGG19 relu5_1 perceptual, WGAN-GP) and its
      batch of 9 at gt 160, on a 10-pair 160-px synth set and the seeded
      extractor saved as .pth: 2 G-pretrain and 3 GAN iterations, the
      launch counters at 0 before the run. Checks the losses are finite,
-     every LR group and D moved, B3's forward and backward launched; prints
+     every LR group and D moved, B3's forward and backward launched (the
+     backward once per DynAgg and iteration: 3); prints
      ms per pretrain and GAN iteration (host clock around a synchronised
      optimize_parameters), peak memory and launches per iteration, then a
      torch.profiler breakdown of one more GAN iteration by kernel, and the
-     backward kernel against its plain version on the tensors one more GAN
-     iteration hands it (image 0 of each DynAgg; these are the times of
-     the kernels line).
+     backward kernel as in phase b3bwd on the tensors one more GAN
+     iteration hands it (each DynAgg's whole batch, whose sampled feature
+     must need no gradient; these are the times of the kernels line).
  10. train_cpu: one G-pretrain step and one GAN step of a small config
      (ngf 16, 2 blocks, ndf 4, batch 2 at gt 64) on the card against the
      same steps on the CPU (plain versions) from the same weights: losses
@@ -137,8 +146,10 @@ EVAL_SSIM_TOL = 1e-4
 EVAL_SERVING_PSNR_TOL = 0.5  # dB, serving vs f32 on the card: bf16 gathers
                              # and near-tie match flips; a sanity bound
 B3B_REL = 1e-5       # |kernel - plain| of the offset and mask gradients, of
-                     # their largest magnitude: f32 dots over the group's
-                     # channels in another order (bf16 x is read alike)
+                     # their largest magnitude: the columns' gradient as
+                     # 3xTF32 against f32 (~3e-7 of it in the CPU emulation,
+                     # tests/test_torch_dcn_bwd_scheme.py) and f32 dots in
+                     # another order (bf16 x is read alike)
 B3B_X_REL = 1e-5     # grad_x in f32: atomics add in a run-dependent order
 B3B_X_BF16_REL = 2 ** -7  # grad_x cast to bf16 once: one rounding apart
 TRAIN_CPU_REL = 1e-3  # card vs CPU, small config: the losses, and the G
@@ -1362,24 +1373,34 @@ def phase_eval(check, card):
 
 
 # ------------------------------------------------------------- B3 backward
-def _b3b_inputs(gen, dev, h, w, c, dtype):
-    """x, offsets (integer shifts; a third of the residuals exactly 0, so
-    taps sit on integer coordinates; shifts of +-16 carry taps past the
-    edges), mask and grad_cols of one image."""
-    x, offset, mask = _dcn_inputs(gen, dev, h, w, c, dtype)
+B3B_BATCH = 9        # stage-3 training's batch: one launch covers it
+
+
+def _b3b_inputs(gen, dev, h, w, c, dtype, batch=B3B_BATCH):
+    """One DynAgg's backward inputs for a batch: x, offsets (integer
+    shifts; a third of the residuals exactly 0, so taps sit on integer
+    coordinates; shifts of +-16 carry taps past the edges), mask, grad_out
+    (B, h, w, C) and w_kc (9C, C) at the DCN's init scale, rounded to bf16
+    for a bf16 x as modulated_deform_conv rounds it."""
+    parts = [_dcn_inputs(gen, dev, h, w, c, dtype) for _ in range(batch)]
+    x, offset, mask = (torch.stack(t) for t in zip(*parts))
     exact = torch.rand(offset.shape, generator=gen, device=dev) < 1 / 3
     offset = torch.where(exact, offset.round(), offset)
-    gcols = torch.randn(h * w, 9 * c, generator=gen, device=dev)
-    return x, offset, mask, gcols
+    grad_out = torch.randn(batch, h, w, c, generator=gen, device=dev)
+    w_kc = torch.randn(9 * c, c, generator=gen, device=dev) / math.sqrt(9 * c)
+    return x, offset, mask, grad_out, w_kc.to(dtype).float()
 
 
-def _b3b_compare(check, x, offset, mask, gcols, label, needs):
-    """The backward kernel's gradients against its plain version's;
-    returns the max |difference| of the offset and mask gradients."""
-    from c2matching_tpu_torch.ops import (deform_col2im,
-                                          deform_im2col_backward_plain)
-    got = deform_col2im(x, offset, mask, gcols, needs=needs)
-    want = deform_im2col_backward_plain(x, offset, mask, gcols, needs=needs)
+def _b3b_compare(check, inputs, label, needs, keep_plain=False, **conv):
+    """The backward kernel's gradients against its plain version's
+    (``conv``: the stride, padding and dilation); returns the kernel's
+    gradients, the max |difference| of the offset and mask gradients and,
+    with ``keep_plain``, the plain version's gradients."""
+    from c2matching_tpu_torch.ops import (deform_conv_backward,
+                                          deform_conv_backward_plain)
+    got = deform_conv_backward(*inputs, needs=needs, **conv)
+    want = deform_conv_backward_plain(*inputs, needs=needs, **conv)
+    x = inputs[0]
     worst = 0.0
     for name, g, w in zip(('x', 'offset', 'mask'), got, want):
         if w is None:
@@ -1395,92 +1416,226 @@ def _b3b_compare(check, x, offset, mask, gcols, label, needs):
             worst = max(worst, err)
         check(err <= rel * scale, f'b3bwd {label}: grad_{name} max |diff| '
               f'{err:.3g} <= {rel:g} x {scale:.3g}')
-    del got, want
-    torch.cuda.empty_cache()
-    return worst
+    if not keep_plain:
+        del want
+        torch.cuda.empty_cache()
+        return got, worst
+    return got, worst, want
 
 
-# operations per grad_cols element: four corner products into the dots
+# (h, w, C, Co, stride) of batch-2 probes, G = 8, each with and without
+# grad_x, and the kernel's instantiation each reaches beside the training
+# shapes' (Cg 8 with 64-pixel tiles, with and without the corner gather;
+# Cg 16 at 64; Cg 32 at 128): Cg 3, 2 and 6 (the scalar channel loop; Cg 2
+# and 4 are the small training config's), Cg 8 at 128-pixel tiles with Co
+# off the 32-deep ring slices and pixel counts off the tiles, Cg 4 (the
+# generic vector loop) at stride 2, Cg 16 at 128-pixel tiles, Cg 32 at
+# 64-pixel tiles (300 of them: two waves), Cg 64 (the widest group: 4
+# lanes of 4 vectors) and Co 320 (the widest grad_out rows) at Cg 8
+B3B_ODD = ((7, 9, 24, 20, 1), (13, 5, 16, 8, 1), (11, 10, 48, 36, 2),
+           (9, 70, 64, 40, 1), (6, 6, 32, 12, 2), (9, 11, 128, 128, 1),
+           (120, 80, 256, 256, 1), (7, 6, 512, 64, 1),
+           (10, 12, 64, 320, 1))
+
+
+def _b3b_odd_probe(check, gen, dev, dtype, g=8, k=9, batch=2):
+    for h, w, c, co, st in B3B_ODD:
+        ho, wo = (h - 1) // st + 1, (w - 1) // st + 1
+        x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(dtype)
+        shift = torch.randint(-3, 4, (batch, ho, wo, 1, k, 2), generator=gen,
+                              device=dev).float()
+        offset = shift + 0.5 * torch.randn(batch, ho, wo, g, k, 2,
+                                           generator=gen, device=dev)
+        mask = torch.rand(batch, ho, wo, g, k, generator=gen, device=dev)
+        grad_out = torch.randn(batch, ho, wo, co, generator=gen, device=dev)
+        w_kc = torch.randn(k * c, co, generator=gen, device=dev)
+        w_kc = (w_kc / math.sqrt(k * c)).to(dtype).float()
+        args = (x, offset, mask, grad_out, w_kc)
+        label = f'odd {batch}x{h}x{w}x{c} Co {co} stride {st} {dtype}'
+        for needs in ((False, True, True), (True, True, True)):
+            _b3b_compare(check, args, label, needs, stride=(st, st))
+
+
+def _columns_route(x, offset, mask, grad_out, w_kc, needs=(False, True,
+                                                          True)):
+    """The earlier route of the same gradients, image by image: grad_cols
+    = grad_out_i @ w_kc^T by torch.matmul into device memory, then the
+    columns' backward kernel (deform_col2im)."""
+    from c2matching_tpu_torch.ops import deform_col2im
+    b, ho, wo, co = grad_out.shape
+    outs = []
+    for i in range(b):
+        grad_cols = torch.matmul(grad_out[i].reshape(ho * wo, co), w_kc.t())
+        outs.append(deform_col2im(x[i], offset[i], mask[i], grad_cols,
+                                  needs=needs))
+    return outs
+
+
+def _profiled_ms(fn, name=None, reps=10):
+    """Device time per call of ``fn`` from torch.profiler: the summed time
+    of the kernels whose name holds ``name`` (every kernel when None) over
+    ``reps`` calls, after a warm-up. Unlike cuda_ms it does not count the
+    host's gaps between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (name is None or name in e.key))
+    return us / 1e3 / reps
+
+
+# f32 operations per element of the columns' gradient: the four corner
+# products and adds
 B3B_OPS_PER_COL = 8
 
 
-def _b3b_work(x, offset, mask, gcols):
-    """(bytes, operations) of the offset and mask gradients: read x, the
-    offsets, the mask and grad_cols once, write the two gradients once."""
-    moved = nbytes(x, offset, mask, gcols) + nbytes(offset, mask)
-    return moved, B3B_OPS_PER_COL * gcols.numel()
+def _b3b_work(x, offset, mask, grad_out, w_kc):
+    """(bytes, TF32 operations, f32 operations) of the offset and mask
+    gradients of a batch: x, the offsets, the mask, grad_out and w_kc read
+    once, the two gradients written once; the columns' gradient
+    grad_out @ w_kc^T as three TF32 products (3xTF32), then the corner
+    dots."""
+    b, ho, wo, co = grad_out.shape
+    n_cols = b * ho * wo * w_kc.shape[0]
+    moved = nbytes(x, offset, mask, grad_out, w_kc) + nbytes(offset, mask)
+    return moved, 3 * 2 * n_cols * co, B3B_OPS_PER_COL * n_cols
 
 
-def _b3b_library_ms(x, offset, mask, gcols):
-    """F.grid_sample's backward to its grid (the input needs no gradient,
-    as on the training path) for B3's samples, one batch entry per group."""
-    h, w, c = x.shape
-    ho, wo, g, k, _ = offset.shape
+def _b3b_bound(moved, tf32_ops, f32_ops):
+    """The least time for the work of _b3b_work, in ms, and what bounds it:
+    the bytes over the memory rate against the operations, the larger of
+    the TF32 products at the tensor cores' rate and the corner dots at the
+    f32 rate (the kernel runs the two on separate pipes at once)."""
+    t_bytes = 1e3 * moved / PEAK_BYTES_S
+    t_ops = 1e3 * max(tf32_ops / PEAK_FLOPS['tf32'],
+                      f32_ops / PEAK_FLOPS[torch.float32])
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _b3b_library_ms(x, offset, mask, grad_out, w_kc):
+    """The library's route to the same gradients: the columns' gradient by
+    torch.matmul, then F.grid_sample's backward to its grid (the input
+    needs no gradient, as on the training path) for B3's samples, one batch
+    entry per (image, group)."""
+    b, h, w, c = x.shape
+    _, ho, wo, g, k, _ = offset.shape
+    co = grad_out.shape[-1]
     base_y = torch.arange(ho, device=x.device, dtype=torch.float32) - 1
     base_x = torch.arange(wo, device=x.device, dtype=torch.float32) - 1
     tap = torch.arange(k, device=x.device)
     sy = base_y[:, None, None, None] + (tap // 3).float() + offset[..., 0]
     sx = base_x[None, :, None, None] + (tap % 3).float() + offset[..., 1]
     grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1)
-    grid = grid.reshape(ho * wo, g, k, 2).permute(1, 0, 2, 3).contiguous()
-    grid.requires_grad_(True)
-    inp = x.float().reshape(h, w, g, c // g).permute(2, 3, 0, 1).contiguous()
-    out = F.grid_sample(inp, grid, mode='bilinear', padding_mode='zeros',
+    grid = grid.reshape(b, ho * wo, g, k, 2).permute(0, 2, 1, 3, 4)
+    grid = grid.reshape(b * g, ho * wo, k, 2).contiguous().requires_grad_()
+    inp = x.float().reshape(b, h, w, g, c // g).permute(0, 3, 4, 1, 2)
+    out = F.grid_sample(inp.reshape(b * g, c // g, h, w), grid,
+                        mode='bilinear', padding_mode='zeros',
                         align_corners=True)
-    gout = gcols.reshape(ho * wo, k, g, c // g).permute(2, 3, 0, 1)
-    gout = gout.contiguous()
-    ms = cuda_ms(lambda: torch.autograd.grad(out, grid, gout,
-                                             retain_graph=True))
+
+    def call():
+        grad_cols = torch.matmul(grad_out.reshape(-1, co), w_kc.t())
+        gout = grad_cols.reshape(b, ho * wo, k, g, c // g)
+        gout = gout.permute(0, 3, 4, 1, 2).reshape(b * g, c // g, ho * wo, k)
+        return torch.autograd.grad(out, grid, gout, retain_graph=True)
+
+    ms = cuda_ms(call)
     del out, grid, inp
     return ms
 
 
 def _b3b_measure(check, inputs, label, card, with_x=True):
-    """Checks and times of the backward kernel on each (x, offset, mask,
-    grad_cols) of ``inputs``: its offset and mask gradients (the training
-    path's call) against the plain version, and with ``with_x`` also with
-    grad_x; the kernel, plain and grid_sample-backward times and the
-    bytes bound. Returns the sums over ``inputs`` (a kernels-line
+    """Checks and times of the backward kernel on each DynAgg's (x,
+    offset, mask, grad_out, w_kc) of ``inputs``, a whole batch each: its
+    offset and mask gradients (the training path's call) against the plain
+    version and against the columns' route, and with ``with_x`` also with
+    grad_x; the kernel's time by CUDA events (cuda_ms) and by
+    torch.profiler, the columns' route's (9 x grad_cols matmul +
+    deform_col2im) by both, the plain version's, the library route's and
+    the bound. The columns' route is the kernel it replaced on the
+    training path, kept as its yardstick: deform_col2im is held against its
+    plain version (deform_im2col_backward_plain on the same grad_cols)
+    within B3B_REL. Returns the sums over ``inputs`` (a kernels-line
     entry)."""
-    from c2matching_tpu_torch.ops import (deform_col2im,
-                                          deform_im2col_backward_plain)
+    from c2matching_tpu_torch.ops import (deform_conv_backward,
+                                          deform_conv_backward_plain)
     only = (False, True, True)
-    total = {'ms': 0.0, 'plain_ms': 0.0, 'max_abs_err': 0.0,
-             'library_ms': 0.0}
-    moved = ops = 0
-    for x, offset, mask, gcols in inputs:
-        shape = '{} {}x{}x{}'.format(label, *x.shape)
-        total['max_abs_err'] = max(total['max_abs_err'], _b3b_compare(
-            check, x, offset, mask, gcols, shape, only))
+    keys = ('ms', 'prof_ms', 'prof_all_ms', 'route_ms', 'route_prof_ms',
+            'plain_ms', 'library_ms')
+    total = dict.fromkeys(keys, 0.0)
+    total['max_abs_err'] = 0.0
+    work = [0, 0, 0]
+    for args in inputs:
+        shape = '{} {}x{}x{}x{}'.format(label, *args[0].shape)
+        got, err, plain = _b3b_compare(check, args, shape, only,
+                                       keep_plain=True)
+        total['max_abs_err'] = max(total['max_abs_err'], err)
+        route = _columns_route(*args)
+        for name, i in (('offset', 1), ('mask', 2)):
+            have = torch.stack([r[i] for r in route])
+            diff = (have - plain[i]).abs().max().item()
+            scale = plain[i].abs().max().item()
+            check(diff <= B3B_REL * scale, f'b3bwd {shape}: deform_col2im\'s '
+                  f'grad_{name} against its plain version {diff:.3g} <= '
+                  f'{B3B_REL:g} x {scale:.3g}')
+        del got, route, plain, have
         if with_x:
-            _b3b_compare(check, x, offset, mask, gcols,
-                         f'{shape} with grad_x', (True, True, True))
-        ms = cuda_ms(lambda: deform_col2im(x, offset, mask, gcols,
-                                           needs=only))
-        plain_ms = cuda_ms(lambda: deform_im2col_backward_plain(
-            x, offset, mask, gcols, needs=only))
-        x_ms = cuda_ms(lambda: deform_col2im(x, offset, mask, gcols))
-        lib_ms = _b3b_library_ms(x, offset, mask, gcols)
-        work = _b3b_work(x, offset, mask, gcols)
-        moved, ops = moved + work[0], ops + work[1]
-        b_ms, b_by = bound(*work, torch.float32)
-        print(f'b3bwd {shape}: kernel {ms:.4f} ms (with grad_x '
-              f'{x_ms:.4f}), plain {plain_ms:.3f} ms, grid_sample '
-              f'backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} '
-              f'({card})', flush=True)
-        total['ms'] += ms
-        total['plain_ms'] += plain_ms
-        total['library_ms'] += lib_ms
+            _b3b_compare(check, args, f'{shape} with grad_x',
+                         (True, True, True))
+        t = {
+            'ms': cuda_ms(lambda: deform_conv_backward(*args, needs=only)),
+            'prof_ms': _profiled_ms(
+                lambda: deform_conv_backward(*args, needs=only),
+                'mdc_backward_kernel'),
+            'prof_all_ms': _profiled_ms(
+                lambda: deform_conv_backward(*args, needs=only)),
+            'route_ms': cuda_ms(lambda: _columns_route(*args)),
+            'route_prof_ms': _profiled_ms(lambda: _columns_route(*args)),
+            'plain_ms': cuda_ms(lambda: deform_conv_backward_plain(
+                *args, needs=only), min_ms=1.0),
+            'library_ms': _b3b_library_ms(*args)}
+        # CUDA events again, after the profiler: on an H100 the first
+        # reading on the training tensors read up to 26% above it
+        again_ms = cuda_ms(lambda: deform_conv_backward(*args, needs=only))
+        x_ms = cuda_ms(lambda: deform_conv_backward(*args))
+        one = _b3b_work(*args)
+        work = [a + b for a, b in zip(work, one)]
+        b_ms, b_by = _b3b_bound(*one)
+        print(f'b3bwd {shape}: kernel {t["ms"]:.4f} ms (profiler '
+              f'{t["prof_ms"]:.4f}, every kernel of the call '
+              f'{t["prof_all_ms"]:.4f}; events again {again_ms:.4f}; with '
+              f'grad_x {x_ms:.4f}), columns\' '
+              f'route {t["route_ms"]:.4f} ms (profiler '
+              f'{t["route_prof_ms"]:.4f}), '
+              f'plain {t["plain_ms"]:.2f} ms, library (matmul + grid_sample '
+              f'backward) {t["library_ms"]:.4f} ms, bound {b_ms:.4f} ms by '
+              f'{b_by} ({card})', flush=True)
+        for key in keys:
+            total[key] += t[key]
         torch.cuda.empty_cache()
-    total['bound_ms'], total['bound_by'] = bound(moved, ops, torch.float32)
-    print(f'b3bwd {label}: kernel {total["ms"]:.4f} ms over the three '
-          f'DynAggs of one image, bound {total["bound_ms"]:.4f} ms by '
-          f'{total["bound_by"]} ({moved / 1e9:.4f} GB) ({card})', flush=True)
-    return total
+    total['bound_ms'], total['bound_by'] = _b3b_bound(*work)
+    print(f'b3bwd {label}, sum over the three DynAggs (one iteration): '
+          f'kernel {total["ms"]:.4f} ms (profiler {total["prof_ms"]:.4f}, '
+          f'ratio {total["prof_ms"] / total["ms"]:.3f}; every kernel of the '
+          f'call {total["prof_all_ms"]:.4f}), columns\' route '
+          f'{total["route_ms"]:.4f} ms (profiler '
+          f'{total["route_prof_ms"]:.4f}), library '
+          f'{total["library_ms"]:.4f} ms, bound {total["bound_ms"]:.4f} ms '
+          f'by {total["bound_by"]} ({work[0] / 1e9:.4f} GB, '
+          f'{work[1] / 1e9:.2f} TF32 GFLOP, {work[2] / 1e9:.3f} f32 GFLOP); '
+          f'kernel / bound {total["ms"] / total["bound_ms"]:.2f} ({card})',
+          flush=True)
+    return {k: total[k] for k in ('ms', 'plain_ms', 'max_abs_err',
+                                  'library_ms', 'bound_ms', 'bound_by')}
 
 
 def phase_b3_backward(check, dev, card):
-    from c2matching_tpu_torch.ops import deform_col2im
+    from c2matching_tpu_torch.ops import deform_conv_backward
     gen = torch.Generator(device=dev).manual_seed(5)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace('torch.', '')
@@ -1490,14 +1645,16 @@ def phase_b3_backward(check, dev, card):
 
         # large offsets: every tap outside the image -> exact zeros
         layer, h, w, c = TRAIN_B3[0]
-        x, offset, mask, gcols = _b3b_inputs(gen, dev, h, w, c, dtype)
+        x, offset, mask, grad_out, w_kc = _b3b_inputs(gen, dev, h, w, c,
+                                                      dtype)
         big = torch.tensor([1e4, -1e4, 1e6, -3e30], device=dev)
         offset = big[torch.randint(0, 4, offset.shape, generator=gen,
                                    device=dev)]
-        gx, goff, gm = deform_col2im(x, offset, mask, gcols)
+        gx, goff, gm = deform_conv_backward(x, offset, mask, grad_out, w_kc)
         check(bool((gx == 0).all() and (goff == 0).all()
                    and (gm == 0).all()),
               f'b3bwd large-offset probe {name}: gradients exactly zero')
+        _b3b_odd_probe(check, gen, dev, dtype)
 
 
 # ----------------------------------------------------------------- train
@@ -1549,9 +1706,9 @@ def _timed_iterations():
     parameters."""
     from c2matching_tpu_torch.models.ref_restoration_model import \
         RefRestorationModel
-    from c2matching_tpu_torch.ops import (deform_col2im, deform_im2col,
-                                          match_argmax)
-    counters = (deform_im2col, deform_col2im, match_argmax)
+    from c2matching_tpu_torch.ops import (deform_conv_backward,
+                                          deform_im2col, match_argmax)
+    counters = (deform_im2col, deform_conv_backward, match_argmax)
     rec = {'iters': [], 'first': None}
     real = RefRestorationModel.optimize_parameters
 
@@ -1584,8 +1741,8 @@ def phase_train(check, dev, report, card):
     import os
     import tempfile
     from c2matching_tpu_torch.models import define_network
-    from c2matching_tpu_torch.ops import (deform_col2im, deform_im2col,
-                                          match_argmax)
+    from c2matching_tpu_torch.ops import (deform_conv_backward,
+                                          deform_im2col, match_argmax)
     from c2matching_tpu_torch.scripts import make_synth_dataset as synth
     from c2matching_tpu_torch.train import run
     with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as root:
@@ -1598,7 +1755,7 @@ def phase_train(check, dev, report, card):
         with open(path, 'w') as f:
             f.write(_train_options(f'{root}/synth', extractor))
         os.environ['C2MATCHING_ROOT'] = f'{root}/out'
-        for counter in (deform_im2col, deform_col2im, match_argmax):
+        for counter in (deform_im2col, deform_conv_backward, match_argmax):
             counter.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1607,7 +1764,7 @@ def phase_train(check, dev, report, card):
         wall = time.perf_counter() - t0
         launches = {'match_argmax': match_argmax.launches,
                     'deform_im2col': deform_im2col.launches,
-                    'deform_col2im': deform_col2im.launches}
+                    'deform_conv_backward': deform_conv_backward.launches}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         del os.environ['C2MATCHING_ROOT']
         saved = sorted(os.listdir(f'{root}/out/experiments/'
@@ -1626,11 +1783,15 @@ def phase_train(check, dev, report, card):
               and all(math.isfinite(v) for v in logs.values()),
               f'train iteration {it["step"]} ({kind}): finite losses '
               + ', '.join(f'{k} {logs[k]:.5g}' for k in keys if k in logs))
-        n_im2col, n_col2im, n_match = it['launches']
+        n_im2col, n_bwd, n_match = it['launches']
         print(f'train iteration {it["step"]} ({kind}): {1e3 * it["s"]:.1f} ms'
               f' (host clock, synchronised), launches: deform_im2col '
-              f'{n_im2col}, deform_col2im {n_col2im}, match_argmax {n_match} '
-              f'({card})', flush=True)
+              f'{n_im2col}, deform_conv_backward {n_bwd}, match_argmax '
+              f'{n_match} ({card})', flush=True)
+        # one backward launch per DynAgg covers the batch of 9
+        check(n_bwd == len(TRAIN_B3), f'train iteration {it["step"]}: '
+              f'deform_conv_backward launched {n_bwd} times (one per '
+              f'DynAgg: {len(TRAIN_B3)})')
     first, model = rec['first'], rec['model']
     for grp in model.optimizer_g.param_groups:
         moved = any(not torch.equal(a, p.detach())
@@ -1653,39 +1814,45 @@ def phase_train(check, dev, report, card):
     report['train_launches'] = launches
     _train_profile(model, card)
     # the backward kernel on the tensors one GAN iteration hands it
-    with _record_col2im() as seen:
+    with _record_backward() as seen:
         model.optimize_parameters(n_iters + 1)
-    check(sorted(tuple(d[0].shape) for d in seen)
-          == sorted((h, w, c) for _, h, w, c in TRAIN_B3),
-          f'train: deform_col2im gets x {[tuple(d[0].shape) for d in seen]}')
-    report['b3bwd_float32'] = _b3b_measure(check, seen, 'train path', card,
-                                           with_x=False)
+    shapes = [tuple(d[0].shape) for d, _ in seen]
+    check(sorted(shapes) == sorted((9, h, w, c) for _, h, w, c in TRAIN_B3),
+          f'train: deform_conv_backward gets x {shapes}')
+    check(not any(needs_x for _, needs_x in seen), 'train: the DynAggs\' '
+          'sampled feature (the frozen VGG19\'s ref_feat) needs no gradient')
+    check(all(t.is_contiguous() for d, _ in seen for t in d[:3]),
+          'train: the DynAggs hand the deformable conv contiguous x, offset '
+          'and mask (its wrappers copy none of them)')
+    report['b3bwd_float32'] = _b3b_measure(check, [d for d, _ in seen],
+                                           'train path', card, with_x=False)
     del model, rec, first, seen
     torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
-def _record_col2im():
-    """The (x, offset, mask, grad_cols) of the first backward of the
-    deformable columns at each DynAgg shape (image 0 of each scale), taken
-    in the autograd Function's backward; the kernel and its counter stay
-    as they are."""
+def _record_backward():
+    """The (x, offset, mask, grad_out, w_kc) of the first backward of the
+    deformable conv at each DynAgg shape (the whole batch), with whether
+    autograd asked for grad_x, taken in the autograd Function's backward;
+    the kernel and its counter stay as they are."""
     dc = importlib.import_module('c2matching_tpu_torch.ops.deform_conv')
     seen, shapes = [], set()
-    real = dc._DeformColumns.backward
+    real = dc._ModulatedDeformConv.backward
 
-    def rec(ctx, grad_cols):
-        x, offset, mask = ctx.saved_tensors
+    def rec(ctx, grad_out):
+        x, offset, mask, w_kc = ctx.saved_tensors[:4]
         if tuple(x.shape) not in shapes:
             shapes.add(tuple(x.shape))
-            seen.append((x, offset, mask, grad_cols.float()))
-        return real(ctx, grad_cols)
+            seen.append(((x, offset, mask, grad_out.float().contiguous(),
+                          w_kc), ctx.needs_input_grad[0]))
+        return real(ctx, grad_out)
 
-    dc._DeformColumns.backward = staticmethod(rec)
+    dc._ModulatedDeformConv.backward = staticmethod(rec)
     try:
         yield seen
     finally:
-        dc._DeformColumns.backward = staticmethod(real)
+        dc._ModulatedDeformConv.backward = staticmethod(real)
 
 
 def _train_profile(model, card, top=12):
@@ -1836,7 +2003,8 @@ def main():
     # in the training run, timed on one iteration's tensors (phase train)
     launches = dict(report['main_f32_launches'],
                     window_contract=report['b2_float32'].pop('launches'),
-                    deform_col2im=report['train_launches']['deform_col2im'])
+                    deform_conv_backward=report['train_launches'][
+                        'deform_conv_backward'])
     kernels = []
     for name, key, source, replaces in (
             ('match_argmax', 'b1', 'c2matching_tpu_torch/csrc/patch_match.cu',
@@ -1846,8 +2014,8 @@ def main():
             ('window_contract', 'b2',
              'c2matching_tpu_torch/csrc/dcn_window.cu',
              'c2matching_tpu/ops/pallas/dcn_window_kernel.py:125'),
-            ('deform_col2im', 'b3bwd',
-             'c2matching_tpu_torch/csrc/deform_conv.cu',
+            ('deform_conv_backward', 'b3bwd',
+             'c2matching_tpu_torch/csrc/deform_conv_backward.cu',
              'c2matching_tpu/ops/deform_conv.py:214')):
         kernels.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': launches[name],

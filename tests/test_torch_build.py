@@ -35,10 +35,12 @@ def test_every_source_of_the_port_finds_its_headers():
         _build.CSRC / 'patch_match.cu')
 
 
-@pytest.mark.parametrize('name', ['patch_match', 'dcn_window'])
+@pytest.mark.parametrize('name', ['patch_match', 'dcn_window',
+                                  'deform_conv_backward'])
 def test_tensor_core_kernels_share_their_helpers(name):
-    """B1 and B2 take their mma.sync, cp.async, ldmatrix and 3xTF32 split
-    helpers from one header, so an edit there rebuilds both."""
+    """B1, B2 and B3's backward take their mma.sync, cp.async, ldmatrix
+    and 3xTF32 split helpers from one header, so an edit there rebuilds
+    all three."""
     assert (_build.CSRC / 'mma.cuh') in _build.local_headers(
         _build.CSRC / f'{name}.cu')
     assert _build.library_path(name).name.startswith(f'{name}-')
@@ -59,3 +61,14 @@ def test_flags_change_the_library_and_other_sources_do_not(csrc,
     assert _build.library_path('a') == before
     monkeypatch.setattr(_build, 'NVCC_FLAGS', _build.NVCC_FLAGS + ('-g',))
     assert _build.library_path('a') != before
+
+
+def test_defines_change_the_library(csrc):
+    """A measurement's variant (a source built with its macros) gets a
+    library of its own, and the plain build keeps its path."""
+    plain = _build.library_path('a')
+    assert _build.library_path('a', ()) == plain
+    one = _build.library_path('a', ('C2M_DCB_GATHER=0',))
+    other = _build.library_path('a', ('C2M_DCB_WIDE=0',))
+    assert len({plain, one, other}) == 3
+    assert one.name.startswith('a-')

@@ -4,8 +4,10 @@ of the JAX package's op.
 ``c2matching_tpu.ops.deform_conv.modulated_deform_conv`` is pure XLA, so
 ``jax.grad`` through it is the reference for every gradient: x, offset,
 mask, weight and bias. On the CPU the port's backward runs its plain
-version (``deform_im2col_backward_plain``), the function kernel B3's
-backward (``csrc/deform_conv.cu``, ``deform_col2im``) computes on the card.
+version (``deform_conv_backward_plain``: the columns' gradient by
+``torch.matmul``, then ``deform_im2col_backward_plain``), the function
+kernel B3's backward (``csrc/deform_conv_backward.cu``,
+``deform_conv_backward``) computes for a whole batch on the card.
 
 Tolerances, of each gradient's largest magnitude: 1e-4 in f32 (sums in
 other orders); 2^-5 with a bf16 image, where the JAX op also rounds its
@@ -28,9 +30,10 @@ tdc = importlib.import_module('c2matching_tpu_torch.ops.deform_conv')
 F32_REL = 1e-4
 BF16_REL = 2 ** -5
 # (B, H, W, C, Co, G): C / G of 8, 16 and 32 are the training shapes' group
-# widths (relu1, relu2, relu3); 3 is an odd one
-SHAPES = ((2, 9, 11, 64, 16, 8), (1, 7, 6, 128, 8, 8),
-          (1, 5, 6, 256, 8, 8), (1, 8, 7, 24, 5, 8))
+# widths (relu1, relu2, relu3); 3 is an odd one. Batch 2: the backward
+# takes a DynAgg's whole batch at once.
+SHAPES = ((2, 9, 11, 64, 16, 8), (2, 7, 6, 128, 8, 8),
+          (2, 5, 6, 256, 8, 8), (2, 8, 7, 24, 5, 8))
 
 
 def _offsets(rng, b, h, w, g, k=9):
@@ -130,35 +133,74 @@ def test_plain_backward_matches_autograd_of_plain_forward(shape):
 
 
 def test_autograd_asks_only_for_what_is_needed(monkeypatch):
-    """With x detached (the stage-3 DynAgg), the backward is asked for the
-    offset and mask gradients only; the weight still gets its gradient."""
+    """With x detached (the stage-3 DynAgg), the backward is asked once for
+    the whole batch, for the offset and mask gradients only; the weight
+    still gets its gradient."""
     x, offset, mask, weight, bias, cot = _inputs(11, *SHAPES[0])
     seen = []
-    real = tdc.deform_im2col_backward_plain
+    real = tdc.deform_conv_backward_plain
 
-    def spy(*args, needs=(True, True, True), **kwargs):
-        seen.append(tuple(needs))
-        return real(*args, needs=needs, **kwargs)
+    def spy(x, *args, needs=(True, True, True), **kwargs):
+        seen.append((x.shape[0], tuple(needs)))
+        return real(x, *args, needs=needs, **kwargs)
 
-    monkeypatch.setattr(tdc, 'deform_im2col_backward_plain', spy)
+    monkeypatch.setattr(tdc, 'deform_conv_backward_plain', spy)
     ot, mt, wt = (torch.from_numpy(a).requires_grad_(True)
                   for a in (offset, mask, weight))
     out = tdc.modulated_deform_conv(torch.from_numpy(x), ot, mt, wt,
                                     torch.from_numpy(bias))
     (out * torch.from_numpy(cot)).sum().backward()
-    assert seen == [(False, True, True)] * x.shape[0]
+    assert seen == [(x.shape[0], (False, True, True))]
     assert wt.grad is not None and ot.grad is not None
 
 
-def test_large_offsets_give_zero_gradients():
+@pytest.mark.parametrize('wanted', ['x', 'offset', 'mask', 'weight', 'bias'])
+def test_each_gradient_alone(wanted, monkeypatch):
+    """Only the input that needs a gradient gets one, equal to its value
+    when every input needs one; the x, offset and mask backward runs only
+    when one of the three is asked for, and computes no grad_x unless x
+    needs it."""
+    args = _inputs(13, *SHAPES[1])
+    full = _port_grads(*args, False)
+    seen = []
+    real = tdc.deform_conv_backward_plain
+
+    def spy(*a, needs=(True, True, True), **kwargs):
+        seen.append(tuple(needs))
+        got = real(*a, needs=needs, **kwargs)
+        assert all((g is None) == (not n) for g, n in zip(got, needs))
+        return got
+
+    monkeypatch.setattr(tdc, 'deform_conv_backward_plain', spy)
+    ts = [torch.from_numpy(a).requires_grad_(name == wanted)
+          for name, a in zip(NAMES, args)]
+    out = tdc.modulated_deform_conv(*ts)
+    (out * torch.from_numpy(args[-1])).sum().backward()
+    i = NAMES.index(wanted)
+    assert seen == ([tuple(n == wanted for n in NAMES[:3])] if i < 3 else [])
+    for name, t, g in zip(NAMES, ts, full):
+        if name == wanted:
+            assert torch.equal(t.grad, torch.from_numpy(g)), name
+        else:
+            assert t.grad is None, name
+
+
+@pytest.mark.parametrize('entry', ['batch', 'columns'])
+def test_large_offsets_give_zero_gradients(entry):
     """Taps far outside the image (offsets of 1e4 to 3e30, as the forward's
     probes use) get exact zero offset and mask gradients and scatter
-    nothing onto x."""
+    nothing onto x: through the batched backward (``deform_conv_backward``)
+    and through the columns' route (``deform_col2im``)."""
     rng = np.random.RandomState(5)
-    x = torch.from_numpy(rng.randn(6, 5, 16).astype(np.float32))
+    x = torch.from_numpy(rng.randn(2, 6, 5, 16).astype(np.float32))
     big = np.array([1e4, -1e4, 1e6, -3e30], np.float32)
-    offset = torch.from_numpy(big[rng.randint(0, 4, (6, 5, 8, 9, 2))])
-    mask = torch.from_numpy(rng.rand(6, 5, 8, 9).astype(np.float32))
-    gcols = torch.from_numpy(rng.randn(30, 9 * 16).astype(np.float32))
-    gx, goff, gm = tdc.deform_col2im(x, offset, mask, gcols)
+    offset = torch.from_numpy(big[rng.randint(0, 4, (2, 6, 5, 8, 9, 2))])
+    mask = torch.from_numpy(rng.rand(2, 6, 5, 8, 9).astype(np.float32))
+    gout = torch.from_numpy(rng.randn(2, 6, 5, 12).astype(np.float32))
+    w_kc = torch.from_numpy(rng.randn(9 * 16, 12).astype(np.float32))
+    if entry == 'batch':
+        gx, goff, gm = tdc.deform_conv_backward(x, offset, mask, gout, w_kc)
+    else:
+        gcols = gout[0].reshape(30, 12) @ w_kc.t()
+        gx, goff, gm = tdc.deform_col2im(x[0], offset[0], mask[0], gcols)
     assert bool((gx == 0).all() and (goff == 0).all() and (gm == 0).all())
