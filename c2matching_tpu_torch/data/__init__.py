@@ -1,21 +1,26 @@
 """Datasets, samplers and loaders of the port.
 
 Counterpart of ``c2matching_tpu/data/__init__.py``: ``create_dataset``
-dispatches on the YAML ``type``; ``create_dataloader`` gives the train
-loader (``batch_size``, ``drop_last``, a shuffle or a sampler, prefetch
-threads for ``n_workers``) or the batch-1 in-order loader of evaluation;
+dispatches on the YAML ``type`` (``RefCUFEDDataset`` of stage 3 and
+evaluation, ``ContrasDataset`` / ``ContrasValDataset`` of stages 1-2);
+``create_dataloader`` gives the train loader (``batch_size``,
+``drop_last``, a shuffle or a sampler, prefetch threads for
+``n_workers``) or the batch-1 in-order loader of evaluation;
 ``create_train_sampler`` the ratio-enlarged sampler. One process: the
 per-process split of a multi-GPU run is not ported.
 """
 import logging
 
+from .contras_dataset import ContrasDataset, ContrasValDataset
 from .data_sampler import EnlargedIterSampler
 from .loader import DataLoader, default_collate
 from .ref_cufed_dataset import RefCUFEDDataset
 
 logger = logging.getLogger('base')
 
-DATASETS = {'RefCUFEDDataset': RefCUFEDDataset}
+DATASETS = {'RefCUFEDDataset': RefCUFEDDataset,
+            'ContrasDataset': ContrasDataset,
+            'ContrasValDataset': ContrasValDataset}
 
 
 def create_dataset(dataset_opt):
@@ -57,6 +62,6 @@ def create_train_sampler(dataset, dataset_opt):
     return EnlargedIterSampler(len(dataset), ratio=ratio)
 
 
-__all__ = ['DATASETS', 'DataLoader', 'EnlargedIterSampler', 'RefCUFEDDataset',
-           'create_dataloader', 'create_dataset', 'create_train_sampler',
-           'default_collate']
+__all__ = ['DATASETS', 'ContrasDataset', 'ContrasValDataset', 'DataLoader',
+           'EnlargedIterSampler', 'RefCUFEDDataset', 'create_dataloader',
+           'create_dataset', 'create_train_sampler', 'default_collate']

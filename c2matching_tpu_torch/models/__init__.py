@@ -8,10 +8,15 @@ import logging
 
 from .networks import define_network
 from .ref_restoration_model import RefRestorationModel
+from .student_contras_distillation_model import \
+    StudentContrasDistillationModel
+from .teacher_contras_model import TeacherContrasModel
 
 logger = logging.getLogger('base')
 
-MODELS = {'RefRestorationModel': RefRestorationModel}
+MODELS = {'RefRestorationModel': RefRestorationModel,
+          'TeacherContrasModel': TeacherContrasModel,
+          'StudentContrasDistillationModel': StudentContrasDistillationModel}
 
 
 def create_model(opt, device='cuda'):
@@ -26,4 +31,5 @@ def create_model(opt, device='cuda'):
     return model
 
 
-__all__ = ['MODELS', 'RefRestorationModel', 'create_model', 'define_network']
+__all__ = ['MODELS', 'RefRestorationModel', 'StudentContrasDistillationModel',
+           'TeacherContrasModel', 'create_model', 'define_network']

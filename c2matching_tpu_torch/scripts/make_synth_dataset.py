@@ -2,23 +2,23 @@
 
 Counterpart of ``scripts/make_synth_dataset.py``: the same images from
 the same ``RandomState(0)`` sequence, written with the port's PNG writer,
-so the decoded pixels equal the JAX script's. Layouts:
+so the decoded pixels equal the JAX script's; a reference size other
+than the input's (``--ref-size``) resizes the reference with the port's
+cv2-free ``INTER_CUBIC`` (``data/warp.py::resize_cubic``). Layouts:
 
     --layout cufed (default): <root>/input/NNN_0.png, <root>/ref/NNN_1.png
     --layout wrsr: <root>/input/NNN.png, <root>/ref/NNN_ref.png
     <root>/pairs.txt: annotation file (input ref per line)
 
 Usage: python -m c2matching_tpu_torch.scripts.make_synth_dataset <root>
-       [--n 8] [--size H [W]] [--layout cufed|wrsr]
-
-A reference size different from the input's (``--ref-size``) needs cv2's
-INTER_CUBIC resize, which the port does not have yet: it raises.
+       [--n 8] [--size H [W]] [--ref-size H [W]] [--layout cufed|wrsr]
 """
 import argparse
 import os
 
 import numpy as np
 
+from ..data.warp import resize_cubic
 from ..utils.util import imwrite
 
 
@@ -50,13 +50,9 @@ def to_bgr_u8(img):
 def write_dataset(root, n=8, size=(160,), layout='cufed', ref_size=None):
     """Write ``n`` pairs under ``root``; returns the pairs.txt lines."""
     in_h, in_w = size[0], size[1] if len(size) > 1 else size[0]
+    ref_h, ref_w = in_h, in_w
     if ref_size is not None:
-        ref_hw = (ref_size[0], ref_size[1] if len(ref_size) > 1
-                  else ref_size[0])
-        if ref_hw != (in_h, in_w):
-            raise NotImplementedError(
-                '--ref-size different from --size needs cv2 INTER_CUBIC, '
-                'which the port does not have yet')
+        ref_h, ref_w = ref_size[0], ref_size[-1]
 
     rng = np.random.RandomState(0)
     os.makedirs(os.path.join(root, 'input'), exist_ok=True)
@@ -65,10 +61,12 @@ def write_dataset(root, n=8, size=(160,), layout='cufed', ref_size=None):
     lines = []
     for i in range(n):
         img = synth_image(rng, in_h, in_w)
-        # ref: same content, small shift + brightness change
+        # ref: same content, small shift + brightness change, resized
         shift = rng.randint(2, 12)
         ref = np.roll(img, shift, axis=(0, 1)) * rng.uniform(0.9, 1.1)
         ref = np.clip(ref, 0, 1)
+        if (ref_h, ref_w) != (in_h, in_w):
+            ref = resize_cubic(ref, (ref_w, ref_h))
         if layout == 'wrsr':
             in_name, ref_name = f'{i + 1:03d}.png', f'{i + 1:03d}_ref.png'
         else:
@@ -89,7 +87,7 @@ def main(argv=None):
     ap.add_argument('--size', type=int, nargs='+', default=[160],
                     help='input size: H (square) or H W')
     ap.add_argument('--ref-size', type=int, nargs='+', default=None,
-                    help='reference size; only the input size is supported')
+                    help='reference image size (default: same as --size)')
     ap.add_argument('--layout', choices=('cufed', 'wrsr'), default='cufed',
                     help='file naming: CUFED5 (NNN_0/NNN_1) or WR-SR '
                          '(NNN/NNN_ref)')

@@ -43,12 +43,12 @@ def make_exp_dirs(opt):
 
 
 def check_resume(opt, resume_iter):
-    """When resuming, point ``path.pretrain_model_g`` / ``_d`` at the run's
-    ``net_{g,d}_<resume_iter>.pth`` where that file exists (the nets stage
-    3 saves)."""
+    """When resuming, point ``path.pretrain_model_g`` / ``_d`` /
+    ``_student`` at the run's ``net_{g,d,student}_<resume_iter>.pth`` where
+    that file exists (the nets stages 1-3 save)."""
     if not opt['path'].get('resume_state'):
         return
-    for net in ('g', 'd'):
+    for net in ('g', 'd', 'student'):
         key = f'pretrain_model_{net}'
         path = osp.join(opt['path']['models'], f'net_{net}_{resume_iter}.pth')
         if osp.exists(path):

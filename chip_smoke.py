@@ -83,11 +83,34 @@ Phases:
      events and torch.profiler), the columns' route (both), the plain
      version and the library route (torch.matmul + F.grid_sample's
      backward), beside the bound.
-  9. train: `python -m c2matching_tpu_torch.train`'s run() on the card with
+  9. contras: stages 1 and 2 of training (the contrastive correspondence
+     network) through `python -m c2matching_tpu_torch.train`'s run() on the
+     card with options/train/stage1_teacher_contras_network.yml and
+     stage2_student_contras_network.yml as they are (ContrasExtractorSep,
+     batch 8 at gt 160, Adam 1e-3, margin 1, safe radius 4; distill weight
+     15, temperature 0.15) on a 10-pair 160-px synth set read through
+     ContrasDataset: 3 iterations each, then one validation pass of
+     ContrasValDataset over a CUFED5-shaped 332x500 image through a
+     one-line annotation file. Stage 2's teacher is stage 1's
+     net_g_latest.pth. Checks every loss finite, every sample through the
+     128-correspondence gate (n_valid 8), every parameter of the trained
+     net moved, the teacher bit for bit unchanged, the checkpoints and
+     .state files; prints ms per iteration (first and later apart), peak
+     memory of the iterations and of the validation pass, the pass's ms,
+     and the loss's own CUDA-event ms on one batch's features beside the
+     extractors' forward and forward + backward, a whole step's ms on that
+     batch with the loader stopped, and the host ms of a ContrasDataset
+     item and of its warp. Then one step of each stage at batch 2 / gt 96
+     on the card against the CPU from the same seeded weights: the logs,
+     the card's float32 gradients against the CPU's float64 ones, and the
+     float64 gradients of both (the model's float64_grads).
+ 10. train: `python -m c2matching_tpu_torch.train`'s run() on the card with
      options/train/stage3_restoration_gan.yml at full width (ngf 64, 16
      blocks, 8 groups, D ndf 32, VGG19 relu5_1 perceptual, WGAN-GP) and its
-     batch of 9 at gt 160, on a 10-pair 160-px synth set and the seeded
-     extractor saved as .pth: 2 G-pretrain and 3 GAN iterations, the
+     batch of 9 at gt 160, on a 10-pair 160-px synth set with stage 2's
+     net_student_latest.pth (phase contras; without it the phase raises) as
+     its pretrain_model_feature_extractor, so that the card runs the three
+     stages in a chain: 2 G-pretrain and 3 GAN iterations, the
      launch counters at 0 before the run. Checks the losses are finite,
      every LR group and D moved, B3's forward and backward launched (the
      backward once per DynAgg and iteration: 3); prints
@@ -97,11 +120,11 @@ Phases:
      backward kernel as in phase b3bwd on the tensors one more GAN
      iteration hands it (each DynAgg's whole batch, whose sampled feature
      must need no gradient; these are the times of the kernels line).
- 10. train_cpu: one G-pretrain step and one GAN step of a small config
+ 11. train_cpu: one G-pretrain step and one GAN step of a small config
      (ngf 16, 2 blocks, ndf 4, batch 2 at gt 64) on the card against the
      same steps on the CPU (plain versions) from the same weights: losses
      and G gradients.
- 11. one JSON line of kernels, the card's line, and last the JSON result.
+ 12. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -113,6 +136,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1657,6 +1681,381 @@ def phase_b3_backward(check, dev, card):
         _b3b_odd_probe(check, gen, dev, dtype)
 
 
+# --------------------------------------------------------------- contras
+CONTRAS_OPTIONS = {1: 'options/train/stage1_teacher_contras_network.yml',
+                   2: 'options/train/stage2_student_contras_network.yml'}
+CONTRAS_ITERS = 3        # iterations of each stage in phase contras
+CONTRAS_BATCH = 8        # the shipped configs' batch (at gt 160)
+CONTRAS_VAL_HW = (332, 500)  # the val image: a CUFED5 input
+CONTRAS_CPU_GT, CONTRAS_CPU_BATCH = 96, 2  # the card-vs-CPU steps
+CONTRAS_LOSS_REL = 1e-5  # card vs CPU: each log of one step, relative
+CONTRAS_GRAD_REL = 1e-9  # card vs CPU: the step's gradients in float64
+                         # (convs included), of the largest: the same graph
+                         # in double on both sides (measured 2e-15)
+CONTRAS_GRAD32_REL = 1e-3  # the card's float32 gradients against the CPU's
+                           # float64 ones, of the largest: a hardest
+                           # negative whose two best candidates lie within
+                           # float32's ~1e-6 disagreement with float64 flips
+                           # and moves its gradient term (measured 2.7e-4 on
+                           # the card, 7.6e-4 for the CPU's float32 step)
+
+
+def _contras_options(stage, root, teacher=None):
+    """The shipped stage-1 or stage-2 options with the dataroots under
+    ``root`` (the 160-px synth set to train on, the CUFED5-shaped image and
+    its one-line annotation file to validate on), the teacher path, and
+    CONTRAS_ITERS iterations: a log line each, validation and checkpoints
+    at the last, no tensorboard. Widths, batch (8), gt size (160), losses
+    and LRs are the files' own."""
+    import os.path as osp
+    name = CONTRAS_OPTIONS[stage]
+    with open(osp.join(osp.dirname(osp.abspath(__file__)), name)) as f:
+        text = f.read()
+    n = CONTRAS_ITERS
+    swaps = [
+        ('use_tb_logger: true', 'use_tb_logger: false'),
+        ('./datasets/CUFED/input', f'{root}/synth/input'),
+        ('./datasets/CUFED/ref', f'{root}/synth/ref'),
+        ('dataroot_in: ./datasets/CUFED5',
+         f'dataroot_in: {root}/cufed5/input'),
+        ('dataroot_ref: ./datasets/CUFED5',
+         f'dataroot_ref: {root}/cufed5/ref'),
+        ('./datasets/contras_val.txt', f'{root}/cufed5/pairs.txt'),
+        (TRAIN_ANN, TRAIN_ANN.replace(
+            '\n\n', f'\n    ann_file: {root}/synth/pairs.txt\n\n')),
+        ('print_freq: 100', 'print_freq: 1'),
+        ('save_checkpoint_freq: !!float 5e3', f'save_checkpoint_freq: {n}')]
+    if stage == 1:
+        swaps += [('niter: 5000', f'niter: {n}'),
+                  ('val_freq: !!float 5e3', f'val_freq: {n}')]
+    else:
+        swaps += [('niter: 75000', f'niter: {n}'),
+                  ('val_freq: !!float 1e3', f'val_freq: {n}'),
+                  ('./experiments/stage1_teacher_contras_network/models/'
+                   'net_g_latest.ckpt', teacher)]
+    for old, new in swaps:
+        if old not in text:
+            raise ValueError(f'{name} has no {old!r}')
+        text = text.replace(old, new)
+    return text
+
+
+@contextlib.contextmanager
+def _timed_contras():
+    """Per iteration of a contrastive model's optimize_parameters: host
+    seconds between two synchronises and the logs; at the first call, the
+    model and its trained net's parameters; the last training batch. Per
+    validation: host seconds,
+    the peak memory of the iterations before it and of the pass itself,
+    and the means."""
+    from c2matching_tpu_torch.models.teacher_contras_model import \
+        ContrasModel
+    rec = {'iters': [], 'val': [], 'first': None, 'model': None}
+    real_step, real_val = ContrasModel.optimize_parameters, \
+        ContrasModel.validation
+
+    def step(self, current_iter):
+        if rec['first'] is None:
+            rec['first'] = [p.detach().clone()
+                            for p in self.trained.parameters()]
+            rec['model'] = self
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_step(self, current_iter)
+        torch.cuda.synchronize()
+        rec['iters'].append({
+            'step': current_iter, 's': time.perf_counter() - t0,
+            'logs': {k: float(v) for k, v in self.log_dict.items()}})
+        rec['batch'] = self.batch
+
+    def validation(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        means = real_val(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec['val'].append({'s': time.perf_counter() - t0,
+                           'train_peak': train_peak,
+                           'peak': torch.cuda.max_memory_allocated(),
+                           'means': means})
+        return means
+
+    ContrasModel.optimize_parameters = step
+    ContrasModel.validation = validation
+    try:
+        yield rec
+    finally:
+        ContrasModel.optimize_parameters = real_step
+        ContrasModel.validation = real_val
+
+
+def _contras_loss_ms(model, b, stage, card):
+    """CUDA-event times on the training batch ``b``: the loss alone on its
+    features (forward, and forward + backward), beside the extractors'
+    forward and the trained extractor's forward + backward; then the host
+    time of a whole step on it with the loader stopped."""
+    from c2matching_tpu_torch.models.contras_losses import (
+        distillation_loss_batch, triplet_loss_batch)
+    opts = model._loss_opts()
+    if stage == 1:
+        def extract():
+            out = model.net_g(b['img_in'], b['img_ref'])
+            return [out['dense_features1'], out['dense_features2']]
+
+        def loss(feats):
+            return triplet_loss_batch(*feats, b['transformed_coordinate'],
+                                      **opts)[0]
+    else:
+        def extract():
+            s = model.net_student(b['img_in_up'], b['img_ref'])
+            with torch.no_grad():
+                t = model.net_teacher(b['img_in'], b['img_ref'])
+            return [s['dense_features1'], s['dense_features2'],
+                    t['dense_features1'], t['dense_features2']]
+
+        def loss(feats):
+            return distillation_loss_batch(
+                *feats, b['transformed_coordinate'],
+                temperature=model.temperature,
+                distill_weight=model.distill_weight, **opts)[0]
+
+    with torch.no_grad():
+        feats = [f.detach() for f in extract()]
+        fwd = cuda_ms(extract)
+        loss_fwd = cuda_ms(lambda: loss(feats))
+    leaves = [f.clone().requires_grad_(i < 2) for i, f in enumerate(feats)]
+    loss_fb = cuda_ms(lambda: loss(leaves).backward())
+    cts = [torch.randn_like(f) for f in feats[:2]]
+
+    def extractor_fb():
+        out = extract()
+        sum((o * c).sum() for o, c in zip(out, cts)).backward()
+
+    ext_fb = cuda_ms(extractor_fb)
+    model.optimizer_g.zero_grad(set_to_none=True)
+    # whole steps on that batch with the loader stopped (they move the
+    # weights on; the run's checkpoints are written)
+    model.batch = b
+    model.optimize_parameters(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        model.optimize_parameters(0)
+    torch.cuda.synchronize()
+    step = 1e3 * (time.perf_counter() - t0) / 3
+    n = feats[0].shape[1] * feats[0].shape[2]
+    print(f'contras stage {stage}: on one batch of {feats[0].shape[0]} at '
+          f'{tuple(b["img_in"].shape[1:3])} ({n} feature positions): loss '
+          f'{loss_fwd:.3f} ms forward, {loss_fb:.3f} ms forward + backward; '
+          f'extractors {fwd:.3f} ms forward, {ext_fb:.3f} ms forward + '
+          f'backward of the trained net (CUDA events); a whole step with the '
+          f'loader stopped {step:.1f} ms (host clock, mean of 3) ({card})',
+          flush=True)
+    return {'loss_ms': loss_fwd, 'loss_fb_ms': loss_fb, 'extract_ms': fwd,
+            'extract_fb_ms': ext_fb, 'step_ms': step}
+
+
+def _contras_stage(check, stage, root, card, teacher=None):
+    """Stage ``stage`` through train.run on the card: the checks, the
+    printed times and peaks. Returns the model, its run's outputs
+    directory and its last training batch."""
+    import os
+    from c2matching_tpu_torch.train import run
+    path = f'{root}/stage{stage}.yml'
+    with open(path, 'w') as f:
+        f.write(_contras_options(stage, root, teacher))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _timed_contras() as rec:
+        run(path)
+    wall = time.perf_counter() - t0
+    model = rec['model']
+    label = model.net_label
+    exp = f'{root}/out/experiments/{model.opt["name"]}'
+    n = CONTRAS_ITERS
+    iters = rec['iters']
+    check(len(iters) == n, f'contras stage {stage}: {len(iters)} iterations')
+    keys = ('loss', 'pos_dist', 'neg_dist', 'n_valid') + (
+        ('distill_loss',) if stage == 2 else ())
+    for it in iters:
+        logs = it['logs']
+        check(set(logs) == set(keys)
+              and all(math.isfinite(v) for v in logs.values()),
+              f'contras stage {stage} iteration {it["step"]}: finite losses '
+              + ', '.join(f'{k} {logs.get(k, float("nan")):.5g}'
+                          for k in keys))
+        check(logs.get('n_valid') == CONTRAS_BATCH,
+              f'contras stage {stage} iteration {it["step"]}: every sample '
+              f'passed the gate (n_valid {logs.get("n_valid")})')
+    unmoved = [name for (name, p), a in zip(model.trained.named_parameters(),
+                                            rec['first'])
+               if torch.equal(a, p.detach())]
+    check(not unmoved, f'contras stage {stage}: every parameter of '
+          f'{label} moved (unmoved: {unmoved})')
+    saved = sorted(os.listdir(f'{exp}/models'))
+    states = sorted(os.listdir(f'{exp}/training_state'))
+    check(saved == [f'{label}_{n}.pth', f'{label}_latest.pth']
+          and states == [f'{n}.state'],
+          f'contras stage {stage}: checkpoints {saved}, states {states}')
+    check(len(rec['val']) == 1, f'contras stage {stage}: '
+          f'{len(rec["val"])} validation pass(es)')
+    times = [1e3 * it['s'] for it in iters]
+    print(f'contras stage {stage} ({CONTRAS_OPTIONS[stage]}), batch '
+          f'{CONTRAS_BATCH} at gt 160, full width: first iteration '
+          f'{times[0]:.1f} ms, later {", ".join(f"{v:.1f}" for v in times[1:])}'
+          f' ms (host clock, synchronised); the run (options to the last '
+          f'checkpoint) {wall:.1f} s ({card})', flush=True)
+    for val in rec['val']:
+        means = val['means']
+        check(all(math.isfinite(v) for v in means.values())
+              and means['loss'] > 0, f'contras stage {stage}: validation '
+              'means ' + ', '.join(f'{k} {v:.5g}' for k, v in means.items()))
+        print(f'contras stage {stage}: peak device memory '
+              f'{val["train_peak"] / 2 ** 30:.2f} GiB over the iterations; '
+              f'validation on one {CONTRAS_VAL_HW[0]}x{CONTRAS_VAL_HW[1]} '
+              f'image ({(CONTRAS_VAL_HW[0] // 4) * (CONTRAS_VAL_HW[1] // 4)} '
+              f'feature positions): {1e3 * val["s"]:.1f} ms, peak '
+              f'{val["peak"] / 2 ** 30:.2f} GiB ({card})', flush=True)
+    return model, exp, rec['batch']
+
+
+def _contras_cpu(check, dev, root):
+    """One step of each stage at batch 2 / gt 96, on the card and on the
+    CPU from the same seeded weights (the teacher's too) on the same
+    batch: the logs, the card's
+    float32 gradients against the CPU's float64 ones, and the float64
+    gradients of both."""
+    import random
+    import numpy as np
+    from c2matching_tpu_torch.data import ContrasDataset, default_collate
+    from c2matching_tpu_torch.models import MODELS
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    from c2matching_tpu_torch.utils import dict_to_nonedict, options
+    import os.path as osp
+    here = osp.dirname(osp.abspath(__file__))
+    gt = CONTRAS_CPU_GT
+    synth.write_dataset(f'{root}/small', n=CONTRAS_CPU_BATCH, size=(gt,))
+    random.seed(0)
+    np.random.seed(0)
+    data = ContrasDataset({
+        'name': 'small', 'phase': 'train', 'scale': 4,
+        'dataroot_in': f'{root}/small/input',
+        'dataroot_ref': f'{root}/small/ref', 'io_backend': {'type': 'disk'},
+        'ann_file': f'{root}/small/pairs.txt', 'gt_size': gt,
+        'use_flip': True, 'use_rot': True})
+    batch = default_collate([data[i] for i in range(CONTRAS_CPU_BATCH)])
+    for stage in (1, 2):
+        loaded = options.load(osp.join(here, CONTRAS_OPTIONS[stage]))
+        opt = {k: loaded[k] for k in loaded
+               if k in ('model_type', 'network_g', 'network_student',
+                        'network_teacher', 'train')}
+        opt.update(name=f'contras_cpu_{stage}', is_train=True, scale=4,
+                   manual_seed=0, path={'strict_load': True})
+        opt = dict_to_nonedict(opt)
+        models, grads64 = [], []
+        for where in (dev, 'cpu'):
+            model = MODELS[opt['model_type']](opt, where)
+            grads64.append({k: g.cpu() for k, g in
+                            model.float64_grads(batch)[1].items()})
+            model.feed_data(batch)
+            model.optimize_parameters(1)
+            models.append(model)
+        card, cpu = models
+        for k, v in cpu.log_dict.items():
+            want, got = float(v), float(card.log_dict[k])
+            check(abs(got - want) <= CONTRAS_LOSS_REL * abs(want),
+                  f'contras_cpu stage {stage}: {k} card {got:.7g} vs CPU '
+                  f'{want:.7g} (rel {CONTRAS_LOSS_REL:g})')
+        check(float(card.log_dict['n_valid']) == CONTRAS_CPU_BATCH,
+              f'contras_cpu stage {stage}: n_valid '
+              f'{float(card.log_dict["n_valid"])}')
+        exact = grads64[1]
+        top = max(float(g.abs().max()) for g in exact.values())
+
+        def off(net):
+            return max(float((p.grad.double().cpu() - exact[n]).abs().max())
+                       for n, p in net.named_parameters()) / top
+
+        cpu32 = off(cpu.trained)
+        card32 = off(card.trained)
+        check(card32 <= CONTRAS_GRAD32_REL, f'contras_cpu stage {stage}: '
+              f'the card\'s float32 gradients within {card32:.2e} of the '
+              f'largest ({top:.3g}) of the CPU\'s float64 ones (<= '
+              f'{CONTRAS_GRAD32_REL:g}; the CPU\'s float32 within '
+              f'{cpu32:.2e})')
+        err64 = max(float((grads64[0][n] - g).abs().max())
+                    for n, g in exact.items()) / top
+        check(err64 <= CONTRAS_GRAD_REL, f'contras_cpu stage {stage}: '
+              f'float64 gradients card vs CPU within {err64:.2e} of the '
+              f'largest (<= {CONTRAS_GRAD_REL:g})')
+        del models, card, cpu
+    torch.cuda.empty_cache()
+
+
+def _contras_data_ms(root, card):
+    """Host ms of one ContrasDataset item at gt 160 (decode, the warp, the
+    PIL chains, the coordinate grid) and of its warp alone, one thread."""
+    import numpy as np
+    from c2matching_tpu_torch.data import ContrasDataset
+    from c2matching_tpu_torch.data.warp import warp_perspective
+    ds = ContrasDataset({
+        'name': 'synth', 'phase': 'train', 'scale': 4,
+        'dataroot_in': f'{root}/synth/input',
+        'dataroot_ref': f'{root}/synth/ref', 'io_backend': {'type': 'disk'},
+        'ann_file': f'{root}/synth/pairs.txt', 'gt_size': 160,
+        'use_flip': True, 'use_rot': True})
+    ds[0]
+    t0 = time.perf_counter()
+    for i in range(8):
+        ds[i]
+    item = 1e3 * (time.perf_counter() - t0) / 8
+    img = ds._load_bgr(ds.paths[0]['in_path'])
+    h_inv = np.array([[1.01, 0.02, -3.0], [-0.01, 0.99, 2.0],
+                      [1e-5, -2e-5, 1.0]])
+    t0 = time.perf_counter()
+    for _ in range(8):
+        warp_perspective(img, h_inv, (160, 160))
+    warp = 1e3 * (time.perf_counter() - t0) / 8
+    print(f'contras data (host, one thread): {item:.1f} ms a ContrasDataset '
+          f'item at gt 160, of which warp_perspective {warp:.1f} ms; a batch '
+          f'of {CONTRAS_BATCH} is {CONTRAS_BATCH * item:.0f} ms of host work '
+          f'({card})', flush=True)
+    return {'item_ms': item, 'warp_ms': warp}
+
+
+def phase_contras(check, dev, report, card, root):
+    """Stages 1 and 2 through train.run on the card, the teacher's weights
+    from stage 1 in stage 2, then one step of each against the CPU. Leaves
+    stage 2's net_student_latest.pth in ``report['student_pth']``."""
+    import os
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    synth.write_dataset(f'{root}/synth', n=10, size=(160,))
+    synth.write_dataset(f'{root}/cufed5', n=1, size=CONTRAS_VAL_HW)
+    os.environ['C2MATCHING_ROOT'] = f'{root}/out'
+    try:
+        model, exp, batch = _contras_stage(check, 1, root, card)
+        report['contras_stage1'] = _contras_loss_ms(model, batch, 1, card)
+        teacher = f'{exp}/models/net_g_latest.pth'
+        del model, batch
+        model, exp, batch = _contras_stage(check, 2, root, card, teacher)
+        saved = torch.load(teacher, map_location='cpu', weights_only=True)
+        now = model.net_teacher.state_dict()
+        check(all(torch.equal(saved[k], now[k].cpu()) for k in saved)
+              and not any(p.requires_grad
+                          for p in model.net_teacher.parameters()),
+              'contras stage 2: the teacher is bit for bit stage 1\'s '
+              'net_g_latest.pth after the run, and frozen')
+        report['contras_stage2'] = _contras_loss_ms(model, batch, 2, card)
+        report['student_pth'] = f'{exp}/models/net_student_latest.pth'
+        del model, batch
+    finally:
+        del os.environ['C2MATCHING_ROOT']
+    torch.cuda.empty_cache()
+    report['contras_data'] = _contras_data_ms(root, card)
+    _contras_cpu(check, dev, root)
+
+
 # ----------------------------------------------------------------- train
 TRAIN_ANN = """    io_backend:
       type: disk
@@ -1740,17 +2139,16 @@ def _timed_iterations():
 def phase_train(check, dev, report, card):
     import os
     import tempfile
-    from c2matching_tpu_torch.models import define_network
     from c2matching_tpu_torch.ops import (deform_conv_backward,
                                           deform_im2col, match_argmax)
     from c2matching_tpu_torch.scripts import make_synth_dataset as synth
     from c2matching_tpu_torch.train import run
     with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as root:
         synth.write_dataset(f'{root}/synth', n=10, size=(160,))
-        extractor = f'{root}/extractor.pth'
-        torch.save(define_network({'type': 'ContrasExtractorSep'},
-                                  torch.Generator().manual_seed(0))
-                   .state_dict(), extractor)
+        # stage 2's student, trained by phase contras
+        extractor = report['student_pth']
+        print(f'train: pretrain_model_feature_extractor {extractor}',
+              flush=True)
         path = f'{root}/train.yml'
         with open(path, 'w') as f:
             f.write(_train_options(f'{root}/synth', extractor))
@@ -1978,20 +2376,27 @@ def main():
 
     report = {}
     recorded = {}
-    for name, fn in (
-            ('b1', lambda: phase_b1(check, dev)),
-            ('b3', lambda: phase_b3(check, dev)),
-            ('b2', lambda: phase_b2(check, dev, card)),
-            ('main', lambda: phase_main(check, dev, report, card, recorded)),
-            ('path', lambda: phase_path(check, report, recorded, card)),
-            ('eval', lambda: phase_eval(check, card)),
-            ('b3bwd', lambda: phase_b3_backward(check, dev, card)),
-            ('train', lambda: phase_train(check, dev, report, card)),
-            ('train_cpu', lambda: phase_train_cpu(check, dev))):
-        try:
-            fn()
-        except Exception as exc:  # a phase fails; the others still run
-            check(False, f'{name} raised {type(exc).__name__}: {exc}')
+    # phase contras trains stages 1 and 2 here; phase train reads stage 2's
+    # student from it
+    chain = tempfile.TemporaryDirectory(prefix='chip_smoke_chain_')
+    with chain as chain_root:
+        for name, fn in (
+                ('b1', lambda: phase_b1(check, dev)),
+                ('b3', lambda: phase_b3(check, dev)),
+                ('b2', lambda: phase_b2(check, dev, card)),
+                ('main', lambda: phase_main(check, dev, report, card,
+                                            recorded)),
+                ('path', lambda: phase_path(check, report, recorded, card)),
+                ('eval', lambda: phase_eval(check, card)),
+                ('b3bwd', lambda: phase_b3_backward(check, dev, card)),
+                ('contras', lambda: phase_contras(check, dev, report, card,
+                                                  chain_root)),
+                ('train', lambda: phase_train(check, dev, report, card)),
+                ('train_cpu', lambda: phase_train_cpu(check, dev))):
+            try:
+                fn()
+            except Exception as exc:  # a phase fails; the others still run
+                check(False, f'{name} raised {type(exc).__name__}: {exc}')
 
     if check.failed:
         print(f'{len(check.failed)} check(s) failed:', *check.failed,

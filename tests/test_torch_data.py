@@ -102,7 +102,7 @@ def test_refusals(synth_root):
     with pytest.raises(ValueError, match='not supported'):
         FileClient('memcached')
     with pytest.raises(ValueError, match='not ported'):
-        create_dataset(_opt(synth_root, type='ContrasDataset'))
+        create_dataset(_opt(synth_root, type='UnknownDataset'))
     with pytest.raises(ValueError, match='phase'):
         create_dataloader(None, {'phase': 'bogus'})
 
@@ -125,5 +125,11 @@ def test_synth_generator_equals_jax_script(layout, size, tmp_path):
             np.testing.assert_array_equal(
                 cv2.imread(osp.join(port_root, sub, name)),
                 cv2.imread(osp.join(jax_root, sub, name)))
-    with pytest.raises(NotImplementedError, match='INTER_CUBIC'):
-        synth.main([str(tmp_path / 'x'), '--size', '32', '--ref-size', '40'])
+    # --ref-size resizes the reference (held against the JAX script in
+    # tests/test_torch_contras_data.py)
+    synth.main([str(tmp_path / 'x'), '--n', '1', '--size', '32',
+                '--ref-size', '40'])
+    assert cv2.imread(str(tmp_path / 'x' / 'input' / '000_0.png')).shape \
+        == (32, 32, 3)
+    assert cv2.imread(str(tmp_path / 'x' / 'ref' / '000_1.png')).shape \
+        == (40, 40, 3)
