@@ -2,7 +2,8 @@
 
 Counterpart of ``c2matching_tpu/data/util.py`` (``scandir``,
 ``paired_paths_from_ann_file``, ``paired_paths_from_folder``,
-``pil_bicubic_resize``, ``pil_chain_lq_up``). The PIL bicubic resampling
+``pil_bicubic_resize``, ``pil_chain_lq_up``, and the MATLAB bicubic
+``imresize_np`` of the back-projection tool). The PIL bicubic resampling
 is the port's own bit-exact copy (``data/pil_resize.py``); the uint8
 round trips around it are the JAX package's, so every array is the same
 bit for bit.
@@ -97,3 +98,93 @@ def pil_chain_lq_up(img_bgr, scale):
     lq = resize_bicubic(arr, (lq_w, lq_h))
     up = resize_bicubic(lq, (w, h))
     return lq.astype(np.float32) / 255., up.astype(np.float32) / 255.
+
+
+# ---------------------------------------------------------------------------
+# MATLAB-compatible bicubic imresize, in float64 numpy: the JAX package's
+# ``c2matching_tpu/data/util.py`` (``_cubic_kernel``,
+# ``_matlab_weights_indices``, ``_sym_pad``, ``imresize_np``), used by
+# ``scripts/back_projection.py``.
+# ---------------------------------------------------------------------------
+def _cubic_kernel(x):
+    absx = np.abs(x)
+    absx2 = absx ** 2
+    absx3 = absx ** 3
+    return ((1.5 * absx3 - 2.5 * absx2 + 1) * (absx <= 1)
+            + (-0.5 * absx3 + 2.5 * absx2 - 4 * absx + 2)
+            * ((absx > 1) & (absx <= 2)))
+
+
+def _matlab_weights_indices(in_length, out_length, scale, kernel_width,
+                            antialiasing):
+    if scale < 1 and antialiasing:
+        kernel_width = kernel_width / scale
+    x = np.arange(1, out_length + 1, dtype=np.float64)
+    u = x / scale + 0.5 * (1 - 1 / scale)
+    left = np.floor(u - kernel_width / 2)
+    p = int(np.ceil(kernel_width)) + 2
+    indices = left[:, None] + np.arange(p)[None, :]
+    distance = u[:, None] - indices
+    if scale < 1 and antialiasing:
+        weights = scale * _cubic_kernel(distance * scale)
+    else:
+        weights = _cubic_kernel(distance)
+    weights = weights / weights.sum(axis=1, keepdims=True)
+    # drop all-zero boundary columns
+    zero_cols = (weights == 0).sum(axis=0)
+    if zero_cols[0] > out_length - 1e-6:
+        indices = indices[:, 1:]
+        weights = weights[:, 1:]
+    if zero_cols[-1] > out_length - 1e-6:
+        indices = indices[:, :-1]
+        weights = weights[:, :-1]
+    # symmetric-padding bookkeeping
+    sym_len_s = int(-indices.min() + 1)
+    sym_len_e = int(indices.max() - in_length)
+    indices = (indices + sym_len_s - 1).astype(np.int64)
+    return weights, indices, sym_len_s, sym_len_e
+
+
+def _sym_pad(arr, axis, before, after):
+    """MATLAB-style symmetric padding along one axis."""
+    idx_before = np.arange(before - 1, -1, -1) if before > 0 else []
+    idx_after = (np.arange(arr.shape[axis] - 1,
+                           arr.shape[axis] - 1 - after, -1)
+                 if after > 0 else [])
+    parts = []
+    if before > 0:
+        parts.append(np.take(arr, idx_before, axis=axis))
+    parts.append(arr)
+    if after > 0:
+        parts.append(np.take(arr, idx_after, axis=axis))
+    return np.concatenate(parts, axis=axis)
+
+
+def imresize_np(img, scale, antialiasing=True):
+    """MATLAB-compatible bicubic imresize (HWC float [0,1] numpy input,
+    same scale for H and W)."""
+    img = np.asarray(img, dtype=np.float64)
+    squeeze = False
+    if img.ndim == 2:
+        img = img[:, :, None]
+        squeeze = True
+    in_h, in_w, c = img.shape
+    out_h = int(np.ceil(in_h * scale))
+    out_w = int(np.ceil(in_w * scale))
+    kernel_width = 4
+
+    w_h, i_h, s_hs, s_he = _matlab_weights_indices(in_h, out_h, scale,
+                                                   kernel_width,
+                                                   antialiasing)
+    w_w, i_w, s_ws, s_we = _matlab_weights_indices(in_w, out_w, scale,
+                                                   kernel_width,
+                                                   antialiasing)
+
+    padded = _sym_pad(img, 0, s_hs, s_he)
+    # H pass: out1[o, :, :] = sum_p padded[i_h[o, p]] * w_h[o, p]
+    out1 = np.einsum('opwc,op->owc', padded[i_h], w_h)
+    padded2 = _sym_pad(out1, 1, s_ws, s_we)
+    out2 = np.einsum('hopc,op->hoc', padded2[:, i_w], w_w)
+    if squeeze:
+        out2 = out2[:, :, 0]
+    return out2.astype(np.float32)

@@ -64,7 +64,9 @@ class DynAgg(nn.Module):
         out = self.conv_offset_mask(offset_feat)
         # o1 ++ o2 read as (G, K, 2): (dy, dx) interleaved per tap
         offset = out[..., :2 * g * k].float().reshape(b, h, w, g, k, 2)
-        self.offset_absmean = offset.detach().abs().mean()
+        if not torch.compiler.is_exporting():
+            # a module attribute: kept out of an exported graph
+            self.offset_absmean = offset.detach().abs().mean()
         mask = torch.sigmoid(out[..., 2 * g * k:].float()).reshape(
             b, h, w, g, k)
         # (B, 9, H, W, 2[x, y]) -> (B, H, W, 1, 9, 2[y, x]), broadcast over

@@ -38,6 +38,7 @@ f32 when x is bf16; the columns are stored in x's dtype, and the
 contraction takes bf16 columns and weights with f32 accumulation.
 """
 import ctypes
+from typing import List
 
 import torch
 
@@ -74,8 +75,16 @@ def _kernel(lib, name, argtypes):
     return fn
 
 
+def _device(x, name):
+    """'cpu' or 'cuda'; any other device (meta included, where an operator
+    would take its fake implementation) is refused."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {x.device}')
+    return x.device.type
+
+
 def _pair(v):
-    return (v, v) if isinstance(v, int) else tuple(v)
+    return [v, v] if isinstance(v, int) else list(v)
 
 
 def _bilinear_gather_tap(xf, sy, sx, h, w):
@@ -166,12 +175,60 @@ def deform_im2col(x, offset, mask, kernel_size=(3, 3), stride=(1, 1),
         mask: (Ho, Wo, G, K) float32.
     Returns:
         (Ho*Wo, K*C) columns in x's dtype, ``cols[p, k*C + c]``.
+
+    Calls the registered operator ``torch.ops.c2matching.deform_im2col``:
+    on a CPU tensor the plain version, on a CUDA tensor the kernel (or a
+    refusal); ``deform_im2col.launches`` counts the kernel's launches.
     """
-    if x.device.type == 'cpu':
+    _device(x, 'deform_im2col')
+    return torch.ops.c2matching.deform_im2col(
+        x, offset, mask, _pair(kernel_size), _pair(stride), _pair(padding),
+        _pair(dilation))
+
+
+deform_im2col.launches = 0
+
+
+@torch.library.custom_op('c2matching::deform_im2col', mutates_args=())
+def _deform_im2col_op(x: torch.Tensor, offset: torch.Tensor,
+                      mask: torch.Tensor, kernel_size: List[int],
+                      stride: List[int], padding: List[int],
+                      dilation: List[int]) -> torch.Tensor:
+    """The operator behind ``deform_im2col``."""
+    if _device(x, 'deform_im2col') == 'cpu':
         return deform_im2col_plain(x, offset, mask, kernel_size, stride,
                                    padding, dilation)
-    if x.device.type != 'cuda':
-        raise ValueError(f'deform_im2col: unsupported device {x.device}')
+    _im2col_check(x, offset, mask, kernel_size)
+    h, w, c = x.shape
+    ho, wo, g, k, _ = offset.shape
+    kh, kw = kernel_size
+    x = x.contiguous()
+    offset = offset.contiguous()
+    mask = mask.contiguous()
+    cols = torch.empty((ho * wo, k * c), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernel('deform_conv', _ENTRY[x.dtype], _ARGTYPES)(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
+            h, w, c, ho, wo, g, kh, kw, *stride, *padding, *dilation,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f'deform_im2col kernel launch failed: CUDA error '
+                           f'{err}')
+    deform_im2col.launches += 1
+    return cols
+
+
+@_deform_im2col_op.register_fake
+def _(x, offset, mask, kernel_size, stride, padding, dilation):
+    _check(x, offset, mask)
+    if x.device.type == 'cuda':
+        _im2col_check(x, offset, mask, kernel_size)
+    ho, wo, _, k, _ = offset.shape
+    return x.new_empty((ho * wo, k * x.shape[-1]))
+
+
+def _im2col_check(x, offset, mask, kernel_size):
+    """Refuse what the kernel does not take."""
     _check(x, offset, mask)
     if x.dtype not in _ENTRY:
         raise TypeError(f'deform_im2col: x must be float32 or bfloat16, got '
@@ -180,28 +237,10 @@ def deform_im2col(x, offset, mask, kernel_size=(3, 3), stride=(1, 1),
         raise TypeError('deform_im2col: offset and mask must be float32')
     if offset.device != x.device or mask.device != x.device:
         raise ValueError('deform_im2col: tensors lie on different devices')
-    h, w, c = x.shape
-    ho, wo, g, k, _ = offset.shape
-    kh, kw = _pair(kernel_size)
-    if kh * kw != k:
-        raise ValueError(f'kernel_size {kh}x{kw} does not give {k} taps')
-    x = x.contiguous()
-    offset = offset.contiguous()
-    mask = mask.contiguous()
-    cols = torch.empty((ho * wo, k * c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel('deform_conv', _ENTRY[x.dtype], _ARGTYPES)(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
-            h, w, c, ho, wo, g, kh, kw, *_pair(stride), *_pair(padding),
-            *_pair(dilation), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f'deform_im2col kernel launch failed: CUDA error '
-                           f'{err}')
-    deform_im2col.launches += 1
-    return cols
-
-
-deform_im2col.launches = 0
+    kh, kw = kernel_size
+    if kh * kw != offset.shape[3]:
+        raise ValueError(f'kernel_size {kh}x{kw} does not give '
+                         f'{offset.shape[3]} taps')
 
 
 def deform_im2col_backward_plain(x, offset, mask, grad_cols,
@@ -458,6 +497,25 @@ def deform_conv_backward(x, offset, mask, grad_out, w_kc, kernel_size=(3, 3),
 deform_conv_backward.launches = 0
 
 
+def _mdc_forward(x, offset, mask, w_kc, bias, conv, kept=None):
+    """B3's columns per image times w_kc (``torch.matmul``), plus the bias:
+    (B, Ho, Wo, Co) f32. Each image's f32 columns are appended to ``kept``
+    when it is a list, and otherwise freed before the next image's."""
+    b = x.shape[0]
+    _, ho, wo, _, _, _ = offset.shape
+    outs = []
+    for i in range(b):
+        col = deform_im2col(x[i], offset[i], mask[i], *conv).float()
+        outs.append(torch.matmul(col, w_kc))
+        if kept is not None:
+            kept.append(col)
+        del col
+    out = torch.stack(outs).reshape(b, ho, wo, w_kc.shape[1])
+    if bias is not None:
+        out = out + bias
+    return out
+
+
 class _ModulatedDeformConv(torch.autograd.Function):
     """The deformable conv of a batch, differentiable in x, offset, mask,
     w_kc and bias. Forward: B3's columns per image (bf16 columns are
@@ -473,19 +531,9 @@ class _ModulatedDeformConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, offset, mask, w_kc, bias, conv):
-        b = x.shape[0]
-        _, ho, wo, _, _, _ = offset.shape
-        outs, kept = [], []
-        for i in range(b):
-            col = deform_im2col(x[i], offset[i], mask[i], *conv).float()
-            outs.append(torch.matmul(col, w_kc))
-            if ctx.needs_input_grad[3]:
-                kept.append(col)
-            del col
-        out = torch.stack(outs).reshape(b, ho, wo, w_kc.shape[1])
-        if bias is not None:
-            out = out + bias
-        ctx.save_for_backward(x, offset, mask, w_kc, *kept)
+        kept = [] if ctx.needs_input_grad[3] else None
+        out = _mdc_forward(x, offset, mask, w_kc, bias, conv, kept)
+        ctx.save_for_backward(x, offset, mask, w_kc, *(kept or ()))
         ctx.conv = conv
         return out
 
@@ -522,19 +570,24 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None,
 
     Returns:
         (B, Ho, Wo, Cout) float32. The columns are formed one image at a
-        time. Differentiable in every argument through
+        time. With grad enabled, differentiable in every argument through
         ``_ModulatedDeformConv``: one launch of B3's backward kernel gives
-        the x, offset and mask gradients of the whole batch.
+        the x, offset and mask gradients of the whole batch. Under
+        ``no_grad`` / ``inference_mode`` the forward runs alone.
     """
     _, _, _, c = x.shape
     _, _, _, _, k, _ = offset.shape
     co = weight.shape[-1]
     # bf16 columns meet bf16-rounded weights; products accumulate in f32
     w_kc = weight.reshape(k * c, co).to(x.dtype).float()
-    return _ModulatedDeformConv.apply(
-        x, offset.float(), mask.float(), w_kc,
-        None if bias is None else bias.float(),
-        (kernel_size, stride, padding, dilation))
+    args = (x, offset.float(), mask.float(), w_kc,
+            None if bias is None else bias.float(),
+            (kernel_size, stride, padding, dilation))
+    if not torch.is_grad_enabled():
+        # no graph to record: the forward alone, which torch.export traces
+        # as the operators it calls
+        return _mdc_forward(*args)
+    return _ModulatedDeformConv.apply(*args)
 
 
 def deform_conv(x, offset, weight, bias=None, kernel_size=(3, 3),

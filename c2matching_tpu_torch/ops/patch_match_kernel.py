@@ -4,11 +4,14 @@ argmax over ref rows, without writing the scores.
 Counterpart of ``c2matching_tpu/ops/pallas/patch_match_kernel.py``. The
 CUDA source is ``csrc/patch_match.cu``: tensor cores through ``mma.sync``,
 bf16 operands as they are and f32 operands as 3xTF32 (each split into two
-TF32 parts, three products summed in f32). On a CPU tensor
-``match_argmax`` takes its plain version, ``match_argmax_plain``; on a
-CUDA tensor it launches the kernel or raises.
+TF32 parts, three products summed in f32). ``match_argmax`` calls the
+registered operator ``torch.ops.c2matching.match_argmax`` (a fake
+implementation gives its output shapes to ``torch.export``): on a CPU
+tensor it takes the plain version, ``match_argmax_plain``; on a CUDA
+tensor it launches the kernel or raises.
 """
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,6 +66,7 @@ def match_argmax(q, r, ref_bias=None):
     Returns:
         (max_idx int32, max_val float32), each (B, Nq) or (Nq,).
 
+    Calls the registered operator ``torch.ops.c2matching.match_argmax``.
     On a CUDA tensor D must be a multiple of 8 (16 bytes of bf16). The
     kernel may split the ref axis into partitions and merge them in a
     second launch; ``match_argmax.launches`` counts one per call all the
@@ -71,31 +75,24 @@ def match_argmax(q, r, ref_bias=None):
     if q.dim() == 2:
         idx, val = match_argmax(q[None], r[None], ref_bias)
         return idx[0], val[0]
-    if q.device.type == 'cpu':
+    _device(q)
+    return torch.ops.c2matching.match_argmax(q, r, ref_bias)
+
+
+match_argmax.launches = 0
+
+
+@torch.library.custom_op('c2matching::match_argmax', mutates_args=())
+def _match_argmax_op(q: torch.Tensor, r: torch.Tensor,
+                     ref_bias: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator behind ``match_argmax`` on (B, Nq, D) and (B, Nr, D):
+    the plain version on a CPU tensor, the kernel on a CUDA tensor, and a
+    refusal on any other device."""
+    if _device(q) == 'cpu':
         return match_argmax_plain(q, r, ref_bias)
-    if q.device.type != 'cuda':
-        raise ValueError(f'match_argmax: unsupported device {q.device}')
-    if q.dtype not in _ENTRY or r.dtype != q.dtype:
-        raise TypeError(f'match_argmax: q {q.dtype} and r {r.dtype} must '
-                        'both be float32 or both bfloat16')
-    if q.dim() != 3 or r.dim() != 3 or q.shape[0] != r.shape[0] \
-            or q.shape[2] != r.shape[2]:
-        raise ValueError(f'match_argmax: shapes {tuple(q.shape)} and '
-                         f'{tuple(r.shape)} do not pair')
-    b, nq, d = q.shape
-    nr = r.shape[1]
-    if nq == 0 or nr == 0 or b == 0:
-        raise ValueError('match_argmax: empty query or ref set')
-    if r.device != q.device:
-        raise ValueError('match_argmax: q and r lie on different devices')
-    if ref_bias is not None and (ref_bias.shape != (nr,)
-                                 or ref_bias.dtype != torch.float32
-                                 or ref_bias.device != q.device):
-        raise ValueError('match_argmax: ref_bias must be float32 (Nr,) on '
-                         "q's device")
-    if d % 8:
-        raise ValueError(f'match_argmax: D = {d} must be a multiple of 8 '
-                         '(the kernel stages 16-byte vectors)')
+    b, nq, nr = _check(q, r, ref_bias)
+    d = q.shape[2]
     q = q.contiguous()
     r = r.contiguous()
     bias = None if ref_bias is None else ref_bias.contiguous()
@@ -127,4 +124,44 @@ def match_argmax(q, r, ref_bias=None):
     return idx, val
 
 
-match_argmax.launches = 0
+@_match_argmax_op.register_fake
+def _(q, r, ref_bias):
+    if q.device.type == 'cuda':
+        _check(q, r, ref_bias)
+    b, nq = q.shape[:2]
+    return (q.new_empty((b, nq), dtype=torch.int32),
+            q.new_empty((b, nq), dtype=torch.float32))
+
+
+def _device(q):
+    """'cpu' or 'cuda'; any other device (meta included, where the operator
+    would take its fake implementation) is refused."""
+    if q.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'match_argmax: unsupported device {q.device}')
+    return q.device.type
+
+
+def _check(q, r, ref_bias):
+    """(B, Nq, Nr) of operands the kernel takes; raises on any other."""
+    if q.dtype not in _ENTRY or r.dtype != q.dtype:
+        raise TypeError(f'match_argmax: q {q.dtype} and r {r.dtype} must '
+                        'both be float32 or both bfloat16')
+    if q.dim() != 3 or r.dim() != 3 or q.shape[0] != r.shape[0] \
+            or q.shape[2] != r.shape[2]:
+        raise ValueError(f'match_argmax: shapes {tuple(q.shape)} and '
+                         f'{tuple(r.shape)} do not pair')
+    b, nq, d = q.shape
+    nr = r.shape[1]
+    if nq == 0 or nr == 0 or b == 0:
+        raise ValueError('match_argmax: empty query or ref set')
+    if r.device != q.device:
+        raise ValueError('match_argmax: q and r lie on different devices')
+    if ref_bias is not None and (tuple(ref_bias.shape) != (nr,)
+                                 or ref_bias.dtype != torch.float32
+                                 or ref_bias.device != q.device):
+        raise ValueError('match_argmax: ref_bias must be float32 (Nr,) on '
+                         "q's device")
+    if d % 8:
+        raise ValueError(f'match_argmax: D = {d} must be a multiple of 8 '
+                         '(the kernel stages 16-byte vectors)')
+    return b, nq, nr

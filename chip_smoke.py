@@ -124,7 +124,29 @@ Phases:
      (ngf 16, 2 blocks, ndf 4, batch 2 at gt 64) on the card against the
      same steps on the CPU (plain versions) from the same weights: losses
      and G gradients.
- 12. one JSON line of kernels, the card's line, and last the JSON result.
+ 12. serve: batch serving and the tools. export_serving of the serving
+     config at batch 2, HR 512x336 (the graph's operator calls, the
+     export's seconds and the .pt2's MB); the artifact is loaded and run in
+     a fresh process that cannot import c2matching_tpu_torch.models and
+     held against the in-process forward, while `python -m
+     c2matching_tpu_torch.scripts.serve` runs in two more processes, in
+     the serving config on phase eval's sets (3 synth pairs at 160, the
+     CUFED5-shaped pair), at --batch 2 (a full and a padded partial flush)
+     and --batch 1: the same files, every PNG within one uint8 step of its
+     twin. Then, with no other process running: serve.py's loop in process
+     on 32 CUFED5-sized pairs at batch 16, its second flush under
+     torch.profiler (end-to-end images/s, the device's busy share); batch
+     16 at HR 512x336, full width, in the serving and f32 configs:
+     profile_serving's stage times, net images/s, peak memory and the
+     launch counts; one serving forward at batch 16 whose B1 launch (the
+     whole batch) and B3 launches (48, one flush) are held against their
+     plain versions (B1 image by image) and timed beside their library
+     calls and bounds; a torch.profiler trace of it in the serving config
+     (top kernels, busy share); the host's cost of a call through
+     torch.ops. Last bench_train (stage 3 GAN, stage 1) and profile_train
+     at full width: one JSON line each with the JAX version's keys,
+     finite, and the B3 backward launched in stage 3.
+ 13. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -999,8 +1021,8 @@ def _stage_ms(model, batch):
 def _record_kernel_inputs():
     """Record what the main path hands each kernel: (q, r, ref_bias) of
     every match and (x, offset, mask, weight, bias) of every DynAgg's DCN,
-    image 0. Wraps the names the callers look up; the kernels and their
-    launch counters stay as they are."""
+    the whole batch. Wraps the names the callers look up; the kernels and
+    their launch counters stay as they are."""
     pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match')
     ra = importlib.import_module(
         'c2matching_tpu_torch.models.archs.ref_restoration_arch')
@@ -1012,7 +1034,7 @@ def _record_kernel_inputs():
         return match(q, r, ref_bias)
 
     def mdc_rec(x, offset, mask, weight, bias=None):
-        seen['b3'].append((x[0], offset[0], mask[0], weight, bias))
+        seen['b3'].append((x, offset, mask, weight, bias))
         return mdc(x, offset, mask, weight, bias)
 
     pm.match_argmax, ra.modulated_deform_conv = match_rec, mdc_rec
@@ -1083,6 +1105,9 @@ def phase_path(check, report, recorded, card):
     for cfg, dtype in (('f32', torch.float32), ('serving', torch.bfloat16)):
         name = str(dtype).replace('torch.', '')
         seen = recorded.pop(cfg)
+        # the request's one image
+        seen['b3'] = [(x[0], offset[0], mask[0], weight, bias)
+                      for x, offset, mask, weight, bias in seen['b3']]
         check(len(seen['b1']) == 1, f'path {cfg}: one match call '
               f'({len(seen["b1"])})')
         q, r, bias = seen['b1'][0]
@@ -2347,6 +2372,541 @@ def phase_train_cpu(check, dev):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ serve
+SERVE_BATCH = 16     # profile_serving's default batch, at HR 512x336
+SERVE_HR = (512, 336)
+SERVE_ITERS = 3      # timed calls of each stage per config
+SERVE_E2E_PAIRS = 2 * SERVE_BATCH   # a warm flush, then the measured one
+SERVE_E2E_HW = (332, 500)           # a CUFED5 input's size
+SERVE_CLI_STEPS = 1  # uint8 steps between a PNG served at batch 2 and its
+                     # batch-1 twin (the bound of tests/test_serve_cli.py)
+EXPORT_BATCH = 2
+EXPORT_TOL = 1e-5    # the loaded artifact vs the in-process forward: the
+                     # same kernels on the same inputs in another process
+# the JAX scripts' JSON keys (scripts/bench_train.py, profile_train.py),
+# less the XLA cost model's byte estimates
+BENCH_KEYS = {'metric', 'value', 'unit', 'samples_per_sec'}
+PROFILE_TRAIN_KEYS = (
+    {'batch', 'gt_size', 'fetch_overhead_ms', 'phase_sum_net_ms',
+     'phase_sum_samples_per_s'}
+    | {f'{p}_{k}' for p in ('match', 'g_forward', 'loss_head', 'g_step',
+                            'd_step')
+       for k in ('ms', 'ms_net', 'gflops', 'tflops_per_s')})
+# loads the exported artifact in a fresh interpreter that cannot import the
+# port's model code, runs it on the saved inputs on the card and saves the
+# output; prints the kernels' launch counts
+EXPORT_LOADER = '''
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith('c2matching_tpu_torch.models'):
+            raise ImportError(f'{name} is blocked for this run')
+        return None
+sys.meta_path.insert(0, Block())
+import torch
+import c2matching_tpu_torch.ops as ops
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+artifact, inputs, out = sys.argv[1:]
+program = torch.export.load(artifact)
+args = [t.cuda() for t in torch.load(inputs)]
+with torch.no_grad():
+    result = program.module()(*args)
+torch.save(result.cpu(), out)
+assert not any(m.startswith('c2matching_tpu_torch.models')
+               for m in sys.modules)
+print('launches', ops.match_argmax.launches, ops.deform_im2col.launches)
+'''
+
+
+def _run_in(pool, cmd):
+    """Run ``cmd`` from the checkout's root with the checkout on the path,
+    in a thread of ``pool``: a future of (CompletedProcess, seconds)."""
+    import os
+    import os.path as osp
+    here = osp.dirname(osp.abspath(__file__))
+
+    def run():
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=here),
+                              timeout=600)
+        return proc, time.perf_counter() - t0
+
+    return pool.submit(run)
+
+
+def _json_line(text):
+    """The last line of ``text`` that holds a JSON object, parsed."""
+    lines = [line for line in text.splitlines() if line.startswith('{')]
+    return json.loads(lines[-1]) if lines else {}
+
+
+def _finite(values):
+    return all(math.isfinite(v) for v in values
+               if isinstance(v, (int, float)))
+
+
+def _serve_cli(check, card, root, pool):
+    """`python -m c2matching_tpu_torch.scripts.serve` in the serving config
+    on the eval sets (3 synth pairs at 160, the CUFED5-shaped pair) at
+    batch 2 (a full flush and a padded partial one on the synth set) and at
+    batch 1, the two processes at once: the same files, every PNG within
+    one uint8 step of its twin."""
+    import os
+    import re
+    import numpy as np
+    from c2matching_tpu_torch.utils import png
+    _eval_data(root)
+    path = f'{root}/serve.yml'
+    with open(path, 'w') as f:
+        f.write(_eval_options(EVAL_OPTIONS[1][1], root, _eval_weights(root),
+                              ('synth', 'cufed')))
+    outs = {b: f'{root}/served_b{b}' for b in (2, 1)}
+    runs = {b: _run_in(pool, [sys.executable, '-m',
+                              'c2matching_tpu_torch.scripts.serve', '-opt',
+                              path, '--batch', str(b), '--out', outs[b]])
+            for b in outs}
+    for batch, run in runs.items():
+        proc, wall = run.result()
+        if not check(proc.returncode == 0, f'serve --batch {batch}: exit '
+                     f'{proc.returncode}'):
+            print((proc.stdout + proc.stderr)[-3000:], flush=True)
+            return
+        with open(f'{outs[batch]}/serve.log') as f:
+            log = f.read()
+        for n, s, rate in re.findall(r'(\d+) images in ([\d.]+)s '
+                                     r'end-to-end \(([\d.]+) img/s', log):
+            print(f'serve --batch {batch}: {n} images in {s} s end to end, '
+                  f'{rate} images/s (decode, bicubic chain, card, PNG '
+                  'encode; serving config; beside the other serve and the '
+                  f'export\'s loading process) ({card})', flush=True)
+        print(f'serve --batch {batch}: the command {wall:.1f} s (process '
+              'start, model build, both sets)', flush=True)
+    for name in ('synth', 'cufed'):
+        files = {b: sorted(os.listdir(f'{outs[b]}/{name}')) for b in outs}
+        check(files[2] == files[1] and len(files[2]) == (3 if name == 'synth'
+                                                         else 1),
+              f'serve {name}: batch 2 and batch 1 write {files[2]} and '
+              f'{files[1]}')
+        worst = 0
+        for fname in files[2]:
+            imgs = []
+            for b in (2, 1):
+                with open(f'{outs[b]}/{name}/{fname}', 'rb') as f:
+                    imgs.append(png.decode(f.read()).astype(np.int16))
+            worst = max(worst, int(np.abs(imgs[0] - imgs[1]).max()))
+        check(worst <= SERVE_CLI_STEPS, f'serve {name}: every PNG at batch 2 '
+              f'within {worst} <= {SERVE_CLI_STEPS} uint8 step of batch 1')
+
+
+def _serve_e2e(check, dev, card, root):
+    """serve.py's loop in process, in the serving config, on 32 generated
+    CUFED5-sized pairs at batch 16: one flush to warm up, then one flush
+    (taking its items from the prefetching stream, the host's decode and
+    bicubic chain, the forward, the PNG encode) under torch.profiler: its
+    end-to-end images/s and the device's busy share of it."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from torch.profiler import ProfilerActivity, profile
+    from c2matching_tpu_torch.data import create_dataset
+    from c2matching_tpu_torch.models import create_model
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    from c2matching_tpu_torch.scripts import serve
+    from c2matching_tpu_torch.utils import dict_to_nonedict, get_root_logger
+    from c2matching_tpu_torch.utils.options import parse
+    synth.write_dataset(f'{root}/e2e/synth', n=SERVE_E2E_PAIRS,
+                        size=SERVE_E2E_HW)
+    path = f'{root}/e2e.yml'
+    with open(path, 'w') as f:
+        f.write(_eval_options(EVAL_OPTIONS[1][1], f'{root}/e2e', {}, ()))
+    opt = dict_to_nonedict(parse(path, is_train=False))
+    model = create_model(opt, dev)
+    dataset = create_dataset(opt['datasets']['test_1'])
+    out = f'{root}/e2e/out'
+    os.makedirs(out)
+    logger = get_root_logger()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        stream = serve._prefetched(dataset, len(dataset), pool,
+                                   window=2 * SERVE_BATCH)
+        flushes = serve.bucket_batches(stream, SERVE_BATCH)
+        t0 = time.perf_counter()
+        serve._flush(model, *next(flushes), out, SERVE_BATCH, logger)
+        warm = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            n = serve._flush(model, *next(flushes), out, SERVE_BATCH, logger)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, 'is_user_annotation', False))
+    check(n == SERVE_BATCH and len(os.listdir(out)) == SERVE_E2E_PAIRS,
+          f'serve e2e: {len(os.listdir(out))} PNGs written')
+    print(f'serve e2e, serving config, batch {SERVE_BATCH} of '
+          f'{SERVE_E2E_HW[0]}x{SERVE_E2E_HW[1]} pairs: the first flush '
+          f'{warm:.2f} s (cuDNN plans); the second {1e3 * wall:.1f} ms, '
+          f'{n / wall:.2f} images/s end to end, {device_us / 1e3:.1f} ms of '
+          f'kernels ({100 * device_us / 1e6 / wall:.1f}% busy, '
+          f'{100 - 100 * device_us / 1e6 / wall:.1f}% idle) ({card})',
+          flush=True)
+
+
+def _b1_batch_compare(check, q, r, bias, label):
+    """One launch of the kernel over the whole batch against the plain
+    version image by image (an image's f32 scores are Nq x Nr); returns
+    the max |value difference|."""
+    from c2matching_tpu_torch.ops import match_argmax, match_argmax_plain
+    idx_k, val_k = match_argmax(q, r, bias)
+    err = 0.0
+    n_clear = n_same = n_rows = n_far = n_excluded = 0
+    for i in range(q.shape[0]):
+        scores = torch.matmul(q[i].float(), r[i].float().mT) + bias
+        idx_p, val_p = match_argmax_plain(q[i:i + 1], r[i:i + 1], bias)
+        top2 = scores.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > B1_GAP_TOL
+        same = idx_k[i] == idx_p[0]
+        picked = scores.gather(-1, idx_k[i].long()[:, None])[:, 0]
+        n_clear += int(clear.sum())
+        n_same += int((same | ~clear).sum())
+        n_rows += clear.numel()
+        n_far += int(((picked - val_p[0]).abs() > B1_GAP_TOL).sum())
+        n_excluded += int((bias[idx_k[i].long()] != 0).sum())
+        err = max(err, (val_k[i] - val_p[0]).abs().max().item())
+        del scores, top2
+    check(n_same == n_rows, f'b1 {label}: indices equal on the {n_clear} of '
+          f'{n_rows} rows with top-2 gap > {B1_GAP_TOL:g} (one launch for '
+          f'the batch, the plain version image by image)')
+    check(n_far == 0 and n_excluded == 0, f'b1 {label}: every picked index '
+          f'scores within {B1_GAP_TOL:g} of the max ({n_far} not), no '
+          f'excluded row wins ({n_excluded})')
+    check(err <= B1_VAL_TOL, f'b1 {label}: max |val diff| {err:.3g} <= '
+          f'{B1_VAL_TOL:g}')
+    torch.cuda.empty_cache()
+    return err
+
+
+def _serve_flush_kernels(check, seen, cfg, dtype, card):
+    """B1's batch launch and one flush's B3 launches (each DynAgg, every
+    image) against their plain versions; their times, library times and
+    bounds at the batch's shapes."""
+    from c2matching_tpu_torch.ops import (deform_im2col, deform_im2col_plain,
+                                          match_argmax, match_argmax_plain)
+    name = str(dtype).replace('torch.', '')
+    q, r, bias = seen['b1'][0]
+    check(tuple(q.shape) == (SERVE_BATCH,) + PATH_B1[1:] and q.dtype == dtype
+          and int((bias < 0).sum()) == PATH_B1_EXCLUDED,
+          f'serve {cfg}: B1 gets q {tuple(q.shape)} {q.dtype}')
+    label = f'batch {q.shape[0]} {q.shape[1]}x{r.shape[1]}x{q.shape[2]} {name}'
+    b1 = {'max_abs_err': _b1_batch_compare(check, q, r, bias, label)}
+    b1['ms'] = cuda_ms(lambda: match_argmax(q, r, bias))
+    b1['plain_ms'] = cuda_ms(lambda: match_argmax_plain(q, r, bias))
+    b1['library_ms'] = _b1_library_ms(q, r, bias)
+    moved, ops = _b1_work(q, r, bias)
+    b1['bound_ms'], b1['bound_by'] = (
+        bound(moved, B1_TF32_PRODUCTS * ops, 'tf32')
+        if dtype == torch.float32 else bound(moved, ops, dtype))
+    print(f'b1 {label}: kernel {b1["ms"]:.3f} ms, plain {b1["plain_ms"]:.3f}'
+          f' ms, torch.matmul + max {b1["library_ms"]:.3f} ms, bound '
+          f'{b1["bound_ms"]:.3f} ms by {b1["bound_by"]} ({card})', flush=True)
+    del q, r, bias
+    seen['b1'].clear()
+    torch.cuda.empty_cache()
+
+    shapes = sorted(tuple(d[0].shape) for d in seen['b3'])
+    check(shapes == sorted((SERVE_BATCH,) + s for s in PATH_B3)
+          and all(d[0].dtype == dtype for d in seen['b3']),
+          f'serve {cfg}: one flush hands B3 x {shapes} {dtype}')
+    worst, bad, moved, ops, lib_ms = 0.0, 0, 0, 0, 0.0
+    for x, offset, mask, _, _ in seen['b3']:
+        for i in range(x.shape[0]):
+            cols = deform_im2col(x[i], offset[i], mask[i]).float()
+            if dtype == torch.float32:
+                err = (cols - deform_im2col_plain(x[i], offset[i], mask[i]))
+                bad += int((err.abs() > B3_F32_TOL).sum())
+            else:
+                # against the unrounded f32 columns of the same bf16 input,
+                # as phase path holds them
+                exact = deform_im2col_plain(x[i].float(), offset[i],
+                                            mask[i])
+                err = cols - exact
+                bad += int((err.abs() > B3_BF16_REL * exact.abs()
+                            + B3_F32_TOL).sum())
+                del exact
+            worst = max(worst, err.abs().max().item())
+            work = _b3_work(x[i], offset[i], mask[i])
+            moved, ops = moved + work[0], ops + work[1]
+            del cols, err
+        if dtype == torch.float32:
+            # grid_sample's time on image 0, for each image of the batch
+            lib_ms += x.shape[0] * _b3_library(
+                check, x[0], offset[0], mask[0],
+                'serve batch {} {}x{}x{} image 0'.format(*x.shape, name))
+        torch.cuda.empty_cache()
+    tol = (f'{B3_F32_TOL:g}' if dtype == torch.float32 else
+           f'{B3_BF16_REL:g}|v| + {B3_F32_TOL:g} of the f32 columns')
+    check(bad == 0, f'b3 serve {cfg}: the flush\'s '
+          f'{len(seen["b3"]) * SERVE_BATCH} launches within {tol} of the '
+          f'plain version ({bad} columns not; max |diff| {worst:.3g})')
+
+    def flush(fn):
+        return lambda: [fn(x[i], o[i], m[i]) for x, o, m, _, _ in seen['b3']
+                        for i in range(x.shape[0])]
+
+    b3 = {'ms': cuda_ms(flush(deform_im2col)),
+          'plain_ms': cuda_ms(flush(deform_im2col_plain), min_ms=1.0),
+          'max_abs_err': worst,
+          'library_ms': lib_ms if dtype == torch.float32 else None}
+    b3['bound_ms'], b3['bound_by'] = bound(moved, ops, torch.float32)
+    # the events bracket 48 calls in a row, the host's dispatch between
+    # them included; the profiler sums the kernels alone
+    device_ms = _profiled_ms(flush(deform_im2col), 'mdc_im2col', reps=3)
+    print(f'b3 serve {cfg}: one batch-{SERVE_BATCH} flush '
+          f'({len(seen["b3"]) * SERVE_BATCH} launches): kernel '
+          f'{b3["ms"]:.3f} ms by events, {device_ms:.3f} ms of kernels by '
+          f'the profiler, plain {b3["plain_ms"]:.3f} ms, grid_sample '
+          + (f'{lib_ms:.3f} ms' if dtype == torch.float32 else 'not timed')
+          + f', bound {b3["bound_ms"]:.3f} ms by '
+          f'{b3["bound_by"]} ({card})', flush=True)
+    seen['b3'].clear()
+    torch.cuda.empty_cache()
+    return b1, b3
+
+
+def _serve_profile(model, card, top=10):
+    """A batch-16 serving forward (feed_data done) under torch.profiler:
+    the largest kernels by device time and the device's busy share of the
+    forward's host clock."""
+    from torch.profiler import ProfilerActivity, profile
+    model.test()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.test()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    device_us = sum(e.self_device_time_total for e in events)
+    print(f'serve profile, one batch-{SERVE_BATCH} serving forward: '
+          f'{1e3 * wall:.1f} ms host clock, {device_us / 1e3:.1f} ms of '
+          f'kernels ({100 * device_us / 1e6 / wall:.1f}% busy) ({card})',
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f'  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d} x  '
+              f'{e.key[:90]}', flush=True)
+
+
+def _serve_batch(check, dev, report, card):
+    """Batch-16 serving at HR 512x336, full width, in both configs:
+    profile_serving's stage times, peak memory and launches; then one
+    serving forward at that batch whose B1 and B3 launches are held
+    against their plain versions (and, in the serving config, traced)."""
+    from c2matching_tpu_torch.models import RefRestorationModel
+    from c2matching_tpu_torch.ops import deform_im2col, match_argmax
+    from c2matching_tpu_torch.scripts.profile_serving import profile
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for cfg, blocks, dtype in (('serving', SERVING_BLOCKS, torch.bfloat16),
+                               ('f32', F32_BLOCKS, torch.float32)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        match_argmax.launches = deform_im2col.launches = 0
+        out = profile(blocks, batch=SERVE_BATCH, iters=SERVE_ITERS,
+                      device=dev, hr=SERVE_HR)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = (match_argmax.launches, deform_im2col.launches)
+        calls = SERVE_ITERS + 1
+        check(launches == (calls + 1, len(PATH_B3) * SERVE_BATCH * calls),
+              f'serve {cfg} batch {SERVE_BATCH}: match_argmax launched '
+              f'{launches[0]} times (a batch each), deform_im2col '
+              f'{launches[1]} (an image and DynAgg each)')
+        check(_finite(out.values()), f'serve {cfg}: profile_serving finite')
+        print(f'serve {cfg} batch {SERVE_BATCH} HR {SERVE_HR[0]}x'
+              f'{SERVE_HR[1]} (bucket 512x384), profile_serving: '
+              + ', '.join(f'{k} {out[k]}' for k in (
+                  'extractor_ms', 'matcher_ms', 'generator_ms',
+                  'total_net_ms', 'net_img_per_s', 'fetch_overhead_ms'))
+              + f'; peak {peak:.2f} GiB ({card})', flush=True)
+        report[f'serve_{cfg}'] = dict(out, peak_gib=peak)
+
+        model = RefRestorationModel(blocks, dev,
+                                    torch.Generator().manual_seed(0))
+        reqs = [_request(gen, dev, *SERVE_HR) for _ in range(SERVE_BATCH)]
+        model.feed_data({k: torch.cat([q[k] for q in reqs])
+                         for k in reqs[0]})
+        del reqs
+        model.test()                        # warm at the batch's shapes
+        with _record_kernel_inputs() as seen:
+            model.test()
+        res = model.cropped_output()
+        check(tuple(res.shape) == (SERVE_BATCH,) + SERVE_HR + (3,)
+              and bool(torch.isfinite(res).all()),
+              f'serve {cfg}: batch-{SERVE_BATCH} output {tuple(res.shape)} '
+              'finite')
+        del res
+        if cfg == 'serving':
+            _serve_profile(model, card)
+        model.batch = model.output = None
+        b1, b3 = _serve_flush_kernels(check, seen, cfg, dtype, card)
+        report[f'serve_b1_{cfg}'], report[f'serve_b3_{cfg}'] = b1, b3
+        del model, seen
+        torch.cuda.empty_cache()
+
+
+def _dispatch_us(dev, card, calls=500):
+    """Host time per call of each operator's wrapper (through
+    ``torch.ops``, the registered operator) against the operator's own
+    Python body called directly, on small inputs whose kernels are short:
+    the dispatcher's cost per call. Interleaved op, body, body, op."""
+    pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match_kernel')
+    dc = importlib.import_module('c2matching_tpu_torch.ops.deform_conv')
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(1, 256, 64, generator=gen, device=dev)
+    r = torch.randn(1, 256, 64, generator=gen, device=dev)
+    x, offset, mask = _dcn_inputs(gen, dev, 16, 16, 64, torch.float32)
+    conv = ([3, 3], [1, 1], [1, 1], [1, 1])
+    pairs = {
+        'match_argmax': (lambda: pm.match_argmax(q, r),
+                         lambda: pm._match_argmax_op._init_fn(q, r, None)),
+        'deform_im2col': (
+            lambda: dc.deform_im2col(x, offset, mask),
+            lambda: dc._deform_im2col_op._init_fn(x, offset, mask, *conv))}
+    for name, (op, body) in pairs.items():
+        times = {'op': [], 'body': []}
+        for kind in ('op', 'body', 'body', 'op'):
+            fn = op if kind == 'op' else body
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[kind].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        print(f'dispatch {name}: {min(times["op"]):.1f} us a call through '
+              f'torch.ops, {min(times["body"]):.1f} us for the operator\'s '
+              f'body alone (host clock, best of two runs of {calls}) '
+              f'({card})', flush=True)
+
+
+def _serve_export(check, dev, card, root, pool):
+    """export_serving of the serving config at batch 2, HR 512x336; the
+    .pt2 loaded in a fresh process that cannot import the model code, run
+    there on the same inputs (in a thread of ``pool``). Returns the
+    function that waits for that process and holds its output against the
+    in-process forward."""
+    import os
+    from c2matching_tpu_torch.models import RefRestorationModel
+    from c2matching_tpu_torch.scripts.export_serving import (
+        build_serving_fn, export_serving)
+    model = RefRestorationModel(SERVING_BLOCKS, dev,
+                                torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    program = export_serving(model, EXPORT_BATCH, *SERVE_HR)
+    export_s = time.perf_counter() - t0
+    artifact = f'{root}/serving_b{EXPORT_BATCH}.pt2'
+    torch.export.save(program, artifact)
+    mb = os.path.getsize(artifact) / 1e6
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == 'call_function']
+    n_ops = (targets.count('c2matching.match_argmax.default'),
+             targets.count('c2matching.deform_im2col.default'))
+    check(n_ops == (1, len(PATH_B3) * EXPORT_BATCH), f'export: the graph '
+          f'calls c2matching::match_argmax {n_ops[0]} and '
+          f'c2matching::deform_im2col {n_ops[1]} times')
+    del program
+    gen = torch.Generator(device=dev).manual_seed(9)
+    reqs = [_request(gen, dev, *SERVE_HR) for _ in range(EXPORT_BATCH)]
+    inputs = [torch.cat([q[k] for q in reqs])
+              for k in ('img_in_up', 'img_ref', 'img_in_lq')]
+    with torch.no_grad():
+        direct = build_serving_fn(model)(*inputs)
+    torch.save([t.cpu() for t in inputs], f'{root}/inputs.pt')
+    direct = direct.cpu()
+    del model
+    torch.cuda.empty_cache()
+    run = _run_in(pool, [sys.executable, '-c', EXPORT_LOADER, artifact,
+                         f'{root}/inputs.pt', f'{root}/loaded.pt'])
+    print(f'export serving config, batch {EXPORT_BATCH}, HR {SERVE_HR[0]}x'
+          f'{SERVE_HR[1]}: torch.export {export_s:.1f} s, artifact '
+          f'{mb:.1f} MB ({card})', flush=True)
+
+    def finish():
+        proc, load_s = run.result()
+        if not check(proc.returncode == 0, f'export: load and run in a '
+                     f'fresh process without the model code (exit '
+                     f'{proc.returncode})'):
+            print((proc.stdout + proc.stderr)[-3000:], flush=True)
+            return
+        counts = [line.split()[1:] for line in proc.stdout.splitlines()
+                  if line.startswith('launches')]
+        check(bool(counts) and all(int(n) > 0 for n in counts[-1]),
+              f'export: the loaded program launched B1 and B3 {counts}')
+        loaded = torch.load(f'{root}/loaded.pt')
+        err = (loaded - direct).abs().max().item()
+        check(tuple(loaded.shape) == (EXPORT_BATCH,) + SERVE_HR + (3,)
+              and err <= EXPORT_TOL, f'export: loaded artifact vs '
+              f'in-process forward, max |diff| {err:.3g} <= {EXPORT_TOL:g}')
+        print(f'export: the loading process {load_s:.1f} s (start, load, '
+              'one run; beside the two serve processes)', flush=True)
+
+    return finish
+
+
+def _serve_train_tools(check, card):
+    """bench_train (stage 3 GAN, stage 1) and profile_train at full width
+    through their CLIs' main(), in process: one JSON line each with the
+    JAX version's keys and finite values."""
+    import io
+    from c2matching_tpu_torch.ops import deform_conv_backward
+    from c2matching_tpu_torch.scripts import bench_train, profile_train
+    runs = ((bench_train.main, ['--stage', '3', '--iters', '3'], BENCH_KEYS),
+            (bench_train.main, ['--stage', '1', '--iters', '3'], BENCH_KEYS),
+            (profile_train.main, ['--iters', '2'], PROFILE_TRAIN_KEYS))
+    for main_fn, argv, keys in runs:
+        tool = main_fn.__module__.rsplit('.', 1)[-1]
+        deform_conv_backward.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main_fn(argv)
+        out = _json_line(buf.getvalue())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(set(out) == keys and _finite(out.values()),
+              f'{tool} {" ".join(argv)}: one JSON line with the JAX '
+              f'version\'s keys, finite')
+        if argv[:2] == ['--stage', '3']:
+            check(deform_conv_backward.launches > 0, f'{tool} stage 3: '
+                  f'deform_conv_backward launched '
+                  f'{deform_conv_backward.launches} times')
+        print(f'{tool} {" ".join(argv)}: {json.dumps(out)}; peak '
+              f'{peak:.2f} GiB ({card})', flush=True)
+
+
+def phase_serve(check, dev, report, card):
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_serve_') as root, \
+            ThreadPoolExecutor(max_workers=3) as pool:
+        # the export's loading process and the two serve processes run at
+        # once; nothing is timed in this process meanwhile
+        t0 = time.perf_counter()
+        finish_export = _serve_export(check, dev, card, root, pool)
+        _serve_cli(check, card, root, pool)
+        finish_export()
+        t1 = time.perf_counter()
+        _serve_e2e(check, dev, card, root)
+        _serve_batch(check, dev, report, card)
+        _dispatch_us(dev, card)
+        t2 = time.perf_counter()
+    _serve_train_tools(check, card)
+    print(f'serve phase seconds: export and CLI processes {t1 - t0:.1f}, '
+          f'e2e, batch {SERVE_BATCH} and dispatch {t2 - t1:.1f}, training '
+          f'tools {time.perf_counter() - t2:.1f}', flush=True)
+
 def main():
     if len(sys.argv) > 1:
         sys.exit(f'chip_smoke.py takes no arguments, got {sys.argv[1:]}')
@@ -2392,7 +2952,8 @@ def main():
                 ('contras', lambda: phase_contras(check, dev, report, card,
                                                   chain_root)),
                 ('train', lambda: phase_train(check, dev, report, card)),
-                ('train_cpu', lambda: phase_train_cpu(check, dev))):
+                ('train_cpu', lambda: phase_train_cpu(check, dev)),
+                ('serve', lambda: phase_serve(check, dev, report, card))):
             try:
                 fn()
             except Exception as exc:  # a phase fails; the others still run
