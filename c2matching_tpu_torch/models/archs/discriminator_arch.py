@@ -19,11 +19,34 @@ variance (torch would store the unbiased one). ``forward(x,
 update_stats=False)`` leaves the running statistics as they are, as the
 JAX package does for the gradient-penalty pass. In eval mode the running
 statistics normalize.
+
+At world size > 1 (``parallel/``) the train-mode statistics are the
+global batch's, as flax's BN computes them under a sharded ``jit``: each
+rank's per-channel sums of x and x^2 and its count go through one
+differentiable all-reduce (``parallel.all_reduce_sum``; the gradient
+penalty differentiates through it twice), so every rank normalizes with,
+and moves its running statistics toward, the same moments.
+``torch.nn.SyncBatchNorm`` is not used: it refuses CPU tensors.
 """
 import torch
 from torch import nn
 
+from ... import parallel
 from .arch_util import lrelu
+
+
+def _moments(x):
+    """(mean, biased variance) per channel of NCHW ``x``: the local batch's
+    at world size 1, the global batch's above."""
+    if parallel.get_world_size() == 1:
+        mean = x.mean(dim=(0, 2, 3))
+        return mean, ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.)
+    c = x.shape[1]
+    count = x.new_full((1,), float(x.numel() // c))
+    sums = parallel.all_reduce_sum(torch.cat(
+        [x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+    mean = sums[:c] / sums[-1]
+    return mean, (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -37,8 +60,7 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.)
+            mean, var = _moments(x)
             if update_stats:
                 with torch.no_grad():
                     self.running_mean.mul_(1 - self.momentum).add_(

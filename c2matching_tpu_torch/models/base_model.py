@@ -3,10 +3,12 @@
 Counterpart of ``c2matching_tpu/models/base_model.py``:
 
 - ``load_network`` reads the reference's ``.pth`` state dicts (a
-  'state_dict' wrapper and 'module.' prefixes are stripped) under
-  ``path.strict_load``. The JAX package's flax ``.ckpt`` (msgpack) and
-  orbax checkpoints are not read: they raise, naming the ``.pth``
-  alternative.
+  'state_dict' wrapper and 'module.' prefixes are stripped) and the JAX
+  package's flax ``.ckpt`` files (``utils/flax_msgpack.py``, converted by
+  ``utils/weights.py`` for the net's ``kind``) under ``path.strict_load``.
+  A ``.ckpt`` that does not exist, with a ``.pth`` of the same stem beside
+  it, is that ``.pth``: the file the port's earlier stage wrote where the
+  shipped options name the JAX package's. Orbax directories are not read.
 - ``make_adam`` is ``torch.optim.Adam`` over named parameter groups, each
   with its base LR: the JAX package's torch-faithful Adam (L2 decay added
   to the gradient, eps outside the square root).
@@ -17,7 +19,12 @@ Counterpart of ``c2matching_tpu/models/base_model.py``:
 - Checkpoints: ``net_<label>_<iter>.pth`` and ``net_<label>_latest.pth``
   (``-1``: the latest only), and ``<iter>.state`` with the epoch, the
   iteration, the optimizers' state dicts and the schedule counts (none for
-  ``-1``).
+  ``-1``), written by rank 0 alone. ``path.checkpoint_backend: orbax``
+  logs a warning and writes ``.pth``.
+- Multi-process (``parallel/``): ``rank`` and ``world`` from the process
+  group; ``sync_gradients`` averages the gradients over the ranks after a
+  backward, ``global_logs`` the logged values; ``validation`` is
+  ``dist_validation`` at world size > 1.
 """
 import logging
 import os
@@ -25,19 +32,55 @@ import os.path as osp
 
 import torch
 
+from .. import parallel
 from .lr_scheduler import build_schedule
 
 logger = logging.getLogger('base')
 
+# the flax -> state-dict bridge of each kind of net a .ckpt holds
+CKPT_KINDS = ('g', 'd', 'extractor', 'teacher', 'student', 'vgg19', 'vgg16')
 
-def load_state_dict_file(path):
-    """The state dict of a reference ``.pth`` file, on the CPU."""
-    if not str(path).endswith('.pth'):
+
+def _flax_state_dict(path, kind):
+    from ..utils import flax_msgpack, weights
+    tree = flax_msgpack.load(path)
+    if kind == 'g':
+        return weights.restoration_net_state_dict(tree)
+    if kind == 'd':
+        return weights.discriminator_state_dict(tree)
+    if kind in ('extractor', 'teacher', 'student'):
+        return weights.contras_extractor_state_dict(tree)
+    if kind in ('vgg19', 'vgg16'):
+        return weights.torchvision_vgg_state_dict(tree, kind)
+    raise ValueError(f'{path}: a flax .ckpt needs the kind of its net, one '
+                     f'of {CKPT_KINDS}, not {kind!r}')
+
+
+def _resolve_checkpoint(path):
+    """``path``, or the ``.pth`` of the same stem beside a ``.ckpt`` that
+    does not exist (logged at WARNING)."""
+    path = str(path)
+    if path.endswith('.ckpt') and not osp.exists(path):
+        pth = path[:-len('.ckpt')] + '.pth'
+        if not osp.exists(pth):
+            raise ValueError(f'{path}: no such flax checkpoint, and no .pth '
+                             f'of the same stem beside it ({pth})')
+        logger.warning(f'{path} does not exist; loading {pth}, the .pth '
+                       'the port wrote in its place')
+        return pth
+    return path
+
+
+def load_state_dict_file(path, kind=None):
+    """The state dict, on the CPU, of a reference ``.pth`` file or of the
+    JAX package's flax ``.ckpt`` of a ``kind`` net (``CKPT_KINDS``)."""
+    path = _resolve_checkpoint(path)
+    if path.endswith('.ckpt'):
+        return _flax_state_dict(path, kind)
+    if not path.endswith('.pth'):
         raise ValueError(
-            f'{path}: the port loads .pth state dicts only; flax .ckpt '
-            '(msgpack) and orbax checkpoints of the JAX package are not read '
-            '(convert the weights with c2matching_tpu_torch/utils/weights.py '
-            'and torch.save them as .pth)')
+            f'{path}: the port loads .pth state dicts and flax .ckpt files; '
+            'orbax checkpoints of the JAX package are not read')
     state = torch.load(path, map_location='cpu', weights_only=True)
     if isinstance(state, dict) and 'state_dict' in state:
         state = state['state_dict']
@@ -118,16 +161,44 @@ class BaseModel:
             raise RuntimeError(
                 f'device {self.device} asked for, but no CUDA card is '
                 "available; pass device='cpu' to run on the CPU")
+        self.rank = parallel.get_rank()
+        self.world = parallel.get_world_size()
         self.log_dict = {}
         self.schedule_fn = None
         if self.is_train and opt.get('train'):
             self.schedule_fn = build_schedule(opt['train'])
+        if (opt.get('path') or {}).get('checkpoint_backend') == 'orbax':
+            logger.warning('path.checkpoint_backend orbax: the port writes '
+                           '.pth checkpoints instead')
 
-    def load_network(self, net, path, strict=True):
-        """Load a ``.pth`` state dict into ``net``. With ``strict`` every key
-        must match; otherwise the missing and unexpected keys are logged."""
+    def load_network(self, net, path, strict=True, kind=None):
+        """Load a ``.pth`` state dict, or a flax ``.ckpt`` of a ``kind`` net,
+        into ``net``. With ``strict`` every key must match; otherwise the
+        missing and unexpected keys are logged."""
         logger.info(f'Loading {net.__class__.__name__} model from {path}.')
-        self.load_state(net, load_state_dict_file(path), strict)
+        self.load_state(net, load_state_dict_file(path, kind), strict)
+
+    # ------------------------------------------------------ multi-process
+    @staticmethod
+    def sync_gradients(params):
+        """Average the gradients of ``params`` over the ranks (a no-op
+        without a process group)."""
+        parallel.average_gradients(params)
+
+    def global_logs(self, logs):
+        """The logged values' means over the ranks: each rank logs its
+        share of the global batch, whose mean is the global value."""
+        return parallel.mean_across_ranks(logs)
+
+    def validation(self, dataloader, current_iter, tb_logger,
+                   save_img=False):
+        """``dist_validation`` at world size > 1, else
+        ``nondist_validation``."""
+        if self.world > 1:
+            return self.dist_validation(dataloader, current_iter, tb_logger,
+                                        save_img)
+        return self.nondist_validation(dataloader, current_iter, tb_logger,
+                                       save_img)
 
     @staticmethod
     def load_state(net, state, strict=True):
@@ -146,7 +217,10 @@ class BaseModel:
     # ---------------------------------------------------------- checkpoints
     def save_network(self, net, net_label, current_iter):
         """net_<label>_<iter>.pth and net_<label>_latest.pth (-1: the latest
-        only), the state dict in the reference's key names."""
+        only), the state dict in the reference's key names; rank 0
+        only."""
+        if self.rank != 0:
+            return
         model_dir = self.opt['path']['models']
         os.makedirs(model_dir, exist_ok=True)
         state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
@@ -158,8 +232,8 @@ class BaseModel:
 
     def save_training_state(self, epoch, current_iter, state):
         """<iter>.state: {'epoch', 'iter', **state}; none for the latest
-        save (-1), as the reference."""
-        if current_iter == -1:
+        save (-1), as the reference; rank 0 only."""
+        if self.rank != 0 or current_iter == -1:
             return
         state_dir = self.opt['path']['training_state']
         os.makedirs(state_dir, exist_ok=True)

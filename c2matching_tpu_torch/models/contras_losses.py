@@ -18,6 +18,12 @@ masks and constants, batched over the first axis.
   the matched pairs, batchmean over valid rows, in the JAX package's
   ``where(t > 0, t * (t_log - s), 0)`` form.
 
+At world size > 1 (``world``), the count of samples over the gate is
+summed over the ranks, and each returned mean is the rank's share of the
+global one: world x the sum over its own samples / the global count, so
+that the mean over the ranks of each value, and of the gradients, is the
+global batch's. The returned count is the global count.
+
 The Chebyshev test ``max(|dy|, |dx|) <= r`` is taken as ``|dy| <= r and
 |dx| <= r`` on two broadcast differences, without the stacked
 (n, n, 2) tensor: at a CUFED5 image's 10375 feature positions that tensor
@@ -25,6 +31,8 @@ alone is 861 MB.
 """
 import torch
 import torch.nn.functional as F
+
+from ..parallel import sum_across_ranks
 
 BIG = 1e4
 MIN_VALID_CORRS = 128
@@ -102,8 +110,23 @@ def _terms(feat1, feat2, coords, safe_radius, scaling_steps):
             'neg2': neg2, 'valid': vmask, 'flat2': flat2}
 
 
-def _triplet_means(terms, margin):
-    """(per-sample triplet loss, pos, neg, sample_ok, n_ok) of the terms."""
+def _n_ok(sample_ok, world):
+    """The count of samples over the gate, over the ranks at world > 1,
+    at least 1."""
+    n = torch.sum(sample_ok)
+    if world > 1:
+        n = sum_across_ranks(n)
+    return torch.clamp_min(n, 1.0)
+
+
+def _ok_mean(per_sample, ok, n_ok, world):
+    """The gated mean's share of this rank (see the module docstring)."""
+    return world * torch.sum(per_sample * ok) / n_ok
+
+
+def _triplet_means(terms, margin, world=1):
+    """(per-sample triplet loss, pos, neg, sample_ok, n_ok) of the terms;
+    n_ok over the ranks at ``world`` > 1."""
     v = terms['valid']
     n_valid = torch.sum(v, dim=1)
     sample_ok = (n_valid >= MIN_VALID_CORRS).float()
@@ -113,18 +136,19 @@ def _triplet_means(terms, margin):
     loss = torch.sum(F.relu(margin + diff) * v, dim=1) / denom
     pos = torch.sum(terms['pos_dist'] * v, dim=1) / denom
     negm = torch.sum(neg * v, dim=1) / denom
-    n_ok = torch.clamp_min(torch.sum(sample_ok), 1.0)
-    return loss, pos, negm, sample_ok, n_ok
+    return loss, pos, negm, sample_ok, _n_ok(sample_ok, world)
 
 
 def triplet_loss_batch(feat1, feat2, coords, margin=1.0, safe_radius=4,
-                       scaling_steps=2):
+                       scaling_steps=2, world=1):
     """Batched triplet loss (stage 1). feat*: (B, h, w, C); coords:
-    (B, H, W, 3). Returns (loss, pos_dist, neg_dist, n_valid_samples)."""
+    (B, H, W, 3). Returns (loss, pos_dist, neg_dist, n_valid_samples);
+    at ``world`` > 1 the rank's shares and the global count."""
     terms = _terms(feat1, feat2, coords, safe_radius, scaling_steps)
-    loss, pos, neg, ok, n_ok = _triplet_means(terms, margin)
-    return (torch.sum(loss * ok) / n_ok, torch.sum(pos * ok) / n_ok,
-            torch.sum(neg * ok) / n_ok, torch.sum(ok))
+    loss, pos, neg, ok, n_ok = _triplet_means(terms, margin, world)
+    n_valid = n_ok if world > 1 else torch.sum(ok)
+    return (_ok_mean(loss, ok, n_ok, world), _ok_mean(pos, ok, n_ok, world),
+            _ok_mean(neg, ok, n_ok, world), n_valid)
 
 
 def _kl_rows(student_logits, teacher_logits, valid):
@@ -142,11 +166,12 @@ def _kl_rows(student_logits, teacher_logits, valid):
 def distillation_loss_batch(student_feat1, student_feat2, teacher_feat1,
                             teacher_feat2, coords, margin=1.0,
                             safe_radius=4, scaling_steps=2,
-                            temperature=0.15, distill_weight=15.0):
+                            temperature=0.15, distill_weight=15.0, world=1):
     """Stage-2 loss: the student's triplet loss plus ``distill_weight``
     times the KL distillation from the teacher's correlation rows.
 
-    Returns (loss, pos_dist, neg_dist, distill_loss, n_valid_samples)."""
+    Returns (loss, pos_dist, neg_dist, distill_loss, n_valid_samples); at
+    ``world`` > 1 the rank's shares and the global count."""
     terms = _terms(student_feat1, student_feat2, coords, safe_radius,
                    scaling_steps)
     b, h1, w1, c = teacher_feat1.shape
@@ -160,9 +185,10 @@ def distillation_loss_batch(student_feat1, student_feat2, teacher_feat1,
     t_logits = torch.matmul(t_d1, t_d2.transpose(1, 2)) / temperature
     distill = _kl_rows(s_logits, t_logits, terms['valid'])
 
-    triplet, pos, neg, ok, n_ok = _triplet_means(terms, margin)
-    triplet = torch.sum(triplet * ok) / n_ok
-    distill_mean = torch.sum(distill * ok) / n_ok
+    triplet, pos, neg, ok, n_ok = _triplet_means(terms, margin, world)
+    triplet = _ok_mean(triplet, ok, n_ok, world)
+    distill_mean = _ok_mean(distill, ok, n_ok, world)
+    n_valid = n_ok if world > 1 else torch.sum(ok)
     return (triplet + distill_weight * distill_mean,
-            torch.sum(pos * ok) / n_ok, torch.sum(neg * ok) / n_ok,
-            distill_mean, torch.sum(ok))
+            _ok_mean(pos, ok, n_ok, world), _ok_mean(neg, ok, n_ok, world),
+            distill_mean, n_valid)

@@ -8,14 +8,17 @@ only; the ``GANLoss`` class, which no stage-3 step calls, is not ported),
 the WGAN-GP ``gradient_penalty_loss`` through
 ``torch.autograd.grad(..., create_graph=True)``, and ``gram_matrix`` with
 ``PerceptualLoss`` (criteria l1, l2 and fro; ground-truth features
-detached). Tensors are NHWC, as in the JAX package. ``MaskedTVLoss``,
-``PerceptualLossMultiInputs``, ``TextureLoss`` and ``MapLoss`` belong to
-stages 1-2 and are not ported yet.
+detached; at world size > 1 the fro norm is the global batch's, through a
+differentiable all-reduce of the squares). Tensors are NHWC, as in the
+JAX package. ``MaskedTVLoss``, ``PerceptualLossMultiInputs``,
+``TextureLoss`` and ``MapLoss`` belong to stages 1-2 and are not ported
+yet.
 """
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from .archs.vgg_arch import VGGFeatureExtractor
 
 _REDUCTIONS = ('none', 'mean', 'sum')
@@ -178,8 +181,10 @@ class PerceptualLoss(nn.Module):
             return (a - b).abs().mean()
         if self.criterion == 'l2':
             return ((a - b) ** 2).mean()
-        # torch.norm(..., p='fro') over the whole tensor
-        return torch.sqrt(((a - b) ** 2).sum())
+        # torch.norm(..., p='fro') over the whole tensor; at world size > 1
+        # over the global batch (the squares summed over the ranks, through
+        # the differentiable all-reduce, so each rank holds the global norm)
+        return torch.sqrt(parallel.all_reduce_sum(((a - b) ** 2).sum()))
 
     def forward(self, x, gt):
         if self.norm_img:

@@ -35,6 +35,15 @@ gradient-penalty coefficients come from a CPU ``torch.Generator`` seeded
 with ``manual_seed`` (so the card and the CPU draw the same), or from
 ``gp_alpha`` when a caller sets it (used once). ``train.remat_policy``
 other than 'none' is not ported: the whole graph is kept.
+
+At world size > 1 (``parallel/``) each rank feeds its slice of the global
+batch: the nets start from rank 0's weights, every backward is followed
+by ``sync_gradients`` (G's and D's gradients averaged over the ranks),
+D's BatchNorm takes the global batch's statistics, the gradient-penalty
+coefficients are drawn for the global batch and each rank takes its
+slice, and ``log_dict`` holds the global batch's values. The top-level
+``val_spatial_shard`` option (batch-1 evaluation split into image bands
+across devices) raises there; at world size 1 it changes nothing.
 """
 import logging
 
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..utils import metrics, tensor2img
 from .archs.vgg_arch import NAMES
 from .base_model import ScheduleCounts, load_state_dict_file, make_adam
@@ -131,6 +141,10 @@ class RefRestorationModel(SRModel):
         self.net_map = define_network(opt['network_map'], generator)
         self.net_extractor = define_network(opt['network_extractor'],
                                             generator)
+        if self.world > 1 and opt.get('val_spatial_shard'):
+            raise NotImplementedError(
+                'val_spatial_shard: the split of batch-1 evaluation into '
+                'image bands across processes is not ported')
         self._load_pretrained(opt.get('path') or {})
         for net in (self.net_map, self.net_extractor):
             net.to(self.device).eval().requires_grad_(False)
@@ -144,25 +158,28 @@ class RefRestorationModel(SRModel):
             self.init_training_settings()
         else:
             self.net_g.eval().requires_grad_(False)
+        parallel.broadcast_parameters(
+            self.net_g, self.net_map, self.net_extractor,
+            getattr(self, 'net_d', None), getattr(self, 'cri_perceptual',
+                                                  None))
 
     def _load_pretrained(self, path_opt):
         """``pretrain_model_g`` into net_g, ``pretrain_model_feature_
         extractor`` into net_extractor, and ``pretrain_model_vgg`` (a
         torchvision VGG state dict) into net_map's VGG."""
         strict = path_opt.get('strict_load', True) is not False
-        for key, net in (('pretrain_model_g', self.net_g),
-                         ('pretrain_model_feature_extractor',
-                          self.net_extractor)):
+        for key, net, kind in (('pretrain_model_g', self.net_g, 'g'),
+                               ('pretrain_model_feature_extractor',
+                                self.net_extractor, 'extractor')):
             if path_opt.get(key):
-                self.load_network(net, path_opt[key], strict)
+                self.load_network(net, path_opt[key], strict, kind)
         if path_opt.get('pretrain_model_vgg'):
             path = path_opt['pretrain_model_vgg']
             logger.info(f'Loading torchvision VGG into net_map from {path}.')
             vgg = self.net_map.vgg
+            vgg_type = self.opt['network_map'].get('vgg_type') or 'vgg19'
             state = torchvision_vgg_keys(
-                load_state_dict_file(path),
-                self.opt['network_map'].get('vgg_type') or 'vgg19',
-                vgg.names)
+                load_state_dict_file(path, vgg_type), vgg_type, vgg.names)
             missing = [k for k, _ in self.net_map.named_parameters()
                        if k not in state]
             if missing and strict:
@@ -271,7 +288,7 @@ class RefRestorationModel(SRModel):
             if path_opt.get('pretrain_model_d'):
                 self.load_network(self.net_d, path_opt['pretrain_model_d'],
                                   path_opt.get('strict_load', True)
-                                  is not False)
+                                  is not False, kind='d')
             self.net_d.to(self.device).train()
             self.print_network(self.net_d)
         else:
@@ -368,9 +385,11 @@ class RefRestorationModel(SRModel):
         output = self.net_g(self.batch['img_in_lq'], pre_offset, ref_feat)
         l_pix = self.cri_pix(output, self.batch['img_in'])
         l_pix.backward()
+        self.sync_gradients(self.net_g.parameters())
         self.schedules.step('g')
         self.output = output.detach()
-        self.log_dict = {'l_pix': l_pix.detach(), **self._offset_stats()}
+        self.log_dict = self.global_logs({'l_pix': l_pix.detach(),
+                                          **self._offset_stats()})
 
     def _gan_iteration(self, do_g):
         pre_offset, ref_feat = self._match()
@@ -385,21 +404,26 @@ class RefRestorationModel(SRModel):
             self.optimizer_g.zero_grad(set_to_none=True)
             total, g_logs = self._out_losses(output, gt)
             total.backward()
+            self.sync_gradients(self.net_g.parameters())
             self.schedules.step('g')
             logs.update(g_logs)
         else:
             # a D-only iteration still steps G's schedule
             self.schedules.shift('g')
-        self.log_dict = logs
+        self.log_dict = self.global_logs(logs)
 
     def _next_gp_alpha(self, b):
         """(B, 1, 1, 1) interpolation coefficients: ``gp_alpha`` when set
-        (then cleared), else a draw of the CPU generator."""
+        (then cleared), else a draw of the CPU generator, for the global
+        batch of world x ``b``, of which this rank takes its slice."""
         alpha, self.gp_alpha = self.gp_alpha, None
         if alpha is None:
-            alpha = torch.rand((b, 1, 1, 1), generator=self.gp_generator)
+            alpha = torch.rand((b * self.world, 1, 1, 1),
+                               generator=self.gp_generator)
         else:
             alpha = torch.tensor(np.asarray(alpha), dtype=torch.float32)
+        if self.world > 1:
+            alpha = alpha[self.rank * b:(self.rank + 1) * b]
         return alpha.to(self.device)
 
     def _d_update(self, gt, fake):
@@ -421,6 +445,7 @@ class RefRestorationModel(SRModel):
             total = total + l_gp
             logs['l_grad_penalty'] = l_gp.detach()
         total.backward()
+        self.sync_gradients(self.net_d.parameters())
         self.schedules.step('d')
         return logs
 

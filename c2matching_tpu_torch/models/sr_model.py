@@ -1,17 +1,19 @@
 """The validation loop of the SR models.
 
 Counterpart of the evaluation half of ``c2matching_tpu/models/
-sr_model.py``: ``validation`` (one process; the process-sharded
-``dist_validation`` waits for multi-GPU) runs ``_validation_loop``, which
-takes every image through the subclass's ``_validation_images``,
-optionally saves the result, averages the metrics of
-``_compute_val_metrics`` (named by ``_VAL_METRIC_LABELS``) and logs them
-in the JAX package's format; ``_save_val_image`` writes the PNG where the
-reference does.
+sr_model.py``: ``nondist_validation`` and, at world size > 1,
+``dist_validation`` run ``_validation_loop``, which takes every image (or
+rank r's, every world-th from r) through the subclass's
+``_validation_images``, optionally saves the result, averages the metrics
+of ``_compute_val_metrics`` (named by ``_VAL_METRIC_LABELS``; the sums and
+the count all-reduced over the ranks) and logs them in the JAX package's
+format, to tensorboard too when a writer is given; ``_save_val_image``
+writes the PNG where the reference does.
 """
 import logging
 import os.path as osp
 
+from ..parallel import allreduce_sum_across_processes
 from ..utils import ProgressBar, imwrite
 from .base_model import BaseModel
 
@@ -23,20 +25,29 @@ class SRModel(BaseModel):
 
     _VAL_LOG_PER_IMAGE = False
 
-    def validation(self, dataloader, current_iter, tb_logger,
-                   save_img=False):
+    def nondist_validation(self, dataloader, current_iter, tb_logger,
+                           save_img=False):
         """{metric: average} of the model on ``dataloader``."""
         return self._validation_loop(dataloader, current_iter, tb_logger,
                                      save_img)
 
+    def dist_validation(self, dataloader, current_iter, tb_logger,
+                        save_img=False):
+        """The same averages, each rank scoring every world-th image."""
+        return self._validation_loop(dataloader, current_iter, tb_logger,
+                                     save_img, rank=self.rank,
+                                     world=self.world)
+
     def _validation_loop(self, dataloader, current_iter, tb_logger,
-                         save_img):
+                         save_img, rank=0, world=1):
         pbar = ProgressBar(len(dataloader))
         dataset_name = dataloader.dataset.opt['name']
         names = list(self._VAL_METRIC_LABELS)
         sums = {k: 0. for k in names}
         count = 0
-        for val_data in dataloader:
+        for idx, val_data in enumerate(dataloader):
+            if idx % world != rank:
+                continue
             img_name = osp.splitext(
                 osp.basename(val_data['lq_path'][0]))[0]
             sr_img, gt_img = self._validation_images(val_data)
@@ -52,6 +63,11 @@ class SRModel(BaseModel):
                     f'# {self._VAL_METRIC_LABELS[k]}: {vals[k]:.4e}'
                     for k in names) + '.')
             pbar.update(f'Test {img_name}')
+        if world > 1:
+            vec = allreduce_sum_across_processes(
+                [sums[k] for k in names] + [count])
+            sums = dict(zip(names, (float(v) for v in vec[:-1])))
+            count = float(vec[-1])
         avgs = {k: sums[k] / max(count, 1) for k in names}
         logger.info(f'# Validation {dataset_name} ' + ' '.join(
             f'# {self._VAL_METRIC_LABELS[k]}: {avgs[k]:.4e}'

@@ -45,7 +45,7 @@ class StudentContrasDistillationModel(ContrasModel):
         self.distill_weight = train_opt['distill_weight']
         self.temperature = train_opt['temperature']
 
-    def _losses(self):
+    def _losses(self, **opts):
         with torch.no_grad():
             t_out = self.net_teacher(self.batch['img_in'],
                                      self.batch['img_ref'])
@@ -56,6 +56,6 @@ class StudentContrasDistillationModel(ContrasModel):
             t_out['dense_features1'], t_out['dense_features2'],
             self.batch['transformed_coordinate'],
             temperature=self.temperature, distill_weight=self.distill_weight,
-            **self._loss_opts())
+            **{**self._loss_opts(), **opts})
         return {'loss': loss, 'pos_dist': pos, 'neg_dist': neg,
                 'distill_loss': distill, 'n_valid': n_ok}

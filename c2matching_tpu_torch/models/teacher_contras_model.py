@@ -12,6 +12,14 @@ mean loss, positive and negative distance over a loader.
 ``ContrasModel`` holds what stages 1 and 2 share: the loss options,
 the optimizer and schedule count of the trained net, the step, the
 validation loop, ``save`` and ``resume_training``.
+
+At world size > 1 (``parallel/``) each rank takes its slice of the global
+batch; the loss divides by the count of samples over the 128 gate in the
+global batch and hands each rank its share, world x its samples' sum over
+that count, so that the ranks' mean is the global loss and the averaged
+gradients (``sync_gradients``) are the global batch's; ``log_dict``
+holds the global values. Validation runs on every process, as the JAX
+package's ``dist_validation`` does.
 """
 import copy
 import logging
@@ -19,6 +27,7 @@ import os.path as osp
 
 import torch
 
+from .. import parallel
 from ..utils import ProgressBar
 from .base_model import BaseModel, ScheduleCounts, make_adam
 from .contras_losses import triplet_loss_batch
@@ -43,6 +52,8 @@ class ContrasModel(BaseModel):
         super().__init__(opt, device)
         self._build_nets(
             torch.Generator().manual_seed(opt.get('manual_seed') or 0))
+        parallel.broadcast_parameters(*(getattr(self, n)
+                                        for n in self.net_names))
         self.batch = None
         self._last_eval = None
         if self.is_train:
@@ -54,7 +65,8 @@ class ContrasModel(BaseModel):
         path_opt = self.opt.get('path') or {}
         if path_opt.get(key):
             self.load_network(net, path_opt[key],
-                              path_opt.get('strict_load', True) is not False)
+                              path_opt.get('strict_load', True) is not False,
+                              kind='extractor')
 
     def init_training_settings(self):
         train_opt = self.opt['train']
@@ -75,7 +87,7 @@ class ContrasModel(BaseModel):
 
     def _loss_opts(self):
         return {'margin': self.margin, 'safe_radius': self.safe_radius,
-                'scaling_steps': self.scaling_steps}
+                'scaling_steps': self.scaling_steps, 'world': self.world}
 
     def feed_data(self, batch):
         """Move the batch's NHWC float arrays (``batch_keys``) to the
@@ -87,14 +99,17 @@ class ContrasModel(BaseModel):
         self.optimizer_g.zero_grad(set_to_none=True)
         logs = self._losses()
         logs['loss'].backward()
+        self.sync_gradients(self.trained.parameters())
         self.schedules.step('g')
-        self.log_dict = {k: v.detach() for k, v in logs.items()}
+        self.log_dict = self.global_logs(
+            {k: v.detach() for k, v in logs.items()})
 
     def float64_grads(self, batch):
         """(logs, {name: gradient}) of the step's losses on ``batch`` from
         the weights as they stand, in float64: copies of the nets (their
         convs computing in double) on the batch in double. The weights are
-        not updated. The yardstick of a float32 step's gradients."""
+        not updated. The yardstick of a float32 step's gradients. At world
+        size > 1: the global batch's logs and gradients."""
         m = copy.copy(self)
         for name in self.net_names:
             net = copy.deepcopy(getattr(self, name)).double()
@@ -107,22 +122,27 @@ class ContrasModel(BaseModel):
         m.batch = {k: v.double() for k, v in m.batch.items()}
         logs = m._losses()
         logs['loss'].backward()
-        return ({k: float(v.detach()) for k, v in logs.items()},
+        m.sync_gradients(m.trained.parameters())
+        logs = m.global_logs({k: v.detach() for k, v in logs.items()})
+        return ({k: float(v) for k, v in logs.items()},
                 {k: p.grad for k, p in m.trained.named_parameters()})
 
     @torch.no_grad()
     def test(self):
-        self._last_eval = self._losses()
+        """The losses of the fed batch, this process's alone."""
+        self._last_eval = self._losses(world=1)
 
-    def validation(self, dataloader, current_iter, tb_logger,
-                   save_img=False):
-        """{name: mean} of the losses of ``val_labels`` over
-        ``dataloader`` (one process)."""
+    def dist_validation(self, dataloader, current_iter, tb_logger,
+                        save_img=False):
+        """Every process validates the whole set, as the JAX package's
+        contrastive models do."""
         return self.nondist_validation(dataloader, current_iter, tb_logger,
                                        save_img)
 
     def nondist_validation(self, dataloader, current_iter, tb_logger,
                            save_img=False):
+        """{name: mean} of the losses of ``val_labels`` over
+        ``dataloader``."""
         pbar = ProgressBar(len(dataloader))
         totals = {k: 0. for k in self.val_labels}
         count = 0
@@ -141,7 +161,8 @@ class ContrasModel(BaseModel):
             f'# {label}: {totals[k]:.4e}'
             for k, label in self.val_labels.items()) + '.')
         if tb_logger:
-            tb_logger.add_scalar('loss_val', totals['loss'], current_iter)
+            for k, label in self.val_labels.items():
+                tb_logger.add_scalar(label, totals[k], current_iter)
         return totals
 
     def save(self, epoch, current_iter):
@@ -168,10 +189,11 @@ class TeacherContrasModel(ContrasModel):
         self.print_network(self.net_g)
         self.trained = self.net_g
 
-    def _losses(self):
+    def _losses(self, **opts):
         out = self.net_g(self.batch['img_in'], self.batch['img_ref'])
         loss, pos, neg, n_ok = triplet_loss_batch(
             out['dense_features1'], out['dense_features2'],
-            self.batch['transformed_coordinate'], **self._loss_opts())
+            self.batch['transformed_coordinate'],
+            **{**self._loss_opts(), **opts})
         return {'loss': loss, 'pos_dist': pos, 'neg_dist': neg,
                 'n_valid': n_ok}

@@ -10,6 +10,10 @@ serving forward (``RefRestorationModel.feed_data`` / ``test`` /
         -opt options/test/test_C2_matching_serving.yml --batch 16 \
         [--out results/<name>_serve] [--device cpu]
 
+    python -m torch.distributed.run --nproc_per_node <cards> \
+        -m c2matching_tpu_torch.scripts.serve -opt <config>.yml \
+        --batch 16 --launcher pytorch
+
 Items whose (padded LR, original GT) shapes differ land in different
 buckets; a bucket flushes when it holds ``--batch`` items, and the
 partial buckets flush at the end, padded by repeating their last item
@@ -18,6 +22,12 @@ to 16 LR pixels and shares one valid shape across it, which holds
 because a bucket holds one LR shape. Items are decoded and preprocessed
 (PNG decode, the PIL bicubic chain) on two threads, at most 2 x batch
 ahead, so host work overlaps the card's.
+
+Under ``--launcher pytorch`` (or ``slurm``; ``parallel/``) every rank
+reads and buckets the whole stream, so each batch keeps the one-process
+composition and padding, and rank r runs and writes the flushes whose
+index modulo the world size is r, on the card ``LOCAL_RANK``. Rank 0 logs
+the images of all ranks over the slowest rank's time.
 
 The images/s line of ``serve.log`` is END-TO-END: decode, the bicubic
 chain, the card's forward and the PNG encode. The model runs on the CUDA
@@ -34,8 +44,12 @@ import os.path as osp
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import torch.distributed as dist
+
 from ..data import create_dataset, default_collate
 from ..models import create_model
+from ..parallel import (LAUNCHERS, allreduce_max_across_processes,
+                        allreduce_sum_across_processes, init_distributed)
 from ..utils import dict_to_nonedict, get_root_logger, imwrite, tensor2img
 from ..utils.options import parse
 
@@ -107,16 +121,30 @@ def main(argv=None):
                         help='output dir (default results/<name>_serve)')
     parser.add_argument('--device', default='cuda',
                         help="torch device of the model (default: the CUDA "
-                             "card; 'cpu' runs on the CPU)")
+                             "card, under a launcher the card LOCAL_RANK; "
+                             "'cpu' runs on the CPU)")
+    parser.add_argument('--launcher', choices=LAUNCHERS, default='none',
+                        help='job launcher of a multi-process run')
+    parser.add_argument('--local_rank', type=int, default=0)
     args = parser.parse_args(argv)
-    opt = dict_to_nonedict(parse(args.opt, is_train=False))
+    if args.launcher == 'pytorch':
+        os.environ.setdefault('LOCAL_RANK', str(args.local_rank))
+    opt = parse(args.opt, is_train=False)
+    rank, world, device = init_distributed(opt, args.launcher, args.device)
+    try:
+        _serve(dict_to_nonedict(opt), args, rank, world, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _serve(opt, args, rank, world, device):
     out_dir = args.out or osp.join('results', f"{opt['name']}_serve")
     os.makedirs(out_dir, exist_ok=True)
     logger = get_root_logger(logger_name='base', log_level=logging.INFO,
                              log_file=osp.join(out_dir, 'serve.log'))
 
-    model = create_model(opt, args.device)
+    model = create_model(opt, device)
 
     test_phases = sorted(p for p in opt['datasets'] if p.startswith('test'))
     for phase in test_phases:
@@ -136,12 +164,16 @@ def main(argv=None):
         served = 0
         with ThreadPoolExecutor(max_workers=2) as pool:
             stream = _prefetched(dataset, n, pool, window=2 * args.batch)
-            for items, names in bucket_batches(stream, args.batch):
-                served += _flush(model, items, names, phase_dir,
-                                 args.batch, logger)
-        dt = time.time() - t0
+            for i, (items, names) in enumerate(
+                    bucket_batches(stream, args.batch)):
+                if i % world == rank:
+                    served += _flush(model, items, names, phase_dir,
+                                     args.batch, logger)
+        dt = allreduce_max_across_processes(time.time() - t0)
+        served = int(allreduce_sum_across_processes([served])[0])
         logger.info(f'{served} images in {dt:.1f}s end-to-end '
-                    f'({served / dt:.2f} img/s incl. host decode/PIL; '
+                    f'({served / dt:.2f} img/s incl. host decode/PIL'
+                    f'{f" over {world} ranks" if world > 1 else ""}; '
                     'see scripts/profile_serving.py for the card alone)')
 
 

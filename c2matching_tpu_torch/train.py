@@ -1,7 +1,10 @@
 """Training entry point of the port, the counterpart of ``mmsr/train.py``:
 
     python -m c2matching_tpu_torch.train -opt options/train/<config>.yml \
-        [--device cpu]
+        [--device cpu] [--launcher {none,pytorch,slurm}]
+
+    python -m torch.distributed.run --nproc_per_node <cards> \
+        -m c2matching_tpu_torch.train -opt <config>.yml --launcher pytorch
 
 Parses the options file (``is_train``), seeds ``random``, ``np.random``
 and torch's default generator from ``train.manual_seed``, builds the
@@ -14,14 +17,25 @@ end. ``path.resume_state`` (a ``<iter>.state`` file) resumes: the nets
 from that iteration's ``.pth`` files, the optimizers and schedule counts
 from the state. SIGTERM or SIGINT saves a resumable checkpoint and
 returns. Outputs go under ``experiments/<name>/`` (or
-``$C2MATCHING_ROOT``). The model runs on the CUDA card unless ``--device``
-names another device; with no card it raises rather than fall back to the
-CPU. One process on one device: multi-GPU, ``use_tb_logger`` (outside
-debug runs) and ``logger.trace_dir`` are not ported and raise.
+``$C2MATCHING_ROOT``); ``use_tb_logger: true`` (outside debug names) adds
+scalar event files under ``tb_logger/<name>/`` there. The model runs on
+the CUDA card unless ``--device`` names another device; with no card it
+raises rather than fall back to the CPU. ``logger.trace_dir`` is not
+ported and raises.
+
+``--launcher pytorch`` (torchrun's environment) or ``slurm`` runs one
+process a card (``parallel/``; ``dist_params.backend`` ``ici`` is NCCL on
+the card and gloo with ``--device cpu``): each process loads
+``batch_size // world`` items a step through its share of the sampler
+(built whenever the run is distributed), the models average their
+gradients over the processes, rank 0 alone makes the experiment
+directories and writes the log file, the checkpoints and the event files,
+and the other ranks log errors only.
 """
 import argparse
 import logging
 import math
+import os
 import os.path as osp
 import random
 import signal
@@ -29,11 +43,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data import create_dataloader, create_dataset, create_train_sampler
 from .models import create_model
+from .parallel import LAUNCHERS, init_distributed
 from .utils import (MessageLogger, check_resume, dict2str, dict_to_nonedict,
-                    get_root_logger, make_exp_dirs)
+                    get_root_logger, init_tb_logger, make_exp_dirs)
 from .utils.options import parse
 
 
@@ -50,12 +66,14 @@ def _loaders(opt, seed, logger):
             total_epochs = int(math.ceil(total_iters / train_size))
             sampler = None
             enlarge = dataset_opt.get('dataset_enlarge_ratio', 1) or 1
-            if enlarge > 1:
-                sampler = create_train_sampler(train_set, dataset_opt)
+            world, rank = opt['world_size'], opt['rank']
+            if opt['dist'] or enlarge > 1:
+                sampler = create_train_sampler(train_set, dataset_opt, world,
+                                               rank)
                 total_epochs = int(
                     math.ceil(total_iters / (train_size * enlarge)))
-            train_loader = create_dataloader(train_set, dataset_opt, sampler,
-                                             seed=seed)
+            train_loader = create_dataloader(train_set, dataset_opt, world,
+                                             rank, sampler, seed=seed)
             logger.info(f'Number of train images: {len(train_set)}, '
                         f'iters: {train_size}')
             logger.info(f'Total epochs needed: {total_epochs} for iters '
@@ -73,28 +91,52 @@ def _loaders(opt, seed, logger):
     return train_loader, val_loader, total_epochs
 
 
-def run(opt_path, device='cuda'):
-    """Train the model of ``opt_path``. Returns the model."""
+def run(opt_path, device='cuda', launcher='none'):
+    """Train the model of ``opt_path`` (in the process group of
+    ``launcher``, which the run leaves at its end). Returns the model."""
     opt = parse(opt_path, is_train=True)
+    rank, world, device = init_distributed(opt, launcher, device)
+    try:
+        return _train(opt, rank, world, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(opt, rank, world, device):
+    """The run's directories, logs and tensorboard writer, then the
+    loop."""
+    opt['dist'] = world > 1
+    opt['rank'], opt['world_size'] = rank, world
     resume_state_path = opt['path'].get('resume_state')
     if resume_state_path:
         check_resume(opt, osp.splitext(osp.basename(resume_state_path))[0])
-    else:
+    elif rank == 0:
         make_exp_dirs(opt)
+    if world > 1:
+        dist.barrier()
     stamp = time.strftime('%Y%m%d_%H%M%S', time.localtime())
     log_file = osp.join(opt['path']['log'], f"train_{opt['name']}_{stamp}.log")
     logger = get_root_logger(logger_name='base', log_level=logging.INFO,
                              log_file=log_file)
     logger.info(dict2str(opt))
-    if opt.get('use_tb_logger') and 'debug' not in opt['name']:
-        raise NotImplementedError(
-            'use_tb_logger: the tensorboard logger is not ported; set '
-            'use_tb_logger: false')
     if (opt.get('logger') or {}).get('trace_dir'):
         raise NotImplementedError('logger.trace_dir: the profiler window is '
                                   'not ported')
+    tb_logger = None
+    if opt.get('use_tb_logger') and 'debug' not in opt['name'] and rank == 0:
+        tb_logger = init_tb_logger(
+            osp.join(opt['path']['root'], 'tb_logger', opt['name']))
     opt = dict_to_nonedict(opt)
+    try:
+        return _loop(opt, device, resume_state_path, logger, tb_logger)
+    finally:
+        if tb_logger is not None:
+            tb_logger.close()
 
+
+def _loop(opt, device, resume_state_path, logger, tb_logger):
+    """Seeds, loaders and model, then the iterations. Returns the model."""
     seed = opt['train']['manual_seed']
     if seed is None:
         seed = random.randint(1, 10000)
@@ -112,7 +154,7 @@ def run(opt_path, device='cuda'):
                     f'iter: {current_iter}.')
     else:
         start_epoch, current_iter = 0, 0
-    msg_logger = MessageLogger(opt, current_iter)
+    msg_logger = MessageLogger(opt, current_iter, tb_logger)
     logger.info(f'Start training from epoch: {start_epoch}, iter: '
                 f'{current_iter}')
 
@@ -160,7 +202,7 @@ def run(opt_path, device='cuda'):
                     msg_logger(log_vars)
                 if (val_loader is not None
                         and current_iter % opt['val']['val_freq'] == 0):
-                    model.validation(val_loader, current_iter, None,
+                    model.validation(val_loader, current_iter, tb_logger,
                                      opt['val']['save_img'])
                 if current_iter % opt['logger']['save_checkpoint_freq'] == 0:
                     logger.info('Saving models and training states.')
@@ -185,9 +227,17 @@ def main(argv=None):
                         help='Path to option YAML file.')
     parser.add_argument('--device', default='cuda',
                         help="torch device of the model (default: the CUDA "
-                             "card; 'cpu' runs on the CPU)")
+                             "card, under a launcher the card LOCAL_RANK; "
+                             "'cpu' runs on the CPU)")
+    parser.add_argument('--launcher', choices=LAUNCHERS, default='none',
+                        help='job launcher of a multi-process run')
+    parser.add_argument('--local_rank', type=int, default=0,
+                        help='the local rank, where the launcher passes it '
+                             'as an argument rather than LOCAL_RANK')
     args = parser.parse_args(argv)
-    run(args.opt, args.device)
+    if args.launcher == 'pytorch':
+        os.environ.setdefault('LOCAL_RANK', str(args.local_rank))
+    run(args.opt, args.device, args.launcher)
 
 
 if __name__ == '__main__':

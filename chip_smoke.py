@@ -86,13 +86,16 @@ Phases:
   9. contras: stages 1 and 2 of training (the contrastive correspondence
      network) through `python -m c2matching_tpu_torch.train`'s run() on the
      card with options/train/stage1_teacher_contras_network.yml and
-     stage2_student_contras_network.yml as they are (ContrasExtractorSep,
+     stage2_student_contras_network.yml as they are but for data roots and
+     iteration counts, run from the outputs' root (ContrasExtractorSep,
      batch 8 at gt 160, Adam 1e-3, margin 1, safe radius 4; distill weight
      15, temperature 0.15) on a 10-pair 160-px synth set read through
      ContrasDataset: 3 iterations each, then one validation pass of
      ContrasValDataset over a CUFED5-shaped 332x500 image through a
-     one-line annotation file. Stage 2's teacher is stage 1's
-     net_g_latest.pth. Checks every loss finite, every sample through the
+     one-line annotation file. Stage 2's teacher is the flax .ckpt its
+     options name, which the port resolves to the net_g_latest.pth stage 1
+     wrote beside it. Checks the tensorboard event files
+     (use_tb_logger: true), every loss finite, every sample through the
      128-correspondence gate (n_valid 8), every parameter of the trained
      net moved, the teacher bit for bit unchanged, the checkpoints and
      .state files; prints ms per iteration (first and later apart), peak
@@ -107,9 +110,10 @@ Phases:
  10. train: `python -m c2matching_tpu_torch.train`'s run() on the card with
      options/train/stage3_restoration_gan.yml at full width (ngf 64, 16
      blocks, 8 groups, D ndf 32, VGG19 relu5_1 perceptual, WGAN-GP) and its
-     batch of 9 at gt 160, on a 10-pair 160-px synth set with stage 2's
-     net_student_latest.pth (phase contras; without it the phase raises) as
-     its pretrain_model_feature_extractor, so that the card runs the three
+     batch of 9 at gt 160, on a 10-pair 160-px synth set, from phase
+     contras' outputs' root, where its pretrain_model_feature_extractor,
+     stage 2's .ckpt, resolves to the net_student_latest.pth phase contras
+     wrote (without it the phase raises), so that the card runs the three
      stages in a chain: 2 G-pretrain and 3 GAN iterations, the
      launch counters at 0 before the run. Checks the losses are finite,
      every LR group and D moved, B3's forward and backward launched (the
@@ -124,7 +128,29 @@ Phases:
      (ngf 16, 2 blocks, ndf 4, batch 2 at gt 64) on the card against the
      same steps on the CPU (plain versions) from the same weights: losses
      and G gradients.
- 12. serve: batch serving and the tools. export_serving of the serving
+ 12. dist: data parallelism over torch.distributed, on the shipped
+     stage3_restoration_gan.yml at full width (1 pretrain + 2 GAN
+     iterations): (i) `python -m torch.distributed.run --nproc_per_node 1`
+     running the train CLI with --launcher pytorch over NCCL (a child that
+     turns TF32 off and cuDNN's deterministic algorithms on, as this
+     process does for its run, and replays the batches this process's
+     run() was fed) against run() in process: the nets within 1e-6 (bit
+     for bit expected), the gradient all-reduce's ms a call; (ii) two
+     ranks sharing the card over gloo (dist_params.backend: gloo in the
+     options' copy; c2matching_tpu_torch.scripts.dist_step) at a global
+     batch of 8, 4 a rank, against one process on the same batches, each
+     of its steps from the two ranks' state before it: the averaged
+     gradients within 1e-3 (G) and 5e-2 (D: float32 cancellation in its
+     first conv, see DIST_GRAD_REL) of each net's largest, the logs within
+     1e-3, D's running statistics before its Adam step within 1e-6, the
+     parameters after Adam within 2 x LR x Adam's reach at that step; ms a
+     step and peak memory of each rank (not a scaling number: both share
+     the card); the stage-1 options in float64 (float64_grads, two
+     batches of 8): the logs and gradients within 1e-12; (iii) the serve CLI at two ranks (gloo, the
+     card shared) against one process at batch 2 on phase eval's sets:
+     the same files within one uint8 step. Each kernel of the training
+     path must launch in (i) and (ii).
+ 13. serve: batch serving and the tools. export_serving of the serving
      config at batch 2, HR 512x336 (the graph's operator calls, the
      export's seconds and the .pt2's MB); the artifact is loaded and run in
      a fresh process that cannot import c2matching_tpu_torch.models and
@@ -146,7 +172,7 @@ Phases:
      torch.ops. Last bench_train (stage 3 GAN, stage 1) and profile_train
      at full width: one JSON line each with the JAX version's keys,
      finite, and the B3 backward launched in stage 3.
- 13. one JSON line of kernels, the card's line, and last the JSON result.
+ 14. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -257,6 +283,33 @@ class Checks:
         if not ok:
             self.failed.append(what)
         return ok
+
+
+@contextlib.contextmanager
+def _in_dir(path):
+    """Run the block with ``path`` as the working directory."""
+    import os
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def _check_events(check, root, name, tags, what):
+    """``use_tb_logger: true`` wrote one event file under
+    ``root``/tb_logger/``name`` naming each of ``tags``."""
+    import os
+    tb_dir = f'{root}/tb_logger/{name}'
+    files = sorted(os.listdir(tb_dir)) if os.path.isdir(tb_dir) else []
+    data = b''
+    for fname in files:
+        with open(f'{tb_dir}/{fname}', 'rb') as f:
+            data += f.read()
+    check(len(files) == 1 and all(t.encode() in data for t in tags),
+          f'{what}: tensorboard event file under tb_logger/{name} '
+          f'({len(data)} bytes) holds {", ".join(tags)}')
 
 
 def card_line():
@@ -1725,20 +1778,22 @@ CONTRAS_GRAD32_REL = 1e-3  # the card's float32 gradients against the CPU's
                            # the card, 7.6e-4 for the CPU's float32 step)
 
 
-def _contras_options(stage, root, teacher=None):
+def _contras_options(stage, root, backend=None):
     """The shipped stage-1 or stage-2 options with the dataroots under
     ``root`` (the 160-px synth set to train on, the CUFED5-shaped image and
-    its one-line annotation file to validate on), the teacher path, and
-    CONTRAS_ITERS iterations: a log line each, validation and checkpoints
-    at the last, no tensorboard. Widths, batch (8), gt size (160), losses
-    and LRs are the files' own."""
+    its one-line annotation file to validate on) and CONTRAS_ITERS
+    iterations: a log line each, validation and checkpoints at the last.
+    Everything else is the file's own: widths, batch (8), gt size (160),
+    losses, LRs, ``use_tb_logger: true`` and stage 2's teacher, the flax
+    ``.ckpt`` path the JAX package writes, which the port resolves to the
+    ``.pth`` stage 1 wrote beside it (run from the outputs' root).
+    ``backend``: the ``dist_params.backend`` of phase dist's copy."""
     import os.path as osp
     name = CONTRAS_OPTIONS[stage]
     with open(osp.join(osp.dirname(osp.abspath(__file__)), name)) as f:
         text = f.read()
     n = CONTRAS_ITERS
     swaps = [
-        ('use_tb_logger: true', 'use_tb_logger: false'),
         ('./datasets/CUFED/input', f'{root}/synth/input'),
         ('./datasets/CUFED/ref', f'{root}/synth/ref'),
         ('dataroot_in: ./datasets/CUFED5',
@@ -1755,9 +1810,9 @@ def _contras_options(stage, root, teacher=None):
                   ('val_freq: !!float 5e3', f'val_freq: {n}')]
     else:
         swaps += [('niter: 75000', f'niter: {n}'),
-                  ('val_freq: !!float 1e3', f'val_freq: {n}'),
-                  ('./experiments/stage1_teacher_contras_network/models/'
-                   'net_g_latest.ckpt', teacher)]
+                  ('val_freq: !!float 1e3', f'val_freq: {n}')]
+    if backend:
+        swaps.append(('backend: ici', f'backend: {backend}'))
     for old, new in swaps:
         if old not in text:
             raise ValueError(f'{name} has no {old!r}')
@@ -1881,7 +1936,7 @@ def _contras_loss_ms(model, b, stage, card):
             'extract_fb_ms': ext_fb, 'step_ms': step}
 
 
-def _contras_stage(check, stage, root, card, teacher=None):
+def _contras_stage(check, stage, root, card):
     """Stage ``stage`` through train.run on the card: the checks, the
     printed times and peaks. Returns the model, its run's outputs
     directory and its last training batch."""
@@ -1889,7 +1944,7 @@ def _contras_stage(check, stage, root, card, teacher=None):
     from c2matching_tpu_torch.train import run
     path = f'{root}/stage{stage}.yml'
     with open(path, 'w') as f:
-        f.write(_contras_options(stage, root, teacher))
+        f.write(_contras_options(stage, root))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _timed_contras() as rec:
@@ -1925,6 +1980,8 @@ def _contras_stage(check, stage, root, card, teacher=None):
           f'contras stage {stage}: checkpoints {saved}, states {states}')
     check(len(rec['val']) == 1, f'contras stage {stage}: '
           f'{len(rec["val"])} validation pass(es)')
+    _check_events(check, f'{root}/out', model.opt['name'],
+                  ('loss', 'loss_val'), f'contras stage {stage}')
     times = [1e3 * it['s'] for it in iters]
     print(f'contras stage {stage} ({CONTRAS_OPTIONS[stage]}), batch '
           f'{CONTRAS_BATCH} at gt 160, full width: first iteration '
@@ -2058,22 +2115,26 @@ def phase_contras(check, dev, report, card, root):
     synth.write_dataset(f'{root}/synth', n=10, size=(160,))
     synth.write_dataset(f'{root}/cufed5', n=1, size=CONTRAS_VAL_HW)
     os.environ['C2MATCHING_ROOT'] = f'{root}/out'
+    os.makedirs(f'{root}/out', exist_ok=True)
+    # the shipped stage-2 options name stage 1's output by a path relative
+    # to the working directory
     try:
-        model, exp, batch = _contras_stage(check, 1, root, card)
-        report['contras_stage1'] = _contras_loss_ms(model, batch, 1, card)
-        teacher = f'{exp}/models/net_g_latest.pth'
-        del model, batch
-        model, exp, batch = _contras_stage(check, 2, root, card, teacher)
-        saved = torch.load(teacher, map_location='cpu', weights_only=True)
-        now = model.net_teacher.state_dict()
-        check(all(torch.equal(saved[k], now[k].cpu()) for k in saved)
-              and not any(p.requires_grad
-                          for p in model.net_teacher.parameters()),
-              'contras stage 2: the teacher is bit for bit stage 1\'s '
-              'net_g_latest.pth after the run, and frozen')
-        report['contras_stage2'] = _contras_loss_ms(model, batch, 2, card)
-        report['student_pth'] = f'{exp}/models/net_student_latest.pth'
-        del model, batch
+        with _in_dir(f'{root}/out'):
+            model, exp, batch = _contras_stage(check, 1, root, card)
+            report['contras_stage1'] = _contras_loss_ms(model, batch, 1, card)
+            teacher = f'{exp}/models/net_g_latest.pth'
+            del model, batch
+            model, exp, batch = _contras_stage(check, 2, root, card)
+            saved = torch.load(teacher, map_location='cpu', weights_only=True)
+            now = model.net_teacher.state_dict()
+            check(all(torch.equal(saved[k], now[k].cpu()) for k in saved)
+                  and not any(p.requires_grad
+                              for p in model.net_teacher.parameters()),
+                  'contras stage 2: the teacher is bit for bit stage 1\'s '
+                  'net_g_latest.pth after the run, and frozen')
+            report['contras_stage2'] = _contras_loss_ms(model, batch, 2, card)
+            report['student_pth'] = f'{exp}/models/net_student_latest.pth'
+            del model, batch
     finally:
         del os.environ['C2MATCHING_ROOT']
     torch.cuda.empty_cache()
@@ -2088,33 +2149,35 @@ TRAIN_ANN = """    io_backend:
     gt_size: 160"""
 
 
-def _train_options(root, extractor):
-    """stage3_restoration_gan.yml for the synth set under ``root``: its
-    networks, losses, batch (9) and gt size (160) as they are; 2 + 3
-    iterations, a log line each and a checkpoint at the end, no
-    tensorboard."""
+def _train_options(root, pretrain=TRAIN_PRETRAIN, gan=TRAIN_GAN,
+                   backend=None):
+    """stage3_restoration_gan.yml for the synth set under ``root``:
+    ``pretrain`` + ``gan`` iterations, a log line each and a checkpoint at
+    the end. Everything else is the file's own: networks, losses, batch (9),
+    gt size (160), ``use_tb_logger: true`` and the extractor, the flax
+    ``.ckpt`` path of stage 2's student, which the port resolves to the
+    ``.pth`` phase contras wrote beside it (run from its outputs' root).
+    ``backend``: the ``dist_params.backend`` of phase dist's copy."""
     import os.path as osp
     here = osp.dirname(osp.abspath(__file__))
     with open(osp.join(here, TRAIN_OPTIONS)) as f:
         text = f.read()
-    swaps = (
-        ('use_tb_logger: true', 'use_tb_logger: false'),
+    swaps = [
         ('./datasets/CUFED/input', f'{root}/input'),
         ('./datasets/CUFED/ref', f'{root}/ref'),
         ('./datasets/CUFED5_pairs.txt', f'{root}/pairs.txt'),
         ('dataroot_in: ./datasets/CUFED5', f'dataroot_in: {root}/input'),
         ('dataroot_ref: ./datasets/CUFED5', f'dataroot_ref: {root}/ref'),
-        ('./experiments/stage2_student_contras_network/models/'
-         'net_student_latest.ckpt', extractor),
-        ('niter: 255000', f'niter: {TRAIN_PRETRAIN + TRAIN_GAN}'),
-        ('net_g_pretrain_steps: 10000',
-         f'net_g_pretrain_steps: {TRAIN_PRETRAIN}'),
+        ('niter: 255000', f'niter: {pretrain + gan}'),
+        ('net_g_pretrain_steps: 10000', f'net_g_pretrain_steps: {pretrain}'),
         ('print_freq: 100', 'print_freq: 1'),
         ('save_checkpoint_freq: !!float 5e3',
-         f'save_checkpoint_freq: {TRAIN_PRETRAIN + TRAIN_GAN}'),
+         f'save_checkpoint_freq: {pretrain + gan}'),
         # the train block reads its pairs from the annotation file too
         (TRAIN_ANN, TRAIN_ANN.replace(
-            '\n\n', f'\n    ann_file: {root}/pairs.txt\n\n')))
+            '\n\n', f'\n    ann_file: {root}/pairs.txt\n\n'))]
+    if backend:
+        swaps.append(('backend: ici', f'backend: {backend}'))
     for old, new in swaps:
         if old not in text:
             raise ValueError(f'{TRAIN_OPTIONS} has no {old!r}')
@@ -2161,7 +2224,7 @@ def _timed_iterations():
         RefRestorationModel.optimize_parameters = real
 
 
-def phase_train(check, dev, report, card):
+def phase_train(check, dev, report, card, chain_root):
     import os
     import tempfile
     from c2matching_tpu_torch.ops import (deform_conv_backward,
@@ -2170,19 +2233,20 @@ def phase_train(check, dev, report, card):
     from c2matching_tpu_torch.train import run
     with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as root:
         synth.write_dataset(f'{root}/synth', n=10, size=(160,))
-        # stage 2's student, trained by phase contras
+        # stage 2's student, trained by phase contras: the shipped path is
+        # relative to phase contras' outputs' root
         extractor = report['student_pth']
-        print(f'train: pretrain_model_feature_extractor {extractor}',
-              flush=True)
+        print(f'train: pretrain_model_feature_extractor resolves to '
+              f'{extractor}', flush=True)
         path = f'{root}/train.yml'
         with open(path, 'w') as f:
-            f.write(_train_options(f'{root}/synth', extractor))
+            f.write(_train_options(f'{root}/synth'))
         os.environ['C2MATCHING_ROOT'] = f'{root}/out'
         for counter in (deform_im2col, deform_conv_backward, match_argmax):
             counter.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with _timed_iterations() as rec:
+        with _timed_iterations() as rec, _in_dir(f'{chain_root}/out'):
             run(path)
         wall = time.perf_counter() - t0
         launches = {'match_argmax': match_argmax.launches,
@@ -2192,6 +2256,8 @@ def phase_train(check, dev, report, card):
         del os.environ['C2MATCHING_ROOT']
         saved = sorted(os.listdir(f'{root}/out/experiments/'
                                   'stage3_restoration_gan/models'))
+        _check_events(check, f'{root}/out', 'stage3_restoration_gan',
+                      ('l_pix', 'l_g_gan'), 'train')
 
     iters = rec['iters']
     n_iters = TRAIN_PRETRAIN + TRAIN_GAN
@@ -2370,6 +2436,456 @@ def phase_train_cpu(check, dev):
                   f'{TRAIN_CPU_REL:g} x {top:.3g}')
             del models, card, cpu
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ dist
+DIST_PRETRAIN, DIST_GAN = 1, 2   # stage-3 iterations of phase dist's runs
+DIST_BATCH = 8           # the two-rank runs' global batch, 4 a rank
+DIST_CONTRAS_ITERS = 2   # stage-1 batches of the two-rank run (float64)
+DIST_PARAM_TOL = 1e-6    # NCCL at world size 1 vs in process: the nets
+                         # after the same iterations on the same batches
+DIST_GRAD_REL = {'net_g': 1e-3, 'net_d': 5e-2}
+                         # two ranks vs one process, stage 3 in float32:
+                         # every averaged gradient, of its net's largest.
+                         # The CPU test holds 1e-5 at gt 64. At gt 160 and
+                         # batch 8, D's first conv weight's float32 gradient
+                         # (BatchNorm's backward cancels its terms over 2e5
+                         # pixels) is off its float64 value by 9.4e-4 of D's
+                         # largest (CPU, D's init), and the two runs' parted
+                         # by up to 6.3e-3 of it on the card, G's by 8.8e-5
+                         # (measured). Each rank's own BatchNorm statistics
+                         # in place of the global ones move D's by 0.64-1.86
+                         # of it (a mutated copy, CPU test)
+DIST_LOG_REL = 1e-3      # each logged value, relative: G's GAN term reads
+                         # D after its Adam step, whose parameters part by
+                         # up to 2 x LR where a gradient is rounding noise
+DIST_REL64 = 1e-12       # stage 1 in float64 (float64_grads), two ranks vs
+                         # one process: the logs and every gradient leaf
+                         # (test (d) of tests/test_torch_parallel_contras.py)
+DIST_STATS_TOL = 1e-6    # D's running statistics before D's Adam step
+# the train CLI under torch.distributed.run, TF32 off and cuDNN's
+# deterministic algorithms (as the in-process run), fed the batches the
+# in-process run was fed, timing each gradient all-reduce
+DIST_TRAIN_CHILD = """
+import json, os, runpy, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from c2matching_tpu_torch.models.base_model import BaseModel
+from c2matching_tpu_torch.models.ref_restoration_model import \
+    RefRestorationModel
+replay = iter(torch.load(os.environ['CHIP_SMOKE_REPLAY'], weights_only=False))
+feed = RefRestorationModel.feed_data
+RefRestorationModel.feed_data = lambda self, batch: feed(self, next(replay))
+sync = BaseModel.sync_gradients
+spent, backend = [], []
+
+def timed(params):
+    backend.append(torch.distributed.get_backend())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync(params)
+    torch.cuda.synchronize()
+    spent.append(1e3 * (time.perf_counter() - t0))
+
+BaseModel.sync_gradients = staticmethod(timed)
+sys.argv = ['c2matching_tpu_torch.train'] + sys.argv[1:]
+runpy.run_module('c2matching_tpu_torch.train', run_name='__main__')
+from c2matching_tpu_torch import ops
+print(json.dumps({'allreduce_ms': spent, 'backends': sorted(set(backend)),
+                  'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+                  'launches': {k: getattr(ops, k).launches for k in (
+                      'match_argmax', 'deform_im2col',
+                      'deform_conv_backward')}}), flush=True)
+"""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+_DIST_PROCS = []   # phase dist's processes, each in a session of its own
+
+
+def _stop(proc):
+    """End ``proc`` and every process it started (torchrun's workers)."""
+    import os
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _spawn(cmd, cwd, env=None):
+    """Start ``cmd`` with the checkout on the path, its output in a file
+    (a pipe that fills would stall a rank inside a collective). Returns a
+    function that waits for it: (return code, output, seconds)."""
+    import os
+    import os.path as osp
+    here = osp.dirname(osp.abspath(__file__))
+    log = tempfile.TemporaryFile('w+')
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=log,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=here,
+                                     **(env or {})))
+    _DIST_PROCS.append(proc)
+
+    def wait(timeout=400):
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            _stop(proc)
+        log.seek(0)
+        text = log.read()
+        log.close()
+        return proc.returncode, text, time.perf_counter() - t0
+
+    return wait
+
+
+def _torchrun(n, *args):
+    return [sys.executable, '-m', 'torch.distributed.run',
+            '--nproc_per_node', str(n), '--master_port', str(_free_port()),
+            *args]
+
+
+def _rank_lines(text):
+    return sorted((json.loads(line) for line in text.splitlines()
+                   if line.startswith('{"rank"')), key=lambda r: r['rank'])
+
+
+def _dist_done(check, what, result):
+    rc, text, wall = result
+    if not check(rc == 0, f'{what}: exit {rc} ({wall:.1f} s)'):
+        print(text[-3000:], flush=True)
+    return rc == 0, text
+
+
+def _dist_counters():
+    from c2matching_tpu_torch.ops import (deform_conv_backward,
+                                          deform_im2col, match_argmax)
+    return match_argmax, deform_im2col, deform_conv_backward
+
+
+def _dist_nccl(check, card, root, chain_out):
+    """(i) The train CLI under torch.distributed.run at world size 1 over
+    NCCL against run() in process, on the same batches: the nets after the
+    same iterations. Returns the batches."""
+    import os
+    from c2matching_tpu_torch.models.ref_restoration_model import \
+        RefRestorationModel
+    from c2matching_tpu_torch.train import run
+    path = f'{root}/stage3.yml'
+    with open(path, 'w') as f:
+        f.write(_train_options(f'{root}/synth', DIST_PRETRAIN, DIST_GAN))
+    seen = []
+    feed = RefRestorationModel.feed_data
+
+    def record(self, batch):
+        seen.append(dict(batch))
+        return feed(self, batch)
+
+    RefRestorationModel.feed_data = record
+    os.environ['C2MATCHING_ROOT'] = f'{root}/one'
+    torch.backends.cudnn.deterministic = True
+    for counter in _dist_counters():
+        counter.launches = 0
+    try:
+        with _in_dir(chain_out):
+            model = run(path)
+        _dist_launches(check, 'dist (i) in process',
+                       {c.__name__: c.launches for c in _dist_counters()})
+    finally:
+        RefRestorationModel.feed_data = feed
+        torch.backends.cudnn.deterministic = False
+        del os.environ['C2MATCHING_ROOT']
+    want = {'net_g': model.net_g.state_dict(),
+            'net_d': model.net_d.state_dict()}
+    del model
+    torch.save(seen, f'{root}/batches.pt')
+    with open(f'{root}/launch_train.py', 'w') as f:
+        f.write(DIST_TRAIN_CHILD)
+    ok, text = _dist_done(check, 'dist (i) torch.distributed.run, 1 process, '
+                          'NCCL', _spawn(
+                              _torchrun(1, f'{root}/launch_train.py', '-opt',
+                                        path, '--launcher', 'pytorch'),
+                              chain_out,
+                              {'C2MATCHING_ROOT': f'{root}/nccl',
+                               'CHIP_SMOKE_REPLAY': f'{root}/batches.pt'})())
+    if not ok:
+        return seen
+    rec = _json_line(text)
+    check(rec.get('backends') == ['nccl'], f'dist (i): the gradients '
+          f'all-reduced over {rec.get("backends")}')
+    models = f'{root}/nccl/experiments/stage3_restoration_gan/models'
+    worst, exact = 0., True
+    for label, state in want.items():
+        got = torch.load(f'{models}/{label}_latest.pth', weights_only=True)
+        for k, v in state.items():
+            if not v.is_floating_point():
+                continue
+            diff = float((got[k].float() - v.cpu().float()).abs().max())
+            worst = max(worst, diff)
+            exact = exact and torch.equal(got[k], v.cpu())
+    check(worst <= DIST_PARAM_TOL, f'dist (i): G and D after {DIST_PRETRAIN} '
+          f'pretrain + {DIST_GAN} GAN iterations at world size 1 over NCCL '
+          f'within {worst:.3g} <= {DIST_PARAM_TOL:g} of the in-process run '
+          f'({"bit for bit" if exact else "not bit for bit"})')
+    _dist_launches(check, 'dist (i) NCCL process', rec.get('launches', {}))
+    ms = rec.get('allreduce_ms', [])
+    check(len(ms) == DIST_PRETRAIN + 2 * DIST_GAN, f'dist (i): {len(ms)} '
+          'gradient all-reduces (G a pretrain iteration, D and G a GAN one)')
+    print(f'dist (i) NCCL, world size 1, stage3_restoration_gan.yml at full '
+          f'width, batch 9 at gt 160: gradient all-reduce (G 8.9 M and D '
+          f'parameters, flattened) {", ".join(f"{v:.3f}" for v in ms)} ms a '
+          f'call, synchronised; peak {rec.get("peak_gib", float("nan")):.2f} '
+          f'GiB ({card})', flush=True)
+    return seen
+
+
+def _dist_records(root, name):
+    return [torch.load(f'{root}/{name}/rank{r}.pt', weights_only=False)
+            for r in range(2)]
+
+
+def _adam_reach(t, betas=(0.9, 0.999)):
+    """The largest |m_hat| / sqrt(v_hat) of Adam at its step ``t`` over all
+    gradient histories (Cauchy-Schwarz on the bias-corrected moments): 1 at
+    the first step, 1.0014 at the second, 1.0036 at the third."""
+    b1, b2 = betas
+    return math.sqrt(sum(
+        ((1 - b1) * b1 ** (t - i) / (1 - b1 ** t)) ** 2
+        / ((1 - b2) * b2 ** (t - i) / (1 - b2 ** t)) for i in range(1, t + 1)))
+
+
+def _dist_compare(check, what, one, ranks, lr_of, grad_rel=DIST_GRAD_REL,
+                  log_rel=DIST_LOG_REL):
+    """Two ranks' records against one process's, each step from the same
+    state (``run_steps``' ``follow``): every averaged gradient within
+    ``grad_rel[net]`` of its net's largest, the logs within ``log_rel``, D's
+    running statistics before its Adam step within DIST_STATS_TOL, the
+    parameters after Adam equal on the two ranks and within what two Adam
+    steps of opposite sign can part them, 2 x LR x ``_adam_reach(step)``
+    (a gradient of rounding noise may take either sign; Adam's moments,
+    not carried over by ``follow``, hold the earlier steps' signs), plus
+    the parameter's float32 rounding."""
+    for step, (want, got, got1) in enumerate(zip(one, *ranks), start=1):
+        tag = f'{what} step {step}'
+        for label, grads in want['grads'].items():
+            top = max(float(g.abs().max()) for g in grads.values())
+            err, name = max((float((got['grads'][label][k] - g).abs().max()),
+                             k) for k, g in grads.items())
+            check(top > 0 and err <= grad_rel[label] * top,
+                  f'{tag}: {label} gradients, averaged over the ranks, '
+                  f'within {err:.3g} <= {grad_rel[label]:g} x {top:.3g} '
+                  f'({name})')
+        rel, name = max((abs(got['logs'].get(k, math.inf) - v)
+                         / max(abs(v), 1e-30), k)
+                        for k, v in want['logs'].items())
+        check(set(got['logs']) == set(want['logs']) and rel <= log_rel,
+              f'{tag}: the global batch\'s logs within {rel:.3g} <= '
+              f'{log_rel:g} relative ({name})')
+        if want['d_stats'] is not None:
+            stats = [k for k in want['d_stats'] if k.startswith('conv')
+                     and k.endswith(('running_mean', 'running_var'))]
+            err = max(float((got['d_stats'][k] - want['d_stats'][k])
+                            .abs().max()) for k in stats)
+            check(len(stats) == 20 and err <= DIST_STATS_TOL,
+                  f'{tag}: D\'s running statistics before its Adam step '
+                  f'(the global batch\'s) within {err:.3g} <= '
+                  f'{DIST_STATS_TOL:g}')
+        worst, same = 0., True
+        reach = 2 * _adam_reach(step)
+        for label, params in want['params'].items():
+            for k, p in params.items():
+                diff = (got['params'][label][k] - p).abs()
+                ulp = 2. ** -23 * float(p.abs().max())
+                worst = max(worst, float(diff.max() - ulp) / lr_of(label, k))
+                same = same and torch.equal(got['params'][label][k],
+                                            got1['params'][label][k])
+        check(worst <= reach and same, f'{tag}: parameters after Adam within '
+              f'{worst:.6g} x LR <= {reach:.6g} x LR of one process (less '
+              f'float32 rounding); the two ranks equal: {same}')
+
+
+def _dist_launches(check, what, launches):
+    """Each kernel of the training path launched in the run (counts from 0
+    before it)."""
+    names = ('match_argmax', 'deform_im2col', 'deform_conv_backward')
+    check(all(launches.get(k, 0) > 0 for k in names),
+          f'{what}: kernel launches over the run {launches}')
+
+
+def _dist_timing(check, what, text, card, kernels=True):
+    lines = _rank_lines(text)
+    check(len(lines) == 2 and all(r['world'] == 2 for r in lines),
+          f'{what}: two ranks reported')
+    for r in lines:
+        if kernels:
+            _dist_launches(check, f'{what}, rank {r["rank"]}',
+                           r['launches'])
+        ms = ', '.join(f'{s["ms"]:.1f}' for s in r['steps'])
+        reduce_ms = ', '.join(f'{s["allreduce_ms"]:.1f}' for s in r['steps'])
+        print(f'{what}, rank {r["rank"]}: ms a step {ms}, of which gradient '
+              f'all-reduce {reduce_ms} (host clock, synchronised; both ranks '
+              f'share the card: not a scaling number); peak '
+              f'{r["peak_gib"]:.2f} GiB ({card})', flush=True)
+
+
+def _dist_serve(root):
+    """(iii) The serve CLI at two ranks (over gloo, sharing the card) and
+    one process, at batch 2, on phase eval's sets. Returns the outputs'
+    directories and the waits."""
+    _eval_data(root)
+    path = f'{root}/serve.yml'
+    with open(path, 'w') as f:
+        f.write(_eval_options(EVAL_OPTIONS[1][1], root, _eval_weights(root),
+                              ('synth', 'cufed'))
+                + '\ndist_params:\n  backend: gloo\n')
+    args = ['-opt', path, '--batch', '2', '--out']
+    outs = {2: f'{root}/served_2ranks', 1: f'{root}/served_1'}
+    waits = {2: _spawn(_torchrun(2, '-m', 'c2matching_tpu_torch.scripts.serve',
+                                 *args, outs[2], '--launcher', 'pytorch'),
+                       root),
+             1: _spawn([sys.executable, '-m',
+                        'c2matching_tpu_torch.scripts.serve', *args,
+                        outs[1]], root)}
+    return outs, waits
+
+
+def _dist_serve_check(check, card, outs, waits):
+    import os
+    import re
+    import numpy as np
+    from c2matching_tpu_torch.utils import png
+    for n, wait in waits.items():
+        if not _dist_done(check, f'dist (iii) serve, {n} rank(s)', wait())[0]:
+            return
+        with open(f'{outs[n]}/serve.log') as f:
+            for line in re.findall(r'\d+ images in .*', f.read()):
+                print(f'dist (iii) serve at batch 2, {n} rank(s): {line} '
+                      f'({card})', flush=True)
+    worst, count = 0, 0
+    for name in ('synth', 'cufed'):
+        files = {n: sorted(os.listdir(f'{outs[n]}/{name}')) for n in outs}
+        check(files[2] == files[1] and files[1], f'dist (iii) serve {name}: '
+              f'two ranks write {files[2]}, one process {files[1]}')
+        for fname in files[1]:
+            imgs = []
+            for n in (2, 1):
+                with open(f'{outs[n]}/{name}/{fname}', 'rb') as f:
+                    imgs.append(png.decode(f.read()).astype(np.int16))
+            worst = max(worst, int(np.abs(imgs[0] - imgs[1]).max()))
+            count += 1
+    check(worst <= SERVE_CLI_STEPS, f'dist (iii) serve: {count} PNGs of two '
+          f'ranks within {worst} <= {SERVE_CLI_STEPS} uint8 step of one '
+          'process\'s')
+
+
+def phase_dist(check, dev, report, card, chain_root):
+    """(i) NCCL at world size 1 against the in-process run; (ii) two ranks
+    sharing the card over gloo against one process (stage 3, then stage 1
+    beside (iii)); (iii) serve at two ranks against one process."""
+    import os
+    import random
+    import numpy as np
+    from c2matching_tpu_torch.data import create_dataset, default_collate
+    from c2matching_tpu_torch.models.ref_restoration_model import (group_lrs,
+                                                                   lr_group)
+    from c2matching_tpu_torch.scripts import dist_step
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    from c2matching_tpu_torch.utils import dict_to_nonedict
+    from c2matching_tpu_torch.utils.options import parse
+    chain_out = f'{chain_root}/out'
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dist_') as root, \
+            contextlib.ExitStack() as stack:
+        stack.callback(lambda: [_stop(p) for p in _DIST_PROCS])
+        synth.write_dataset(f'{root}/synth', n=10, size=(160,))
+        synth.write_dataset(f'{root}/cufed5', n=1, size=CONTRAS_VAL_HW)
+        batches = _dist_nccl(check, card, root, chain_out)
+        t1 = time.perf_counter()
+
+        # (ii) stage 3: the first DIST_BATCH items of each recorded batch
+        batches = [{k: v[:DIST_BATCH] if isinstance(v, np.ndarray) else v
+                    for k, v in b.items()} for b in batches]
+        torch.save(batches, f'{root}/batches3.pt')
+        s3 = f'{root}/stage3_gloo.yml'
+        with open(s3, 'w') as f:
+            f.write(_train_options(f'{root}/synth', DIST_PRETRAIN, DIST_GAN,
+                                   backend='gloo'))
+        ok, text = _dist_done(check, 'dist (ii) stage 3, 2 ranks on the card '
+                              'over gloo', _spawn(_torchrun(
+                                  2, '-m', 'c2matching_tpu_torch.scripts.'
+                                  'dist_step', '-opt', s3, '--batches',
+                                  f'{root}/batches3.pt', '--out',
+                                  f'{root}/gloo3', '--launcher', 'pytorch'),
+                                  chain_out)())
+        if ok:
+            _dist_timing(check, f'dist (ii) stage3_restoration_gan.yml, full '
+                         f'width, {DIST_BATCH // 2} a rank at gt 160',
+                         text, card)
+        t2 = time.perf_counter()
+
+        # (ii) stage 1 and (iii) serve at once; the references meanwhile
+        s1 = f'{root}/stage1_gloo.yml'
+        with open(s1, 'w') as f:
+            f.write(_contras_options(1, root, backend='gloo'))
+        opt1 = dict_to_nonedict(parse(s1, is_train=True))
+        data = create_dataset(opt1['datasets']['train'])
+        contras = []
+        for k in range(DIST_CONTRAS_ITERS):
+            random.seed(k)
+            contras.append(default_collate([data[i]
+                                            for i in range(DIST_BATCH)]))
+        torch.save(contras, f'{root}/batches1.pt')
+        wait1 = _spawn(_torchrun(2, '-m', 'c2matching_tpu_torch.scripts.'
+                                 'dist_step', '-opt', s1, '--batches',
+                                 f'{root}/batches1.pt', '--out',
+                                 f'{root}/gloo1', '--launcher', 'pytorch',
+                                 '--float64'), root)
+        outs, waits = _dist_serve(f'{root}/serve')
+        if ok:
+            # one process, each step from the two ranks' state before it
+            opt3 = dict_to_nonedict(parse(s3, is_train=True))
+            gloo3 = _dist_records(root, 'gloo3')
+            with _in_dir(chain_out):
+                one3, _ = dist_step.run_steps(opt3, batches, dev,
+                                              follow=gloo3[0])
+            lrs = group_lrs(opt3['train'])
+            _dist_compare(
+                check, 'dist (ii) stage 3', one3, gloo3,
+                lambda label, k: (opt3['train']['lr_d'] if label == 'net_d'
+                                  else lrs[lr_group(k)]))
+            del one3, gloo3
+        one1, _ = dist_step.run_steps(opt1, contras, dev, float64=True)
+        ok1, text1 = _dist_done(check, 'dist (ii) stage 1 in float64, 2 '
+                                'ranks on the card over gloo', wait1())
+        if ok1:
+            _dist_timing(check, f'dist (ii) stage1_teacher_contras_network.yml'
+                         f' float64_grads, {DIST_BATCH // 2} a rank at gt 160 '
+                         '(beside (iii))', text1, card, kernels=False)
+            _dist_compare(check, 'dist (ii) stage 1 (float64)', one1,
+                          _dist_records(root, 'gloo1'),
+                          lambda label, k: opt1['train']['lr_g'],
+                          grad_rel={'net_g': DIST_REL64},
+                          log_rel=DIST_REL64)
+            check(all(r['logs']['n_valid'] == DIST_BATCH
+                      for r in _dist_records(root, 'gloo1')[0]),
+                  f'dist (ii) stage 1: n_valid {DIST_BATCH}, the global '
+                  'batch\'s count')
+        _dist_serve_check(check, card, outs, waits)
+        del one1
+    torch.cuda.empty_cache()
+    print(f'dist phase seconds: (i) {t1 - t0:.1f}, (ii) stage 3 '
+          f'{t2 - t1:.1f}, (ii) stage 1 with (iii) and the references '
+          f'{time.perf_counter() - t2:.1f}', flush=True)
 
 
 # ------------------------------------------------------------------ serve
@@ -2951,8 +3467,11 @@ def main():
                 ('b3bwd', lambda: phase_b3_backward(check, dev, card)),
                 ('contras', lambda: phase_contras(check, dev, report, card,
                                                   chain_root)),
-                ('train', lambda: phase_train(check, dev, report, card)),
+                ('train', lambda: phase_train(check, dev, report, card,
+                                              chain_root)),
                 ('train_cpu', lambda: phase_train_cpu(check, dev)),
+                ('dist', lambda: phase_dist(check, dev, report, card,
+                                            chain_root)),
                 ('serve', lambda: phase_serve(check, dev, report, card))):
             try:
                 fn()

@@ -129,7 +129,7 @@ def test_train_loader_batches_equal_jax(synth_root, with_sampler):
     opt = _train_opt(synth_root, 64, flip=False, rot=False)
     dataset = create_dataset(opt)
     sampler = create_train_sampler(dataset, opt) if with_sampler else None
-    loader = create_dataloader(dataset, opt, sampler, seed=10)
+    loader = create_dataloader(dataset, opt, sampler=sampler, seed=10)
     ref = JaxLoader(JaxDataset(dict(opt)), batch_size=3,
                     sampler=JaxSampler(4, ratio=5) if with_sampler else None,
                     shuffle=not with_sampler, num_workers=2, drop_last=True,
