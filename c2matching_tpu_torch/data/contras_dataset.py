@@ -7,7 +7,9 @@ transformed coordinate grid that gives the triplet loss its ground truth.
 The cv2 calls are the port's own (``data/warp.py``). Randomness comes
 from the global ``np.random`` and ``random`` states, with the same calls
 in the same order as the JAX package; the validation pool of homographies
-is drawn from ``RandomState(0)``. Disk backend only.
+is drawn from ``RandomState(0)``. With ``io_backend: {type: lmdb}`` the
+pairs are the two databases' shared keys, sorted, and every image is read
+through the client key 'in', as in the JAX package.
 """
 import numpy as np
 
@@ -15,7 +17,7 @@ from ..utils.util import imfrombytes
 from .file_client import FileClient
 from .transforms import augment, mod_crop, to_rgb_hwc
 from .util import (paired_paths_from_ann_file, paired_paths_from_folder,
-                   pil_chain_lq_up)
+                   paired_paths_from_lmdb, pil_chain_lq_up)
 from .warp import get_perspective_transform, resize_cubic, warp_perspective
 
 
@@ -65,20 +67,19 @@ def transformed_coordinate_grid(h_inverse, gt_h, gt_w):
 class _ContrasBase:
     """opt keys: dataroot_in, dataroot_ref, io_backend, filename_tmpl,
     ann_file, scale, and in train gt_size, use_flip, use_rot. The ref
-    folder only pairs the paths: both images of an item come from the
-    input image."""
+    folder (or database) only pairs the paths: both images of an item come
+    from the input image."""
 
     def __init__(self, opt):
         self.opt = opt
         self.file_client = None
         self.io_backend_opt = dict(opt['io_backend'])
-        if self.io_backend_opt['type'] != 'disk':
-            raise ValueError(
-                f'{type(self).__name__}: io_backend '
-                f"{self.io_backend_opt['type']!r} is not ported; the port "
-                "reads from 'disk'")
         folders = [opt['dataroot_in'], opt['dataroot_ref']]
-        if opt.get('ann_file'):
+        if self.io_backend_opt['type'] == 'lmdb':
+            self.io_backend_opt['db_paths'] = folders
+            self.io_backend_opt['client_keys'] = ['in', 'ref']
+            self.paths = paired_paths_from_lmdb(folders, ['in', 'ref'])
+        elif opt.get('ann_file'):
             self.paths = paired_paths_from_ann_file(folders, ['in', 'ref'],
                                                     opt['ann_file'])
         else:

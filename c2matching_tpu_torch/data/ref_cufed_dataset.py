@@ -9,6 +9,11 @@ zero-pad input and ref to a common size when they differ. Then the
 PIL-bicubic down x1/scale and back up chain with its uint8 round trips.
 Output arrays are HWC RGB float32. In val / test, ``img_in`` is the input
 before the pad, and ``lq_path`` is the ref path, as in the JAX package.
+
+With ``io_backend: {type: lmdb}`` the two dataroots are ``*.lmdb``
+databases (``scripts/create_cufed_lmdb.py``): the pairs are their shared
+keys, sorted, and the input and the ref are read through the client keys
+'in' and 'ref'.
 """
 import numpy as np
 
@@ -16,7 +21,8 @@ from ..utils.util import imfrombytes, impad
 from .file_client import FileClient
 from .transforms import augment, mod_crop, to_rgb_hwc
 from .util import (paired_paths_from_ann_file, paired_paths_from_folder,
-                   pil_bicubic_resize, pil_chain_lq_up)
+                   paired_paths_from_lmdb, pil_bicubic_resize,
+                   pil_chain_lq_up)
 
 
 class RefCUFEDDataset:
@@ -27,15 +33,17 @@ class RefCUFEDDataset:
         self.opt = opt
         self.file_client = None
         self.io_backend_opt = dict(opt['io_backend'])
-        if self.io_backend_opt['type'] != 'disk':
-            raise ValueError(
-                f"RefCUFEDDataset: io_backend {self.io_backend_opt['type']!r}"
-                " is not ported; the port reads from 'disk'")
         self.in_folder = opt['dataroot_in']
         self.ref_folder = opt['dataroot_ref']
         self.filename_tmpl = opt.get('filename_tmpl') or '{}'
 
-        if opt.get('ann_file'):
+        if self.io_backend_opt['type'] == 'lmdb':
+            self.io_backend_opt['db_paths'] = [self.in_folder,
+                                               self.ref_folder]
+            self.io_backend_opt['client_keys'] = ['in', 'ref']
+            self.paths = paired_paths_from_lmdb(
+                [self.in_folder, self.ref_folder], ['in', 'ref'])
+        elif opt.get('ann_file'):
             self.paths = paired_paths_from_ann_file(
                 [self.in_folder, self.ref_folder], ['in', 'ref'],
                 opt['ann_file'])

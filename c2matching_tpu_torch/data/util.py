@@ -2,8 +2,8 @@
 
 Counterpart of ``c2matching_tpu/data/util.py`` (``scandir``,
 ``paired_paths_from_ann_file``, ``paired_paths_from_folder``,
-``pil_bicubic_resize``, ``pil_chain_lq_up``, and the MATLAB bicubic
-``imresize_np`` of the back-projection tool). The PIL bicubic resampling
+``paired_paths_from_lmdb``, ``pil_bicubic_resize``, ``pil_chain_lq_up``,
+and the MATLAB bicubic ``imresize_np`` of the back-projection tool). The PIL bicubic resampling
 is the port's own bit-exact copy (``data/pil_resize.py``); the uint8
 round trips around it are the JAX package's, so every array is the same
 bit for bit.
@@ -75,6 +75,33 @@ def paired_paths_from_folder(folders, keys, filename_tmpl='{}'):
             f'{ref_key}_path': osp.join(ref_folder, ref_path),
         })
     return paths
+
+
+def paired_paths_from_lmdb(folders, keys):
+    """Keys of two lmdb databases as pairs: each database's keys are the
+    first token of each line of its ``meta_info.txt`` with the extension
+    stripped; both folders must end in ``.lmdb`` and hold the same keys.
+    Returns the pairs in sorted key order."""
+    if len(folders) != 2 or len(keys) != 2:
+        raise ValueError('paired paths take two folders and two keys')
+    input_folder, ref_folder = folders
+    input_key, ref_key = keys
+    if not (input_folder.endswith('.lmdb') and ref_folder.endswith('.lmdb')):
+        raise ValueError(
+            f'{input_key} folder and {ref_key} folder should both in lmdb '
+            f'formats. But received {input_key}: {input_folder}; '
+            f'{ref_key}: {ref_folder}')
+
+    def meta_keys(folder):
+        with open(osp.join(folder, 'meta_info.txt')) as fin:
+            return [line.split()[0].split('.')[0] for line in fin
+                    if line.strip()]
+
+    input_keys = meta_keys(input_folder)
+    if set(input_keys) != set(meta_keys(ref_folder)):
+        raise ValueError('Keys in input_folder and ref_folder are different.')
+    return [{f'{input_key}_path': k, f'{ref_key}_path': k}
+            for k in sorted(input_keys)]
 
 
 def pil_bicubic_resize(img_bgr, size_wh):

@@ -8,8 +8,15 @@ out. Parameters carry the reference's torch names (``conv_block{i}.{0,1,
 pth_import.py::import_discriminator`` reads.
 
 Init (srntt): conv weights normal(0, 0.02), zero biases, BN scale
-N(1, 0.02) and zero shift, all from an explicit ``torch.Generator``. It
-computes in float32: the JAX package's ``dtype`` field is not ported.
+N(1, 0.02) and zero shift, all from an explicit ``torch.Generator``.
+
+``dtype`` (None is float32) is the compute dtype, as the JAX package's
+``dtype`` field: the parameters and the BatchNorm's running statistics
+stay float32; each conv casts its input, weight and bias to ``dtype``;
+BatchNorm reduces its statistics from the input taken to float32,
+normalizes, scales and shifts in float32 and casts the result to
+``dtype``, as flax's ``nn.BatchNorm`` does with a ``dtype``; the global
+mean, the activations and the score stay in ``dtype``.
 
 BatchNorm is the JAX package's (flax ``nn.BatchNorm``, momentum 0.9,
 epsilon 1e-5), not torch's: in train mode it normalizes by the batch's
@@ -32,12 +39,15 @@ import torch
 from torch import nn
 
 from ... import parallel
+from ...ops.patch_match import as_dtype
 from .arch_util import lrelu
 
 
 def _moments(x):
-    """(mean, biased variance) per channel of NCHW ``x``: the local batch's
-    at world size 1, the global batch's above."""
+    """(mean, biased variance) per channel of NCHW ``x``, in float32 (or
+    float64 for a float64 ``x``): the local batch's at world size 1, the
+    global batch's above."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     if parallel.get_world_size() == 1:
         mean = x.mean(dim=(0, 2, 3))
         return mean, ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.)
@@ -70,11 +80,26 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
                     self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
-                + self.bias[None, :, None, None])
+                + self.bias[None, :, None, None]).to(x.dtype)
 
 
-def _conv(cin, cout, ksize, stride, generator):
-    layer = nn.Conv2d(cin, cout, ksize, stride=stride, padding=ksize // 2)
+class _Conv(nn.Conv2d):
+    """NCHW convolution computed in ``compute_dtype`` from float32
+    parameters."""
+
+    def __init__(self, cin, cout, ksize, stride, compute_dtype):
+        super().__init__(cin, cout, ksize, stride=stride,
+                         padding=ksize // 2)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt))
+
+
+def _conv(cin, cout, ksize, stride, generator, dtype):
+    layer = _Conv(cin, cout, ksize, stride, dtype)
     with torch.no_grad():
         layer.weight.normal_(0.0, 0.02, generator=generator)
         layer.bias.zero_()
@@ -92,21 +117,23 @@ def _bn(channels, generator):
 class ImageDiscriminator(nn.Module):
     """Stage-3 discriminator (see module docstring)."""
 
-    def __init__(self, in_nc=3, ndf=32, generator=None):
+    def __init__(self, in_nc=3, ndf=32, generator=None, dtype=None):
         super().__init__()
+        dt = as_dtype(dtype) or torch.float32
         channels, cin = ndf, in_nc
         for i in range(1, 6):
             setattr(self, f'conv_block{i}', nn.Sequential(
-                _conv(cin, channels, 3, 1, generator),
+                _conv(cin, channels, 3, 1, generator, dt),
                 _bn(channels, generator), nn.LeakyReLU(0.2),
-                _conv(channels, channels, 3, 2, generator),
+                _conv(channels, channels, 3, 2, generator, dt),
                 _bn(channels, generator), nn.LeakyReLU(0.2)))
             cin = channels
             if i < 5:
                 channels *= 2
         self.out_block = nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), _conv(channels, 1024, 1, 1, generator),
-            nn.LeakyReLU(0.2), _conv(1024, 1, 1, 1, generator), nn.Sigmoid())
+            nn.AdaptiveAvgPool2d(1),
+            _conv(channels, 1024, 1, 1, generator, dt), nn.LeakyReLU(0.2),
+            _conv(1024, 1, 1, 1, generator, dt), nn.Sigmoid())
 
     def forward(self, x, update_stats=True):
         """x: (B, H, W, in_nc). Returns the (B, 1, 1, 1) score."""

@@ -154,12 +154,19 @@ class PerceptualLoss(nn.Module):
     None when its weight is 0. The VGG's parameters are frozen; the JAX
     package draws them from its seeded init, and ``generator`` draws them
     here. Inputs are ImageNet-normalized (``use_input_norm``, the only
-    setting ported); the VGG computes in float32 (the JAX loss's ``dtype``
-    is not ported)."""
+    setting ported).
+
+    ``dtype`` (None is float32; a name such as 'bfloat16' as the JAX
+    loss's ``perceptual_opt`` hands it) is the VGG's compute dtype: its
+    parameters stay float32 and its features come out in ``dtype``. The
+    criteria reduce as the JAX loss's ``jnp.mean`` / ``jnp.sum`` do: the
+    difference in ``dtype``, the mean or sum accumulated in float32 and
+    rounded to ``dtype`` (the fro norm's square root after it), so the
+    loss is a ``dtype`` scalar."""
 
     def __init__(self, layer_weights, vgg_type='vgg19', use_input_norm=True,
                  perceptual_weight=1.0, style_weight=0.0, norm_img=False,
-                 criterion='l1', generator=None):
+                 criterion='l1', generator=None, dtype=None):
         super().__init__()
         if not use_input_norm:
             raise NotImplementedError('PerceptualLoss: use_input_norm false '
@@ -173,18 +180,20 @@ class PerceptualLoss(nn.Module):
         self.norm_img = norm_img
         self.criterion = criterion
         self.vgg = VGGFeatureExtractor(list(self.layer_weights), vgg_type,
-                                       generator=generator)
+                                       generator=generator, dtype=dtype)
         self.vgg.requires_grad_(False)
 
     def _crit(self, a, b):
+        acc = torch.promote_types(a.dtype, torch.float32)
         if self.criterion == 'l1':
-            return (a - b).abs().mean()
+            return (a - b).abs().mean(dtype=acc).to(a.dtype)
         if self.criterion == 'l2':
-            return ((a - b) ** 2).mean()
+            return ((a - b) ** 2).mean(dtype=acc).to(a.dtype)
         # torch.norm(..., p='fro') over the whole tensor; at world size > 1
         # over the global batch (the squares summed over the ranks, through
         # the differentiable all-reduce, so each rank holds the global norm)
-        return torch.sqrt(parallel.all_reduce_sum(((a - b) ** 2).sum()))
+        return torch.sqrt(parallel.all_reduce_sum(
+            ((a - b) ** 2).sum(dtype=acc)).to(a.dtype))
 
     def forward(self, x, gt):
         if self.norm_img:

@@ -33,8 +33,29 @@ by name ('offset' x 'small' / 'medium', the JAX package's
 one group, scheduled, its count starting at ``net_g_pretrain_steps``. The
 gradient-penalty coefficients come from a CPU ``torch.Generator`` seeded
 with ``manual_seed`` (so the card and the CPU draw the same), or from
-``gp_alpha`` when a caller sets it (used once). ``train.remat_policy``
-other than 'none' is not ported: the whole graph is kept.
+``gp_alpha`` when a caller sets it (used once).
+
+``train.remat_policy`` sets what the GAN iteration's G forward keeps for
+its backward, as ``jax.checkpoint`` over the same forward does in the JAX
+package (``torch.utils.checkpoint`` with a selective-checkpoint policy;
+the D update, whose gradient penalty differentiates twice, stays outside
+it; the G-pretrain step keeps its whole graph, as in the JAX package):
+
+- 'none' (the default): the whole graph;
+- 'dcn_rows': only the outputs of ``torch.ops.c2matching.deform_im2col``
+  (B3's columns, the JAX package's ``checkpoint_name(rows, 'dcn_rows')``);
+  the backward recomputes the rest of the forward and takes the columns
+  from the saved ones, so B3's forward does not launch again;
+- 'dots': the outputs of the convolutions and matrix products
+  (``aten.convolution``, ``mm``, ``bmm``, ``addmm``: the counterpart of
+  ``dots_with_no_batch_dims_saveable``); the rest, B3 included, is
+  recomputed.
+
+The outputs do not depend on the policy. The JAX package defaults to
+'dcn_rows' because a 16 GB TPU ran out of memory at batch 9 with the
+whole graph; an 80 GB H100 holds it (a GAN iteration at batch 9, gt 160
+peaks below 10 GiB), so the port keeps 'none' when the key is unset and
+PERF.md lists each policy's peak and step time.
 
 At world size > 1 (``parallel/``) each rank feeds its slice of the global
 batch: the nets start from rank 0's weights, every backward is followed
@@ -45,11 +66,14 @@ slice, and ``log_dict`` holds the global batch's values. The top-level
 ``val_spatial_shard`` option (batch-1 evaluation split into image bands
 across devices) raises there; at world size 1 it changes nothing.
 """
+import functools
 import logging
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import parallel
 from ..utils import metrics, tensor2img
@@ -98,6 +122,21 @@ def lr_group(name):
             return 'relu2_offset'
         return 'offset'
     return 'g'
+
+
+def remat_saved_ops(policy):
+    """The operators whose outputs the G forward keeps under the
+    ``train.remat_policy`` ``policy`` (the rest is recomputed); None for
+    'none', which keeps the whole graph."""
+    aten = torch.ops.aten
+    saved = {'none': None,
+             'dcn_rows': [torch.ops.c2matching.deform_im2col.default],
+             'dots': [aten.convolution.default, aten.mm.default,
+                      aten.bmm.default, aten.addmm.default]}
+    if policy not in saved:
+        raise ValueError(f'train.remat_policy {policy!r}: expected one of '
+                         f'{list(saved)}')
+    return saved[policy]
 
 
 def group_lrs(train_opt):
@@ -275,10 +314,8 @@ class RefRestorationModel(SRModel):
         options' ``train`` block (and ``network_d``)."""
         train_opt = self.opt['train']
         path_opt = self.opt.get('path') or {}
-        if (train_opt.get('remat_policy') or 'none') != 'none':
-            raise NotImplementedError(
-                f"train.remat_policy {train_opt['remat_policy']!r} is not "
-                "ported: the port keeps the whole graph ('none')")
+        self.remat_policy = train_opt.get('remat_policy') or 'none'
+        remat_saved_ops(self.remat_policy)      # refuses an unknown name
         self.net_g.train()
 
         self.net_d = None
@@ -394,8 +431,16 @@ class RefRestorationModel(SRModel):
     def _gan_iteration(self, do_g):
         pre_offset, ref_feat = self._match()
         gt = self.batch['img_in']
+        args = (self.batch['img_in_lq'], pre_offset, ref_feat)
+        saved = remat_saved_ops(self.remat_policy)
         with torch.set_grad_enabled(do_g):
-            output = self.net_g(self.batch['img_in_lq'], pre_offset, ref_feat)
+            if do_g and saved is not None:
+                output = checkpoint(
+                    self.net_g, *args, use_reentrant=False,
+                    context_fn=functools.partial(
+                        create_selective_checkpoint_contexts, saved))
+            else:
+                output = self.net_g(*args)
         self.output = output.detach()
         logs = self._offset_stats()
         if self.net_d is not None:

@@ -20,8 +20,10 @@ training loop that reads its logs only at ``print_freq`` does;
 ``--per-iter-fetch`` synchronises each iteration on its loss.
 ``--decompose`` also reports, on stderr, the step with the batch already
 on the device and the host-to-device copy of the batch, each on its own
-(host clock around work that ends in a synchronise). The JAX version's
-gate on the decomposed step (``utils/bench_gate.py``) is not ported.
+(host clock around work that ends in a synchronise), and, for the pinned
+configuration (stage-3 GAN, bf16 gathers, batch 9 at gt 160), a
+``decompose gate:`` line of that step against
+``utils/bench_gate.py::PINNED_GAN_STEP_MS`` (10% tolerance).
 The model runs on the CUDA card unless ``--device`` names another.
 """
 import argparse
@@ -36,6 +38,7 @@ import torch
 
 from ..data.contras_dataset import transformed_coordinate_grid
 from ..models import create_model
+from ..utils.bench_gate import PINNED_GAN_STEP_MS, gate
 from ..utils.options import _repo_root, parse
 
 
@@ -131,10 +134,18 @@ def bench(opt, args):
             float(model.log_dict[loss_key])
             step_ts.append(time.perf_counter() - t0)
         mb = sum(v.nbytes for v in batches[0].values()) / 2 ** 20
+        step_ms = statistics.median(step_ts) * 1e3
         print(f'decompose: step on the device (+1 loss read) '
-              f'{statistics.median(step_ts) * 1e3:.1f} ms; '
+              f'{step_ms:.1f} ms; '
               f'batch transfer ({mb:.1f} MB) '
               f'{statistics.median(xfer_ts) * 1e3:.1f} ms', file=sys.stderr)
+        if (args.stage == 3 and not args.pretrain and not args.f32
+                and b == 9 and gt == 160):
+            fields = gate(step_ms, PINNED_GAN_STEP_MS,
+                          higher_is_better=False, tolerance=0.10)
+            print('decompose gate: ' + json.dumps(
+                {'pinned_ms': PINNED_GAN_STEP_MS, **fields}),
+                file=sys.stderr)
 
     if args.stage == 3:
         kind = 'pretrain' if args.pretrain else 'GAN'

@@ -15,9 +15,12 @@ Timing (``utils/prof.py``): on the card, CUDA events around each call;
 and ``*_ms_net`` subtracts it. ``--cost`` counts each stage's FLOPs with
 ``torch.utils.flop_counter.FlopCounterMode`` (B1 as 2 B Nq Nr D; B3's
 im2col as 0, its contraction being the ``torch.matmul`` that follows) and
-adds ``<stage>_gflops`` and ``<stage>_tflops_per_s``. XLA's
-``bytes accessed`` has no counterpart on the card, so the JAX version's
-``*_hbm_gb`` and ``*_hbm_gb_per_s`` are not given.
+adds ``<stage>_gflops`` and ``<stage>_tflops_per_s``, and counts each
+stage's bytes with ``utils/prof.py::ByteCounter`` for ``<stage>_hbm_gb``
+and ``<stage>_hbm_gb_per_s`` (the JAX version's names). The count is the
+unfused traffic each operator names (its operands and results once a
+call); the JAX version's is XLA's estimate over the fused program, and
+the two are not compared.
 """
 import argparse
 import json
@@ -25,7 +28,7 @@ import json
 import torch
 
 from ..models import RefRestorationModel
-from ..utils.prof import calibrate_fetch, timed
+from ..utils.prof import calibrate_fetch, count_gb, timed
 
 HR = (512, 336)
 SERVING_BLOCKS = {
@@ -133,9 +136,12 @@ def profile(blocks=SERVING_BLOCKS, batch=16, iters=4, cost=False,
                      'generator': (g, batches[0]['img_in_lq'], po, rf)}
             for name, t in rows:
                 gf = count_gflops(*calls[name])
+                gb = count_gb(*calls[name])
                 net = max(t - t_fetch, 1e-9)
                 out[f'{name}_gflops'] = round(gf, 3)
+                out[f'{name}_hbm_gb'] = round(gb, 3)
                 out[f'{name}_tflops_per_s'] = round(gf / net / 1e3, 3)
+                out[f'{name}_hbm_gb_per_s'] = round(gb / net, 3)
     return out
 
 
@@ -144,8 +150,9 @@ def main(argv=None):
     ap.add_argument('--batch', type=int, default=16)
     ap.add_argument('--iters', type=int, default=4)
     ap.add_argument('--cost', action='store_true',
-                    help='add FLOPs per stage (FlopCounterMode) and the '
-                         'achieved TFLOP/s (net of the protocol)')
+                    help='add FLOPs (FlopCounterMode) and bytes '
+                         '(ByteCounter) per stage and the achieved TFLOP/s '
+                         'and GB/s (net of the protocol)')
     ap.add_argument('--device', default='cuda',
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          'on the CPU)')

@@ -26,8 +26,10 @@ g_forward and loss_head are parts of g_step). Timing as in
 less the protocol's own time. ``<phase>_gflops`` and
 ``<phase>_tflops_per_s`` count FLOPs with
 ``torch.utils.flop_counter.FlopCounterMode`` (B1 as 2 B Nq Nr D, B3's
-im2col as 0); the JAX version's XLA byte estimates (``*_hbm_gb``,
-``*_hbm_gb_per_s``) have no counterpart on the card and are not given.
+im2col as 0); ``<phase>_hbm_gb`` and ``<phase>_hbm_gb_per_s`` (the JAX
+version's names) count bytes with ``utils/prof.py::ByteCounter``: the
+unfused traffic each operator names, not XLA's fused estimate, and the
+two are not compared.
 ``--total`` also times the whole ``optimize_parameters`` (synchronised,
 median). The model runs on the CUDA card unless ``--device`` names
 another.
@@ -42,7 +44,7 @@ import torch
 
 from ..models import create_model
 from ..utils.options import _repo_root, parse
-from ..utils.prof import calibrate_fetch, timed
+from ..utils.prof import calibrate_fetch, count_gb, timed
 from .profile_serving import count_gflops
 
 PHASES = ('match', 'g_forward', 'loss_head', 'g_step', 'd_step')
@@ -125,9 +127,12 @@ def profile(opt, batch=9, gt_size=160, iters=4, total=False,
     for name in PHASES:
         fn, inputs = calls[name]
         gf = count_gflops(fn, *inputs[0])
+        gb = count_gb(fn, *inputs[0])
         net = max(times[name] - t_fetch, 1e-9)
         out[f'{name}_gflops'] = round(gf, 3)
+        out[f'{name}_hbm_gb'] = round(gb, 3)
         out[f'{name}_tflops_per_s'] = round(gf / net / 1e3, 3)
+        out[f'{name}_hbm_gb_per_s'] = round(gb / net, 3)
 
     if total:
         batches = [{'img_in_up': ups[i], 'img_in': gts[i],

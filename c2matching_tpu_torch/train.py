@@ -20,8 +20,16 @@ returns. Outputs go under ``experiments/<name>/`` (or
 ``$C2MATCHING_ROOT``); ``use_tb_logger: true`` (outside debug names) adds
 scalar event files under ``tb_logger/<name>/`` there. The model runs on
 the CUDA card unless ``--device`` names another device; with no card it
-raises rather than fall back to the CPU. ``logger.trace_dir`` is not
-ported and raises.
+raises rather than fall back to the CPU.
+
+``logger.trace_dir`` traces iterations [``trace_start_iter``,
+``trace_start_iter`` + ``trace_n_iters``) (defaults 10 and 5; the start
+is at least 1) with ``torch.profiler``: CPU activity, and CUDA activity
+on the card; one ``ProfilerStep`` an iteration. The window closes after
+its last iteration, or at the loop's end or before a preemption save if
+those come first, and each rank writes one trace file
+(``rank<r>.<ns>.pt.trace.json``, tensorboard's layout) under
+``trace_dir``.
 
 ``--launcher pytorch`` (torchrun's environment) or ``slurm`` runs one
 process a card (``parallel/``; ``dist_params.backend`` ``ici`` is NCCL on
@@ -40,6 +48,7 @@ import os.path as osp
 import random
 import signal
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -91,6 +100,72 @@ def _loaders(opt, seed, logger):
     return train_loader, val_loader, total_epochs
 
 
+def trace_window(logger_opt):
+    """(trace_dir, first iteration, iterations) of ``logger.trace_dir``'s
+    profiler window, or None without a trace_dir."""
+    logger_opt = logger_opt or {}
+    if not logger_opt.get('trace_dir'):
+        return None
+    start = logger_opt.get('trace_start_iter')
+    n = logger_opt.get('trace_n_iters')
+    # current_iter starts at 1: a start of 0 would never open the window
+    return (logger_opt['trace_dir'], max(1, 10 if start is None
+                                         else int(start)),
+            5 if n is None else int(n))
+
+
+class _Tracer:
+    """The ``torch.profiler`` window of ``trace_window`` in the loop:
+    ``begin(it)`` before iteration ``it`` opens it at its first iteration,
+    ``step(it)`` after it closes a ``ProfilerStep`` (and the window after
+    its last iteration, when the schedule writes the trace), ``stop()``
+    closes an open window and writes what it holds."""
+
+    def __init__(self, window, device, rank, logger):
+        self.window = window
+        self.device = torch.device(device)
+        self.rank = rank
+        self.logger = logger
+        self.prof = None
+
+    def begin(self, current_iter):
+        if self.window is None:
+            return
+        trace_dir, start, n = self.window
+        if n <= 0 or current_iter != start:
+            return
+        from torch.profiler import (ProfilerActivity, profile, schedule,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        with warnings.catch_warnings():
+            # the window records exactly its iterations, as the JAX
+            # package's does: no warm-up iteration before it
+            warnings.filterwarnings('ignore', 'Profiler won.t be using '
+                                    'warmup')
+            window = schedule(wait=0, warmup=0, active=n, repeat=1)
+        self.prof = profile(
+            activities=activities, schedule=window,
+            on_trace_ready=tensorboard_trace_handler(
+                trace_dir, worker_name=f'rank{self.rank}'))
+        self.prof.start()
+
+    def step(self, current_iter):
+        if self.prof is None:
+            return
+        self.prof.step()
+        _, start, n = self.window
+        if current_iter >= start + n - 1:
+            self.stop()
+
+    def stop(self):
+        if self.prof is not None:
+            self.prof.stop()
+            self.prof = None
+            self.logger.info(f'profiler trace written to {self.window[0]}')
+
+
 def run(opt_path, device='cuda', launcher='none'):
     """Train the model of ``opt_path`` (in the process group of
     ``launcher``, which the run leaves at its end). Returns the model."""
@@ -120,9 +195,6 @@ def _train(opt, rank, world, device):
     logger = get_root_logger(logger_name='base', log_level=logging.INFO,
                              log_file=log_file)
     logger.info(dict2str(opt))
-    if (opt.get('logger') or {}).get('trace_dir'):
-        raise NotImplementedError('logger.trace_dir: the profiler window is '
-                                  'not ported')
     tb_logger = None
     if opt.get('use_tb_logger') and 'debug' not in opt['name'] and rank == 0:
         tb_logger = init_tb_logger(
@@ -168,6 +240,8 @@ def _loop(opt, device, resume_state_path, logger, tb_logger):
 
     handlers = {s: signal.signal(s, on_signal)
                 for s in (signal.SIGTERM, signal.SIGINT)}
+    tracer = _Tracer(trace_window(opt['logger']), model.device,
+                     opt['rank'], logger)
     try:
         epoch = start_epoch
         data_time, iter_time = time.time(), time.time()
@@ -182,14 +256,18 @@ def _loop(opt, device, resume_state_path, logger, tb_logger):
                     # current_iter - 1 is the last completed iteration
                     logger.info('Saving models and training states '
                                 '(preemption).')
+                    tracer.stop()
                     model.save(epoch, current_iter - 1)
                     return model
+                tracer.begin(current_iter)
                 model.feed_data(train_data)
                 model.optimize_parameters(current_iter)
+                tracer.step(current_iter)
                 iter_time = time.time() - iter_time
                 if preempted:
                     logger.info('Saving models and training states '
                                 '(preemption).')
+                    tracer.stop()
                     model.save(epoch, current_iter)
                     return model
 
@@ -212,6 +290,7 @@ def _loop(opt, device, resume_state_path, logger, tb_logger):
             if current_iter > total_iters:
                 break
     finally:
+        tracer.stop()
         for sig, handler in handlers.items():
             signal.signal(sig, handler)
 

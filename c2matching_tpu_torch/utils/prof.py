@@ -6,11 +6,13 @@ card the port needs none of that: each call is bracketed by CUDA events
 on the current stream, and the events are read once, after the last call.
 On the CPU the host clock brackets each call (CPU ops finish before they
 return). One module, so that ``scripts/profile_serving.py`` and
-``scripts/profile_train.py`` time alike.
+``scripts/profile_train.py`` time alike and count bytes alike
+(``ByteCounter``).
 """
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 
@@ -57,3 +59,61 @@ def calibrate_fetch(iters, device='cuda'):
     xs = [(torch.full((1,), float(i), device=device),)
           for i in range(iters + 1)]
     return timed(lambda x: x + 1.0, xs, iters)
+
+
+def _extent_bytes(t):
+    """Bytes of the memory a strided tensor spans: a contiguous tensor's
+    numel x element size, a view's from its first to its last element
+    (an expanded dimension spans one element)."""
+    if t.layout != torch.strided or t.numel() == 0:
+        return 0
+    span = 1 + sum((size - 1) * abs(stride)
+                   for size, stride in zip(t.shape, t.stride()))
+    return span * t.element_size()
+
+
+# operators that alias their input without a view's schema annotation
+_ALIASES = (torch.ops.aten._unsafe_view.default, torch.ops.aten.alias.default)
+
+
+class ByteCounter(TorchDispatchMode):
+    """The bytes of the tensor operands and results of every operator
+    dispatched under it, summed in ``total``.
+
+    Each tensor counts once per call, by the extent of memory it spans;
+    view operators (which move nothing) count nothing. B1
+    (``c2matching::match_argmax``) and B3's forward
+    (``c2matching::deform_im2col``) are single operators and count their
+    own operands and results; what runs outside the dispatcher counts
+    only through the operators around it (B3's backward kernel is a
+    ctypes launch inside an autograd Function: on the card its
+    allocations count, its reads and writes do not; on the CPU its plain
+    version's operators count).
+
+    This is an unfused count of the traffic each operator names, as eager
+    execution moves it through device memory: it is not XLA's
+    ``bytes accessed`` (an estimate over a fused program) and the two are
+    not compared. It carries no module tracker, so it works under
+    ``torch.autograd.grad`` (the gradient penalty), unlike
+    ``FlopCounterMode``'s."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not (func.is_view or func in _ALIASES):
+            seen = set()
+            for leaf in tree_leaves((args, kwargs, out)):
+                if isinstance(leaf, torch.Tensor) and id(leaf) not in seen:
+                    seen.add(id(leaf))
+                    self.total += _extent_bytes(leaf)
+        return out
+
+
+def count_gb(fn, *args):
+    """GB (1e9 bytes) that ``ByteCounter`` counts over ``fn(*args)``."""
+    with ByteCounter() as counter:
+        fn(*args)
+    return counter.total / 1e9

@@ -150,7 +150,34 @@ Phases:
      card shared) against one process at batch 2 on phase eval's sets:
      the same files within one uint8 step. Each kernel of the training
      path must launch in (i) and (ii).
- 13. serve: batch serving and the tools. export_serving of the serving
+ 13. options: the options the port took last, on a 10-pair 160-px synth
+     set whose refs share their inputs' keys, packed into lmdb databases by
+     c2matching_tpu_torch.scripts.create_cufed_lmdb (through the lmdb
+     package where installed, else the port's own store of the same
+     format; the line says which). lmdb: RefCUFEDDataset and
+     ContrasDataset items from lmdb equal to the disk set's under the same
+     seeds, host ms an item for each store; the shipped
+     stage3_restoration_gan.yml (1 pretrain + 1 GAN iteration, batch 9 at
+     gt 160, from phase contras' student) and
+     stage1_teacher_contras_network.yml (1 iteration, batch 8) through
+     run(), once from lmdb and once from disk, one loader thread, cuDNN's
+     deterministic algorithms: the batches and the losses equal bit for
+     bit, stage 3's trained net too, stage 1's within 2 x lr_g (its loss's
+     gather scatters its gradient with atomics). trace: the lmdb stage-3
+     run carries logger.trace_dir over both its iterations: one trace
+     file, JSON, one ProfilerStep an iteration, naming B1 and the B3
+     forward and backward kernels (CUPTI sees the ctypes launches).
+     remat: one warm GAN step of
+     that model from one state under train.remat_policy none, dcn_rows and
+     dots: ms, peak memory and B3 forward launches each; the nets after
+     each within 1e-6 of none's (bit for bit expected); dcn_rows launches
+     B3 as often as none, dots twice. bf16: the same step with dtype
+     bfloat16 on network_d and perceptual_opt beside the f32 one (ms,
+     peak), and a small model's GAN step with both, card vs CPU, each log
+     within 2^-5. bytes: profile_serving --cost at batch 16 (serving
+     config): each stage's *_hbm_gb and *_hbm_gb_per_s beside its
+     *_gflops. One JSON line of the phase's numbers.
+ 14. serve: batch serving and the tools. export_serving of the serving
      config at batch 2, HR 512x336 (the graph's operator calls, the
      export's seconds and the .pt2's MB); the artifact is loaded and run in
      a fresh process that cannot import c2matching_tpu_torch.models and
@@ -169,10 +196,15 @@ Phases:
      plain versions (B1 image by image) and timed beside their library
      calls and bounds; a torch.profiler trace of it in the serving config
      (top kernels, busy share); the host's cost of a call through
-     torch.ops. Last bench_train (stage 3 GAN, stage 1) and profile_train
-     at full width: one JSON line each with the JAX version's keys,
-     finite, and the B3 backward launched in stage 3.
- 14. one JSON line of kernels, the card's line, and last the JSON result.
+     torch.ops. Last bench_train (stage 3 GAN, stage 1) and
+     profile_train at full width: one JSON line each with the JAX
+     version's keys (profile_train's byte fields included), finite, and
+     the B3 backward launched in stage 3; then `python -m
+     c2matching_tpu_torch.scripts.bench_train --stage 3 --decompose` in
+     its own process, as the pin of utils/bench_gate.py was taken (torch's
+     default TF32 settings): the step with the batch on the card and its
+     gate line.
+ 15. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -2556,8 +2588,15 @@ def _torchrun(n, *args):
 
 
 def _rank_lines(text):
-    return sorted((json.loads(line) for line in text.splitlines()
-                   if line.startswith('{"rank"')), key=lambda r: r['rank'])
+    """Each rank's JSON record in ``text``. The ranks write to one output
+    file, and a record may follow another on the same line."""
+    decoder, records = json.JSONDecoder(), []
+    pos = text.find('{"rank"')
+    while pos >= 0:
+        record, pos = decoder.raw_decode(text, pos)
+        records.append(record)
+        pos = text.find('{"rank"', pos)
+    return sorted(records, key=lambda r: r['rank'])
 
 
 def _dist_done(check, what, result):
@@ -2888,6 +2927,481 @@ def phase_dist(check, dev, report, card, chain_root):
           f'{time.perf_counter() - t2:.1f}', flush=True)
 
 
+# ---------------------------------------------------------------- options
+OPTIONS_PRETRAIN, OPTIONS_GAN = 1, 1   # stage-3 iterations of the lmdb and
+                                       # disk runs
+OPTIONS_PAIRS = 10                     # synth pairs at 160, shared keys
+REMAT_POLICIES = ('none', 'dcn_rows', 'dots')
+REMAT_TOL = 1e-6     # each policy's GAN step vs 'none' from one state: the
+                     # parameters, of the largest (DIST_PARAM_TOL's bound;
+                     # the same arithmetic recomputed, bit for bit expected)
+BF16_TRAIN_REL = 2 ** -5  # bf16 D and perceptual VGG, card vs CPU, each log
+                          # of a GAN step: the CPU test's bound against JAX
+                          # (tests/test_torch_train_bf16.py)
+TRACE_KERNELS = ('match_argmax_kernel', 'mdc_im2col_kernel',
+                 'mdc_backward_kernel')   # B1, B3 forward, B3 backward
+
+
+def _options_data(root):
+    """The synth set under ``root``/disk with each ref renamed to its
+    input's key (lmdb pairs by key) and an annotation file of the pairs,
+    and its lmdb databases under ``root``/lmdb from the port's packer.
+    Returns the packer's seconds."""
+    import os
+    from c2matching_tpu_torch.scripts import create_cufed_lmdb
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    disk = f'{root}/disk'
+    synth.write_dataset(disk, n=OPTIONS_PAIRS, size=(160,))
+    for f in os.listdir(f'{disk}/ref'):
+        os.rename(f'{disk}/ref/{f}', f'{disk}/ref/{f.replace("_1.", "_0.")}')
+    keys = sorted(os.listdir(f'{disk}/input'))
+    with open(f'{disk}/pairs.txt', 'w') as f:
+        f.write(''.join(f'{k} {k}\n' for k in keys))
+    t0 = time.perf_counter()
+    for name in ('input', 'ref'):
+        create_cufed_lmdb.pack(f'{disk}/{name}', f'{root}/lmdb', name, 160, 4)
+    return time.perf_counter() - t0
+
+
+def _options_stage_text(name, root, store, swaps=()):
+    """The shipped options file ``name`` training from ``root``'s lmdb
+    databases or its disk set (``store``), one loader thread (the items'
+    augmentation draws in the loader's order), validating on the disk set
+    by its annotation file; ``swaps`` more replacements."""
+    import os.path as osp
+    with open(osp.join(osp.dirname(osp.abspath(__file__)), name)) as f:
+        text = f.read()
+    if store == 'lmdb':
+        data = [('./datasets/CUFED/input', f'{root}/lmdb/input.lmdb'),
+                ('./datasets/CUFED/ref', f'{root}/lmdb/ref.lmdb'),
+                (TRAIN_ANN, TRAIN_ANN.replace('type: disk', 'type: lmdb'))]
+    else:
+        data = [('./datasets/CUFED/input', f'{root}/disk/input'),
+                ('./datasets/CUFED/ref', f'{root}/disk/ref'),
+                (TRAIN_ANN, TRAIN_ANN.replace(
+                    '\n\n', f'\n    ann_file: {root}/disk/pairs.txt\n\n'))]
+    for old, new in data + [
+            ('n_workers: 6', 'n_workers: 1'),
+            ('dataroot_in: ./datasets/CUFED5',
+             f'dataroot_in: {root}/disk/input'),
+            ('dataroot_ref: ./datasets/CUFED5',
+             f'dataroot_ref: {root}/disk/ref'),
+            ('print_freq: 100', 'print_freq: 1')] + list(swaps):
+        if old not in text:
+            raise ValueError(f'{name} has no {old!r}')
+        text = text.replace(old, new)
+    return text
+
+
+@contextlib.contextmanager
+def _recorded(cls):
+    """The numpy arrays of every batch ``cls.feed_data`` takes and the logs
+    of every ``optimize_parameters`` (after a synchronise), with each
+    step's host seconds."""
+    import numpy as np
+    rec = {'batches': [], 'logs': [], 's': []}
+    feed, step = cls.feed_data, cls.optimize_parameters
+
+    def record_feed(self, batch):
+        rec['batches'].append({k: np.array(v) for k, v in batch.items()
+                               if isinstance(v, np.ndarray)})
+        return feed(self, batch)
+
+    def record_step(self, it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(self, it)
+        torch.cuda.synchronize()
+        rec['s'].append(time.perf_counter() - t0)
+        rec['logs'].append({k: float(v) for k, v in self.log_dict.items()})
+
+    cls.feed_data, cls.optimize_parameters = record_feed, record_step
+    try:
+        yield rec
+    finally:
+        cls.feed_data, cls.optimize_parameters = feed, step
+
+
+def _same_runs(check, what, runs, net_tol):
+    """The lmdb run's batches and logs against the disk run's, bit for
+    bit, and its trained net within ``net_tol`` (0: bit for bit)."""
+    import numpy as np
+    (a, net_a), (b, net_b) = runs['lmdb'], runs['disk']
+    same_batches = (len(a['batches']) == len(b['batches']) > 0 and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a['batches'], b['batches'])))
+    check(same_batches, f'{what}: {len(a["batches"])} batches from lmdb '
+          'equal to the disk run\'s, bit for bit')
+    check(len(a['logs']) == len(b['logs']) > 0 and a['logs'] == b['logs'],
+          f'{what}: the losses from lmdb equal to the disk run\'s, bit for '
+          f'bit: {a["logs"][-1] if a["logs"] else None}')
+    diff = max(float((net_a[k].float() - net_b[k].float()).abs().max())
+               for k in net_a if net_a[k].is_floating_point())
+    exact = all(torch.equal(net_a[k], net_b[k]) for k in net_a)
+    check(net_a.keys() == net_b.keys() and diff <= net_tol,
+          f'{what}: the trained net within {diff:.3g} <= {net_tol:g} of the '
+          f'disk run\'s ({"bit for bit" if exact else "not bit for bit"})')
+
+
+def _options_lmdb(check, root, chain_out, card, out):
+    """Stage 3 (OPTIONS_PRETRAIN + OPTIONS_GAN iterations of the shipped
+    config) and stage 1 (one iteration) from lmdb and from disk on the same
+    seed; the lmdb stage-3 run carries a trace_dir window over both of its
+    iterations. Returns the stage-3 disk run's recorded batches."""
+    import os
+    from c2matching_tpu_torch.models.ref_restoration_model import \
+        RefRestorationModel
+    from c2matching_tpu_torch.models.teacher_contras_model import \
+        ContrasModel
+    from c2matching_tpu_torch.train import run
+    n = OPTIONS_PRETRAIN + OPTIONS_GAN
+    # stage 3's backward is deterministic with cuDNN's deterministic
+    # algorithms (B3's backward adds no atomics without grad_x): its net
+    # bit for bit. Stage 1's loss gathers features (torch.gather), whose
+    # backward scatters with atomics: from the same gradients but for
+    # their last bits, its one Adam step (lr_g 1e-3) moves each parameter
+    # by at most lr_g, so the two nets lie within 2 x lr_g
+    stages = (
+        ('stage 3', TRAIN_OPTIONS, RefRestorationModel, 'net_g', 0.0, [
+            ('./datasets/CUFED5_pairs.txt', f'{root}/disk/pairs.txt'),
+            ('niter: 255000', f'niter: {n}'),
+            ('net_g_pretrain_steps: 10000',
+             f'net_g_pretrain_steps: {OPTIONS_PRETRAIN}')]),
+        ('stage 1', CONTRAS_OPTIONS[1], ContrasModel, 'net_g',
+         2 * 1e-3 * _adam_reach(1), [
+             ('./datasets/contras_val.txt', f'{root}/disk/pairs.txt'),
+             ('niter: 5000', 'niter: 1')]))
+    recs = {}
+    for what, name, cls, net, net_tol, swaps in stages:
+        runs = {}
+        for store in ('lmdb', 'disk'):
+            extra = list(swaps)
+            if what == 'stage 3' and store == 'lmdb':
+                extra.append(('logger:\n', f'logger:\n  trace_dir: '
+                              f'{root}/trace\n  trace_start_iter: 1\n'
+                              f'  trace_n_iters: {n}\n'))
+            path = f'{root}/{what[-1]}_{store}.yml'
+            with open(path, 'w') as f:
+                f.write(_options_stage_text(name, root, store, extra))
+            os.environ['C2MATCHING_ROOT'] = f'{root}/out_{what[-1]}_{store}'
+            t0 = time.perf_counter()
+            try:
+                with _recorded(cls) as rec, _in_dir(chain_out):
+                    model = run(path)
+            finally:
+                del os.environ['C2MATCHING_ROOT']
+            wall = time.perf_counter() - t0
+            runs[store] = (rec, {k: v.detach().clone() for k, v in
+                                 getattr(model, net).state_dict().items()})
+            del model
+            torch.cuda.empty_cache()
+            print(f'options lmdb: {what} ({name}) from {store}: '
+                  f'iterations '
+                  + ', '.join(f'{1e3 * s:.1f}' for s in rec['s'])
+                  + f' ms (host clock, synchronised); the run {wall:.1f} s '
+                  f'({card})', flush=True)
+        _same_runs(check, f'options lmdb {what}', runs, net_tol)
+        out[f'{what.replace(" ", "")}_iter_ms'] = {
+            store: [round(1e3 * s, 3) for s in runs[store][0]['s']]
+            for store in runs}
+        recs[what] = runs['disk'][0]
+    return recs['stage 3']['batches']
+
+
+def _options_host_ms(check, root, card):
+    """Host ms per item of RefCUFEDDataset (train, gt 160) and
+    ContrasDataset read from lmdb and from disk, each item under the same
+    seeds from both stores and equal bit for bit. Median over the items."""
+    import random
+    import numpy as np
+    from c2matching_tpu_torch.data import ContrasDataset, RefCUFEDDataset
+    out = {}
+    for kind, cls in (('RefCUFEDDataset', RefCUFEDDataset),
+                      ('ContrasDataset', ContrasDataset)):
+        items, ms = {}, {}
+        for store in ('lmdb', 'disk'):
+            opt = {'name': 'synth', 'phase': 'train', 'scale': 4,
+                   'gt_size': 160, 'use_flip': True, 'use_rot': True}
+            if store == 'lmdb':
+                opt.update(io_backend={'type': 'lmdb'},
+                           dataroot_in=f'{root}/lmdb/input.lmdb',
+                           dataroot_ref=f'{root}/lmdb/ref.lmdb')
+            else:
+                opt.update(io_backend={'type': 'disk'},
+                           dataroot_in=f'{root}/disk/input',
+                           dataroot_ref=f'{root}/disk/ref',
+                           ann_file=f'{root}/disk/pairs.txt')
+            data = cls(opt)
+            items[store], times = [], []
+            for i in range(len(data)):
+                random.seed(i)
+                np.random.seed(i)
+                t0 = time.perf_counter()
+                items[store].append(data[i])
+                times.append(1e3 * (time.perf_counter() - t0))
+            ms[store] = statistics.median(times)
+        same = len(items['lmdb']) == len(items['disk']) == OPTIONS_PAIRS \
+            and all(np.array_equal(a[k], b[k]) for a, b in zip(
+                items['lmdb'], items['disk']) for k in a
+                if isinstance(a[k], np.ndarray))
+        check(same, f'options lmdb: {kind} items from lmdb equal to disk, '
+              'bit for bit')
+        print(f'options lmdb: {kind} host ms an item (median of '
+              f'{OPTIONS_PAIRS}), lmdb {ms["lmdb"]:.2f}, disk '
+              f'{ms["disk"]:.2f} (host of {card})', flush=True)
+        out[kind] = {k: round(v, 3) for k, v in ms.items()}
+    return out
+
+
+def _check_trace(check, root):
+    """The trace_dir window's file: one, JSON, naming B1 and the B3
+    forward and backward kernels, with one ProfilerStep an iteration."""
+    import glob
+    files = glob.glob(f'{root}/trace/*.pt.trace.json')
+    names, steps = set(), set()
+    if len(files) == 1:
+        with open(files[0]) as f:
+            events = json.load(f).get('traceEvents', [])
+        names = {e.get('name', '') for e in events
+                 if e.get('cat') == 'kernel'}
+        steps = {e.get('name') for e in events
+                 if str(e.get('name', '')).startswith('ProfilerStep#')}
+    found = {k: sum(k in name for name in names) for k in TRACE_KERNELS}
+    check(len(files) == 1 and all(found.values()), f'options trace: '
+          f'{len(files)} trace file(s) under trace_dir, {len(names)} kernel '
+          f'names, of them {found}')
+    n = OPTIONS_PRETRAIN + OPTIONS_GAN
+    check(len(steps) == n, f'options trace: {sorted(steps)} ({n} '
+          'iterations in the window)')
+    return {'files': len(files), 'kernel_names': len(names),
+            'steps': len(steps), **found}
+
+
+def _state(model):
+    """A copy of everything a GAN step changes."""
+    import copy
+    return {'g': copy.deepcopy(model.net_g.state_dict()),
+            'd': copy.deepcopy(model.net_d.state_dict()),
+            'opt_g': copy.deepcopy(model.optimizer_g.state_dict()),
+            'opt_d': copy.deepcopy(model.optimizer_d.state_dict()),
+            'counts': copy.deepcopy(model.schedules.state_dict())}
+
+
+def _restore(model, state):
+    import copy
+    model.net_g.load_state_dict(state['g'])
+    model.net_d.load_state_dict(state['d'])
+    model.optimizer_g.load_state_dict(copy.deepcopy(state['opt_g']))
+    model.optimizer_d.load_state_dict(copy.deepcopy(state['opt_d']))
+    model.schedules.load_state_dict(copy.deepcopy(state['counts']))
+
+
+def _gan_step(model, batch, state, step):
+    """One GAN step from ``state``, warm (the same step run before it):
+    (host ms around the synchronised step, peak GiB, B3 forward launches,
+    the nets' parameters after it, the logs, and GiB allocated at the
+    step's start and at its peak up to the end of the D update)."""
+    from c2matching_tpu_torch.ops import deform_im2col
+    import numpy as np
+    alpha = np.full((batch['img_in'].shape[0], 1, 1, 1), 0.3, np.float32)
+    marks = {}
+    d_update = model._d_update
+
+    def marked_d_update(*args):
+        out = d_update(*args)
+        marks['d'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    model._d_update = marked_d_update
+    try:
+        for _ in range(2):
+            _restore(model, state)
+            model.feed_data(batch)
+            model.gp_alpha = alpha
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks['start'] = torch.cuda.memory_allocated() / 2 ** 30
+            deform_im2col.launches = 0
+            t0 = time.perf_counter()
+            model.optimize_parameters(step)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del model._d_update
+    return (ms, torch.cuda.max_memory_allocated() / 2 ** 30,
+            deform_im2col.launches,
+            [p.detach().clone() for net in (model.net_g, model.net_d)
+             for p in net.parameters()],
+            {k: float(v) for k, v in model.log_dict.items()}, marks)
+
+
+def _stage3_model(root, chain_out, dev, blocks=None, perceptual=None):
+    """The shipped stage-3 model (disk options of phase options), its
+    network_d and perceptual_opt updated by ``blocks`` / ``perceptual``."""
+    from c2matching_tpu_torch.models import create_model
+    from c2matching_tpu_torch.utils import dict_to_nonedict
+    from c2matching_tpu_torch.utils.options import parse
+    opt = parse(f'{root}/3_disk.yml', is_train=True)
+    opt['network_d'].update(blocks or {})
+    opt['train']['perceptual_opt'].update(perceptual or {})
+    with _in_dir(chain_out):
+        return create_model(dict_to_nonedict(opt), dev)
+
+
+def _options_remat(check, root, chain_out, dev, batch, card, out):
+    """One GAN step of the shipped stage-3 model from one state under each
+    remat policy, then with bf16 D and perceptual VGG from the same state.
+    Returns the 'none' step (ms, peak)."""
+    model = _stage3_model(root, chain_out, dev)
+    step = OPTIONS_PRETRAIN + 1
+    model.feed_data(batch)
+    model.optimize_parameters(step)           # Adam's state, cuDNN's plans
+    state = _state(model)
+    res = {}
+    for policy in REMAT_POLICIES:
+        model.remat_policy = policy
+        res[policy] = _gan_step(model, batch, state, step)
+    none = res['none']
+    top = max(float(p.abs().max()) for p in none[3])
+    for policy in REMAT_POLICIES:
+        ms, peak, im2col, params, _, marks = res[policy]
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(params, none[3]))
+        exact = all(torch.equal(a, b) for a, b in zip(params, none[3]))
+        same = 'bit for bit' if exact else 'not bit for bit'
+        check(diff <= REMAT_TOL * top, f'options remat {policy}: G and D '
+              f'after the step within {diff:.3g} <= {REMAT_TOL:g} x {top:.3g} '
+              f'of the none step ({same})')
+        print(f'options remat {policy}: GAN step {ms:.1f} ms (host clock, '
+              f'synchronised, warm), peak {peak:.2f} GiB (allocated at the '
+              f'start {marks["start"]:.2f}, peak to the end of the D update '
+              f'{marks["d"]:.2f}), deform_im2col launched {im2col} times '
+              f'({card})', flush=True)
+        out[policy] = {'ms': round(ms, 3), 'peak_gib': round(peak, 3),
+                       'start_gib': round(marks['start'], 3),
+                       'd_update_peak_gib': round(marks['d'], 3),
+                       'im2col_launches': im2col, 'bit_for_bit': exact}
+    check(res['dcn_rows'][2] == none[2], f'options remat dcn_rows: '
+          f'deform_im2col launched {res["dcn_rows"][2]} times, as none '
+          f'({none[2]}): the recompute takes the kept columns')
+    check(res['dots'][2] == 2 * none[2], f'options remat dots: '
+          f'deform_im2col launched {res["dots"][2]} times (twice none\'s)')
+    model.remat_policy = 'none'
+    del res, model
+    torch.cuda.empty_cache()
+    return none[0], none[1], state
+
+
+def _options_bf16(check, root, chain_out, dev, batch, card, state, f32):
+    """The shipped stage-3 GAN step with ``dtype: bfloat16`` on network_d
+    and perceptual_opt, from the f32 remat state, beside the f32 step;
+    then a small model's GAN step with both, card against the CPU."""
+    import tempfile
+    from c2matching_tpu_torch.data import DataLoader, create_dataset
+    from c2matching_tpu_torch.models import RefRestorationModel
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    bf16 = {'dtype': 'bfloat16'}
+    model = _stage3_model(root, chain_out, dev, bf16, bf16)
+    ms, peak, _, _, logs, _ = _gan_step(model, batch, state,
+                                        OPTIONS_PRETRAIN + 1)
+    check(_finite(logs.values()), 'options bf16 D and VGG: finite losses')
+    print(f'options bf16 D and perceptual VGG: GAN step {ms:.1f} ms, peak '
+          f'{peak:.2f} GiB; f32 {f32[0]:.1f} ms, {f32[1]:.2f} GiB ({card})',
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_bf16_') as tmp:
+        synth.write_dataset(f'{tmp}/synth', n=2, size=(64,))
+        data = create_dataset({
+            'name': 'synth', 'type': 'RefCUFEDDataset', 'phase': 'train',
+            'scale': 4, 'dataroot_in': f'{tmp}/synth/input',
+            'dataroot_ref': f'{tmp}/synth/ref',
+            'io_backend': {'type': 'disk'},
+            'ann_file': f'{tmp}/synth/pairs.txt', 'gt_size': 64,
+            'use_flip': False, 'use_rot': False})
+        small = next(iter(DataLoader(data, batch_size=2)))
+        opt = _small_train_opt(tmp)
+        opt['network_d']['dtype'] = 'bfloat16'
+        opt['train']['perceptual_opt']['dtype'] = 'bfloat16'
+        step = opt['train']['net_g_pretrain_steps'] + 1
+        logs = []
+        for where in (dev, 'cpu'):
+            small_model = RefRestorationModel(opt, where)
+            small_model.feed_data(small)
+            small_model.optimize_parameters(step)
+            logs.append({k: float(v) for k, v in
+                         small_model.log_dict.items()})
+            del small_model
+    worst = max(abs(logs[0][k] - v) / max(abs(v), 1e-12)
+                for k, v in logs[1].items())
+    check(logs[0].keys() == logs[1].keys() and worst <= BF16_TRAIN_REL,
+          f'options bf16 D and VGG, small model: each log of a GAN step, '
+          f'card vs CPU, within {worst:.3g} <= {BF16_TRAIN_REL:g} of its '
+          'value')
+    return {'ms': round(ms, 3), 'peak_gib': round(peak, 3),
+            'f32_ms': round(f32[0], 3), 'f32_peak_gib': round(f32[1], 3),
+            'card_vs_cpu_rel': worst}
+
+
+def _options_bytes(check, dev, card):
+    """profile_serving --cost at batch 16, HR 512x336, serving config: the
+    byte fields beside the FLOP fields."""
+    from c2matching_tpu_torch.scripts.profile_serving import profile
+    res = profile(SERVING_BLOCKS, batch=SERVE_BATCH, iters=1, cost=True,
+                  device=dev, hr=SERVE_HR)
+    keys = [f'{s}_{k}' for s in ('extractor', 'matcher', 'generator')
+            for k in ('gflops', 'tflops_per_s', 'hbm_gb', 'hbm_gb_per_s')]
+    check(all(k in res for k in keys) and _finite(res.values())
+          and all(res[k] > 0 for k in keys), 'options bytes: profile_serving '
+          '--cost gives every stage\'s *_gflops and *_hbm_gb, finite')
+    print(f'options bytes: profile_serving --cost, serving config, batch '
+          f'{SERVE_BATCH}: ' + ', '.join(f'{k} {res.get(k)}' for k in keys)
+          + f' ({card})', flush=True)
+    torch.cuda.empty_cache()
+    return {k: res.get(k) for k in keys}
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def phase_options(check, dev, card, chain_root):
+    """The options the port took last: the lmdb data path and its packer,
+    train.remat_policy, logger.trace_dir, bf16 D and perceptual VGG, the
+    profilers' byte fields. Prints one JSON line."""
+    import importlib.util
+    chain_out = f'{chain_root}/out'
+    store = ('the lmdb package' if importlib.util.find_spec('lmdb')
+             else 'the port\'s store c2matching_tpu_torch/utils/lmdb_shim.py '
+             '(no lmdb package)')
+    out = {'phase': 'options', 'lmdb': {'store': store}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_options_') as root, \
+            _deterministic_cudnn():
+        out['lmdb']['pack_s'] = round(_options_data(root), 3)
+        print(f'options lmdb: packed {OPTIONS_PAIRS} pairs (3 variants each '
+              f'of input and ref) in {out["lmdb"]["pack_s"]:.2f} s with '
+              f'{store}', flush=True)
+        out['lmdb']['host_ms_per_item'] = _options_host_ms(check, root, card)
+        batches = _options_lmdb(check, root, chain_out, card, out['lmdb'])
+        out['trace'] = _check_trace(check, root)
+        out['remat'] = {}
+        *f32, state = _options_remat(check, root, chain_out, dev,
+                                     batches[-1], card, out['remat'])
+        out['bf16_d_vgg'] = _options_bf16(check, root, chain_out, dev,
+                                          batches[-1], card, state, f32)
+        del state
+    out['bytes'] = _options_bytes(check, dev, card)
+    out['seconds'] = round(time.perf_counter() - t0, 1)
+    print(json.dumps(out), flush=True)
+
+
 # ------------------------------------------------------------------ serve
 SERVE_BATCH = 16     # profile_serving's default batch, at HR 512x336
 SERVE_HR = (512, 336)
@@ -2899,15 +3413,18 @@ SERVE_CLI_STEPS = 1  # uint8 steps between a PNG served at batch 2 and its
 EXPORT_BATCH = 2
 EXPORT_TOL = 1e-5    # the loaded artifact vs the in-process forward: the
                      # same kernels on the same inputs in another process
-# the JAX scripts' JSON keys (scripts/bench_train.py, profile_train.py),
-# less the XLA cost model's byte estimates
+# the JAX scripts' JSON keys (scripts/bench_train.py, profile_train.py);
+# the byte fields count the port's own way (utils/prof.py::ByteCounter)
 BENCH_KEYS = {'metric', 'value', 'unit', 'samples_per_sec'}
+GATE_ITERS = 10      # bench_train --decompose's iterations in its own
+                     # process, as the pin's runs took them
 PROFILE_TRAIN_KEYS = (
     {'batch', 'gt_size', 'fetch_overhead_ms', 'phase_sum_net_ms',
      'phase_sum_samples_per_s'}
     | {f'{p}_{k}' for p in ('match', 'g_forward', 'loss_head', 'g_step',
                             'd_step')
-       for k in ('ms', 'ms_net', 'gflops', 'tflops_per_s')})
+       for k in ('ms', 'ms_net', 'gflops', 'tflops_per_s', 'hbm_gb',
+                 'hbm_gb_per_s')})
 # loads the exported artifact in a fresh interpreter that cannot import the
 # port's model code, runs it on the saved inputs on the card and saves the
 # output; prints the kernels' launch counts
@@ -3371,10 +3888,33 @@ def _serve_export(check, dev, card, root, pool):
     return finish
 
 
+def _bench_gate(check, card):
+    """`python -m c2matching_tpu_torch.scripts.bench_train --stage 3
+    --decompose` as a user runs it (its own process, torch's default TF32
+    settings, as utils/bench_gate.py's pin was taken): the decomposed
+    step and its gate line against the pin."""
+    import os
+    import os.path as osp
+    here = osp.dirname(osp.abspath(__file__))
+    cmd = [sys.executable, '-m', 'c2matching_tpu_torch.scripts.bench_train',
+           '--stage', '3', '--decompose', '--iters', str(GATE_ITERS)]
+    proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=here))
+    lines = [line for line in proc.stderr.splitlines()
+             if line.startswith(('decompose', 'WARNING'))]
+    check(proc.returncode == 0 and any(
+        line.startswith('decompose gate: ') for line in lines),
+        f'bench_train --stage 3 --decompose (own process): exit '
+        f'{proc.returncode}, a decompose gate line')
+    for line in lines + [json.dumps(_json_line(proc.stdout))]:
+        print(f'bench_train --stage 3 --decompose --iters {GATE_ITERS} (own '
+              f'process): {line} ({card})', flush=True)
+
+
 def _serve_train_tools(check, card):
     """bench_train (stage 3 GAN, stage 1) and profile_train at full width
     through their CLIs' main(), in process: one JSON line each with the
-    JAX version's keys and finite values."""
+    JAX version's keys and finite values; then bench_train's gate."""
     import io
     from c2matching_tpu_torch.ops import deform_conv_backward
     from c2matching_tpu_torch.scripts import bench_train, profile_train
@@ -3400,6 +3940,8 @@ def _serve_train_tools(check, card):
                   f'{deform_conv_backward.launches} times')
         print(f'{tool} {" ".join(argv)}: {json.dumps(out)}; peak '
               f'{peak:.2f} GiB ({card})', flush=True)
+    torch.cuda.empty_cache()
+    _bench_gate(check, card)
 
 
 def phase_serve(check, dev, report, card):
@@ -3472,6 +4014,8 @@ def main():
                 ('train_cpu', lambda: phase_train_cpu(check, dev)),
                 ('dist', lambda: phase_dist(check, dev, report, card,
                                             chain_root)),
+                ('options', lambda: phase_options(check, dev, card,
+                                                  chain_root)),
                 ('serve', lambda: phase_serve(check, dev, report, card))):
             try:
                 fn()

@@ -97,10 +97,13 @@ def test_loader_batches_as_jax(synth_root):
 
 
 def test_refusals(synth_root):
-    with pytest.raises(ValueError, match='lmdb'):
+    # lmdb takes two *.lmdb databases, as the JAX package's does
+    with pytest.raises(ValueError, match='should both in lmdb formats'):
         RefCUFEDDataset(_opt(synth_root, io_backend={'type': 'lmdb'}))
+    with pytest.raises(ImportError, match='memcached'):
+        FileClient('memcached', server_list_cfg=None, client_cfg=None)
     with pytest.raises(ValueError, match='not supported'):
-        FileClient('memcached')
+        FileClient('s3')
     with pytest.raises(ValueError, match='not ported'):
         create_dataset(_opt(synth_root, type='UnknownDataset'))
     with pytest.raises(ValueError, match='phase'):
