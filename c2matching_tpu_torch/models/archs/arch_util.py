@@ -8,6 +8,11 @@ memory order. Parameters carry the reference's torch state-dict names.
 ``dtype`` is the compute dtype of the convolutions, as the JAX package's
 ``dtype`` field on every network block: parameters stay float32, and each
 conv casts its input, weight and bias to it (None is float32).
+
+``band`` (a ``parallel.Band``, None for the whole image): the input holds
+one rank's horizontal band of the image (``val_spatial_shard``); each
+conv takes one row from each neighbouring band first, and the valid
+masks are in the image's rows.
 """
 import math
 
@@ -17,6 +22,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from ...ops.patch_match import as_dtype
+from ...parallel.spatial import exchange_halo
 
 
 class Conv2d(nn.Conv2d):
@@ -29,11 +35,17 @@ class Conv2d(nn.Conv2d):
                          device=device)
         self.compute_dtype = as_dtype(compute_dtype) or torch.float32
 
-    def forward(self, x):
+    def forward(self, x, band=None):
         dt = self.compute_dtype
-        return self._conv_forward(x.permute(0, 3, 1, 2).to(dt),
-                                  self.weight.to(dt),
-                                  self.bias.to(dt)).permute(0, 2, 3, 1)
+        if band is None:
+            return self._conv_forward(x.permute(0, 3, 1, 2).to(dt),
+                                      self.weight.to(dt),
+                                      self.bias.to(dt)).permute(0, 2, 3, 1)
+        # a band: the neighbours' rows (zeros past the image) take the
+        # place of the vertical zero padding
+        x = exchange_halo(x.to(dt), band, 1, 1)
+        return F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt),
+                        self.bias.to(dt), padding=(0, 1)).permute(0, 2, 3, 1)
 
 
 def conv(in_channels, out_channels, generator=None, std=0.02, dtype=None):
@@ -52,9 +64,10 @@ def conv(in_channels, out_channels, generator=None, std=0.02, dtype=None):
     return layer
 
 
-def valid_mask(x, valid_shape):
+def valid_mask(x, valid_shape, row0=0):
     """(1, H, W, 1) {0, 1} mask in x.dtype of the valid (unpadded) region of
-    a bucket-padded NHWC tensor: 1 where row < vh and col < vw.
+    a bucket-padded NHWC tensor: 1 where row < vh and col < vw. ``row0``:
+    the image row of x's first row (a band's).
 
     Multiplying each conv output by it makes the padded computation give
     the exact-shape values on the valid crop: the zero bands then act like
@@ -62,7 +75,7 @@ def valid_mask(x, valid_shape):
     """
     vh, vw = valid_shape
     h, w = x.shape[1], x.shape[2]
-    row = torch.arange(h, device=x.device)[None, :, None, None]
+    row = torch.arange(row0, row0 + h, device=x.device)[None, :, None, None]
     col = torch.arange(w, device=x.device)[None, None, :, None]
     return ((row < int(vh)) & (col < int(vw))).to(x.dtype)
 
@@ -102,11 +115,11 @@ class ResidualBlockNoBN(nn.Module):
         self.conv1 = conv(nf, nf, generator, dtype=dtype)
         self.conv2 = conv(nf, nf, generator, dtype=dtype)
 
-    def forward(self, x, mask=None):
-        out = self.conv1(x)
+    def forward(self, x, mask=None, band=None):
+        out = self.conv1(x, band)
         if mask is not None:
             out = out * mask
-        out = self.conv2(F.relu(out))
+        out = self.conv2(F.relu(out), band)
         if mask is not None:
             out = out * mask
         return x + out
@@ -120,7 +133,7 @@ class ResBlockStack(nn.ModuleList):
         super().__init__([ResidualBlockNoBN(nf, generator, dtype)
                           for _ in range(n_blocks)])
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, band=None):
         for block in self:
-            x = block(x, mask)
+            x = block(x, mask, band)
         return x

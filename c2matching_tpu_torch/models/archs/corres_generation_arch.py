@@ -4,11 +4,21 @@ Counterpart of ``c2matching_tpu/models/archs/corres_generation_arch.py``.
 The matching part has no parameters; the module carries the frozen VGG19
 (``vgg.*``) that extracts the HR reference features for the restoration
 net.
+
+With a ``band`` (``val_spatial_shard``) each rank matches its band's
+query rows and computes its band of the reference's VGG19 features; the
+reference's contrastive features and its VGG19 features are gathered
+whole, since the match and the deformable convs read all of them. (The
+JAX package shards the reference too. Computing it whole on every rank
+instead would repeat the VGG's work world times to save the gathers; the
+whole features are on every rank either way: the relu1_1 of an HR
+512x384 reference is 50 MB in f32.)
 """
 from torch import nn
 
 from ...ops.flow import batched_pre_offsets
 from ...ops.patch_match import batched_patch_match
+from ...parallel.spatial import gather_rows
 from .vgg_arch import VGGFeatureExtractor
 
 
@@ -33,7 +43,8 @@ class CorrespondenceGenerationArch(nn.Module):
                                        vgg_type=vgg_type, generator=generator,
                                        dtype=dtype)
 
-    def forward(self, dense_features, img_ref_hr, valid_shape=None):
+    def forward(self, dense_features, img_ref_hr, valid_shape=None,
+                band=None):
         """
         Args:
             dense_features: {'dense_features1': (B, H, W, C) input-branch
@@ -42,19 +53,28 @@ class CorrespondenceGenerationArch(nn.Module):
             valid_shape: None, or (vh, vw) valid HR sizes of a bucket-padded
                 batch: the matcher gets the LR-scale (vh // 4, vw // 4), the
                 reference VGG the sizes as they are.
+            band: None, or the ``parallel.Band`` (in the features' LR rows)
+                of which the features and img_ref_hr hold the rows.
         Returns:
             (pre_offset, img_ref_feat): pre_offset maps relu{3,2,1}_1 to
-            (B, 9, H_s, W_s, 2) offsets, last dim (x, y); img_ref_feat maps
-            the VGG layers to (B, H_s, W_s, C_s).
+            (B, 9, H_s, W_s, 2) offsets, last dim (x, y), the band's rows
+            of them with a band; img_ref_feat maps the VGG layers to
+            (B, H_s, W_s, C_s), whole.
         """
         lr_valid = None
         if valid_shape is not None:
             lr_valid = (valid_shape[0] // 4, valid_shape[1] // 4)
+        feat_ref = dense_features['dense_features2']
+        if band is not None:
+            feat_ref = gather_rows(feat_ref, band)
         max_idx, _ = batched_patch_match(
-            dense_features['dense_features1'],
-            dense_features['dense_features2'], patch_size=self.patch_size,
-            compute_dtype=self.match_dtype, valid_shape=lr_valid)
+            dense_features['dense_features1'], feat_ref,
+            patch_size=self.patch_size, compute_dtype=self.match_dtype,
+            valid_shape=lr_valid, band=band)
         pre_offset = batched_pre_offsets(max_idx, patch_size=self.patch_size,
-                                         valid_shape=lr_valid)
-        img_ref_feat = self.vgg(img_ref_hr, valid_shape=valid_shape)
-        return pre_offset, img_ref_feat
+                                         valid_shape=lr_valid, band=band)
+        if band is None:
+            return pre_offset, self.vgg(img_ref_hr, valid_shape=valid_shape)
+        img_ref_feat = self.vgg(img_ref_hr, valid_shape, band.scaled(4))
+        return pre_offset, {k: gather_rows(v, band)
+                            for k, v in img_ref_feat.items()}

@@ -11,6 +11,13 @@ drawn from an explicit ``torch.Generator``.
 
 ``dtype`` (None is float32) is the compute dtype of every conv, as in the
 JAX package; the DCN's offsets and mask stay float32 whatever it is.
+
+``band`` (a ``parallel.Band`` in LR rows, ``val_spatial_shard``): the LR
+input, the content features and the pre-offsets are one rank's band of
+the image, the reference features are whole, and the output is the
+band's HR rows. Each DynAgg samples the whole reference feature for the
+band's pixels (its deformable conv at padding ``1 - row0``), and keeps
+the sum and count of its |learned offset| for the caller to reduce.
 """
 import math
 
@@ -20,6 +27,7 @@ from torch import nn
 from ...ops.deform_conv import modulated_deform_conv
 from ...ops.patch_match import as_dtype
 from ...ops.resize import pixel_shuffle, upscale
+from ...parallel.spatial import allreduce_sum
 from .arch_util import ResBlockStack, conv, lrelu, scale_valid, valid_mask
 
 
@@ -46,27 +54,34 @@ class DynAgg(nn.Module):
             torch.empty(channels, channels, 3, 3).uniform_(
                 -stdv, stdv, generator=generator))
         self.bias = nn.Parameter(torch.zeros(channels))
-        # mean |learned offset| of the last forward, a 0-d tensor: the
-        # reference warns when it exceeds 100 (read by the eval model)
-        self.offset_absmean = None
+        # the (sum, count) of |learned offset| of the last forward (a band's
+        # with a band), float64: the reference warns when their mean exceeds
+        # 100 (read through offset_stats)
+        self.offset_abssum = None
 
-    def forward(self, ref_feat, offset_feat, pre_offset):
+    def forward(self, ref_feat, offset_feat, pre_offset, band=None):
         """
         Args:
             ref_feat:    (B, H, W, C) feature to sample (ref VGG features).
             offset_feat: (B, H, W, C') feature the offsets are predicted from.
             pre_offset:  (B, 9, H, W, 2) match offsets, last dim (x, y).
+            band: None, or the ``parallel.Band`` of offset_feat's and
+                pre_offset's rows (ref_feat whole).
         Returns:
-            (B, H, W, C) aggregated feature in ref_feat's dtype.
+            (B, H, W, C) aggregated feature in ref_feat's dtype (the band's
+            rows with a band).
         """
         g, k = self.groups, self.k
         b, h, w, _ = offset_feat.shape
-        out = self.conv_offset_mask(offset_feat)
+        out = self.conv_offset_mask(offset_feat, band)
         # o1 ++ o2 read as (G, K, 2): (dy, dx) interleaved per tap
         offset = out[..., :2 * g * k].float().reshape(b, h, w, g, k, 2)
         if not torch.compiler.is_exporting():
             # a module attribute: kept out of an exported graph
-            self.offset_absmean = offset.detach().abs().mean()
+            absolute = offset.detach().abs()
+            self.offset_abssum = torch.stack([
+                absolute.sum(dtype=torch.float64),
+                absolute.new_full((), absolute.numel(), dtype=torch.float64)])
         mask = torch.sigmoid(out[..., 2 * g * k:].float()).reshape(
             b, h, w, g, k)
         # (B, 9, H, W, 2[x, y]) -> (B, H, W, 1, 9, 2[y, x]), broadcast over
@@ -79,7 +94,10 @@ class DynAgg(nn.Module):
         ref_in = ref_feat
         if self.gather_dtype is not None:
             ref_in = ref_feat.to(self.gather_dtype)
-        out = modulated_deform_conv(ref_in, offset, mask, weight, self.bias)
+        # a band's output rows sample the whole feature at the image's rows
+        padding = (1, 1) if band is None else (1 - band.row0, 1)
+        out = modulated_deform_conv(ref_in, offset, mask, weight, self.bias,
+                                    padding=padding)
         return out.to(ref_feat.dtype)
 
 
@@ -91,11 +109,11 @@ class ContentExtractor(nn.Module):
         self.conv_first = conv(3, nf, generator, dtype=dtype)
         self.body = ResBlockStack(nf, n_blocks, generator, dtype)
 
-    def forward(self, x, mask=None):
-        feat = lrelu(self.conv_first(x))
+    def forward(self, x, mask=None, band=None):
+        feat = lrelu(self.conv_first(x, band))
         if mask is not None:
             feat = feat * mask
-        return self.body(feat, mask)
+        return self.body(feat, mask, band)
 
 
 _SCALES = (('small', 'relu3_1', 256), ('medium', 'relu2_1', 128),
@@ -131,43 +149,53 @@ class DynamicAggregationRestoration(nn.Module):
                                         nn.LeakyReLU(0.1),
                                         conv_(ngf // 2, 3))
 
-    def _scale_stage(self, x, scale, ref, pre_offset, vs):
-        mask = None if vs is None else valid_mask(x, vs)
+    def _scale_stage(self, x, scale, ref, pre_offset, vs, band):
+        mask = None if vs is None else valid_mask(
+            x, vs, 0 if band is None else band.row0)
 
         def masked(t):
             return t if mask is None else t * mask
 
-        off = torch.cat([x, ref], dim=-1)
-        off = masked(lrelu(getattr(self, f'{scale}_offset_conv1')(off)))
-        off = masked(lrelu(getattr(self, f'{scale}_offset_conv2')(off)))
+        off = torch.cat([x, ref if band is None else band.take(ref)], dim=-1)
+        off = masked(lrelu(getattr(self, f'{scale}_offset_conv1')(off, band)))
+        off = masked(lrelu(getattr(self, f'{scale}_offset_conv2')(off, band)))
         swapped = masked(lrelu(getattr(self, f'{scale}_dyn_agg')(
-            ref, off, pre_offset)))
+            ref, off, pre_offset, band)))
         h = torch.cat([x, swapped], dim=-1)
-        h = masked(lrelu(getattr(self, f'head_{scale}')[0](h)))
-        h = getattr(self, f'body_{scale}')(h, mask) + x
+        h = masked(lrelu(getattr(self, f'head_{scale}')[0](h, band)))
+        h = getattr(self, f'body_{scale}')(h, mask, band) + x
         if scale == 'large':
-            h = masked(lrelu(self.tail_large[0](h)))
+            h = masked(lrelu(self.tail_large[0](h, band)))
             # the final conv output is left unmasked: the caller crops the
             # pad bands, and they feed nothing else
-            return self.tail_large[2](h)
+            return self.tail_large[2](h, band)
         # masked at the coarse scale = masked after the shuffle
-        h = masked(getattr(self, f'tail_{scale}')[0](h))
+        h = masked(getattr(self, f'tail_{scale}')[0](h, band))
         return lrelu(pixel_shuffle(h, 2))
 
-    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None):
+    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None,
+                band=None):
         """``valid_shape``: valid LR-scale sizes of a bucket-padded batch;
-        every conv output is re-zeroed in the pad bands. None is a no-op."""
+        every conv output is re-zeroed in the pad bands. None is a no-op.
+        ``band``: the LR band of x and of the relu3 pre-offsets."""
         for i, (scale, key, _) in enumerate(_SCALES):
-            x = self._scale_stage(x, scale, img_ref_feat[key],
-                                  pre_offset[key],
-                                  scale_valid(valid_shape, 2 ** i))
+            x = self._scale_stage(
+                x, scale, img_ref_feat[key], pre_offset[key],
+                scale_valid(valid_shape, 2 ** i),
+                None if band is None else band.scaled(2 ** i))
         return x
 
-    def offset_stats(self):
-        """{'offset_absmean_<scale>': 0-d tensor} from the last forward."""
-        return {f'offset_absmean_{scale}':
-                getattr(self, f'{scale}_dyn_agg').offset_absmean
-                for scale, _, _ in _SCALES}
+    def offset_stats(self, reduce=False):
+        """{'offset_absmean_<scale>': 0-d float32 tensor}, the mean |learned
+        offset| of the last forward. ``reduce``: over every rank's sums and
+        counts (after a banded forward, the whole image's; a collective,
+        every rank calls it)."""
+        sums = torch.stack([getattr(self, f'{scale}_dyn_agg').offset_abssum
+                            for scale, _, _ in _SCALES])
+        if reduce:
+            sums = allreduce_sum(sums)
+        return {f'offset_absmean_{scale}': (sums[i, 0] / sums[i, 1]).float()
+                for i, (scale, _, _) in enumerate(_SCALES)}
 
 
 class RestorationNet(nn.Module):
@@ -182,7 +210,8 @@ class RestorationNet(nn.Module):
         self.dyn_agg_restore = DynamicAggregationRestoration(
             ngf, n_blocks, groups, gather_dtype, generator, dtype)
 
-    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None):
+    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None,
+                band=None):
         """
         Args:
             x: (B, h, w, 3) LR input.
@@ -191,11 +220,14 @@ class RestorationNet(nn.Module):
                 of the HR reference.
             valid_shape: None, or (vh, vw) valid LR sizes of a bucket-padded
                 batch.
+            band: None, or the ``parallel.Band`` (LR rows) of which x and
+                the pre-offsets hold the rows; img_ref_feat stays whole.
         Returns:
-            (B, 4h, 4w, 3) restored image.
+            (B, 4h, 4w, 3) restored image, or the band's (B, 4 rows, 4w, 3).
         """
-        base = upscale(x, 4, 'bilinear', valid_shape=valid_shape)
-        mask = None if valid_shape is None else valid_mask(x, valid_shape)
-        content = self.content_extractor(x, mask)
+        base = upscale(x, 4, 'bilinear', valid_shape=valid_shape, band=band)
+        mask = None if valid_shape is None else valid_mask(
+            x, valid_shape, 0 if band is None else band.row0)
+        content = self.content_extractor(x, mask, band)
         return self.dyn_agg_restore(content, pre_offset, img_ref_feat,
-                                    valid_shape) + base
+                                    valid_shape, band) + base

@@ -5,7 +5,10 @@ buffer names follow the reference (``vgg_net.{name}.*`` and ``mean`` /
 ``std`` for VGGFeatureExtractor, ``model.{name}.*`` and ``mean`` / ``std``
 for ContrasExtractorLayer), so its state dicts load with strict=True.
 ``dtype`` (None is float32) is the compute dtype of the convs, as in the JAX
-package; the input normalisation stays in the input's dtype.
+package; the input normalisation stays in the input's dtype. ``band`` (a
+``parallel.Band``): the input is one rank's horizontal band, whose
+boundaries fall on multiples of 4 rows, so that the 2x2 pools of the
+eval path's prefixes (to relu3_1) split at band boundaries.
 """
 import torch
 import torch.nn.functional as F
@@ -84,24 +87,28 @@ def _normalize(module, x):
         / module.std.view(1, 1, 1, 3).to(x.dtype)
 
 
-def _run(convs, names, x, valid_shape, wanted=None):
+def _run(convs, names, x, valid_shape, wanted=None, band=None):
     """Run the layer sequence ``names``; each conv output is re-zeroed in
     the pad bands when ``valid_shape`` is given, which halves at every
-    2x2 pool. Returns the dict of ``wanted`` activations, or the last one
-    when ``wanted`` is None."""
+    2x2 pool, as does ``band``. Returns the dict of ``wanted``
+    activations, or the last one when ``wanted`` is None."""
+    row0 = 0 if band is None else band.row0
     if valid_shape is not None:
-        x = x * valid_mask(x, valid_shape)
+        x = x * valid_mask(x, valid_shape, row0)
     output = {}
     for name in names:
         if name.startswith('conv'):
-            x = convs[name](x)
+            x = convs[name](x, band)
             if valid_shape is not None:
-                x = x * valid_mask(x, valid_shape)
+                x = x * valid_mask(x, valid_shape, row0)
         elif name.startswith('relu'):
             x = F.relu(x)
         elif name.startswith('pool'):
             x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
             valid_shape = halve_valid(valid_shape)
+            if band is not None:
+                band = band.scaled(1 / 2)
+                row0 = band.row0
         if wanted is not None and name in wanted:
             output[name] = x
     return x if wanted is None else output
@@ -123,13 +130,14 @@ class VGGFeatureExtractor(nn.Module):
         self.vgg_net = _vgg_convs(self.names, generator, dtype)
         _imagenet_buffers(self)
 
-    def forward(self, x, valid_shape=None):
+    def forward(self, x, valid_shape=None, band=None):
         """x: (B, H, W, 3) RGB in [0, 1]. Returns {layer_name: feature}.
 
         ``valid_shape`` (vh, vw): re-zero each conv output in the pad bands
-        of a bucket-padded batch. None (exact shapes) is a no-op."""
+        of a bucket-padded batch. None (exact shapes) is a no-op. ``band``:
+        x is that band of the image, and so is each feature."""
         return _run(self.vgg_net, self.names, _normalize(self, x),
-                    valid_shape, wanted=set(self.layer_name_list))
+                    valid_shape, wanted=set(self.layer_name_list), band=band)
 
 
 class ContrasExtractorLayer(nn.Module):
@@ -142,8 +150,9 @@ class ContrasExtractorLayer(nn.Module):
         self.model = _vgg_convs(self.names, generator, dtype)
         _imagenet_buffers(self)
 
-    def forward(self, x, valid_shape=None):
-        return _run(self.model, self.names, _normalize(self, x), valid_shape)
+    def forward(self, x, valid_shape=None, band=None):
+        return _run(self.model, self.names, _normalize(self, x), valid_shape,
+                    band=band)
 
 
 class ContrasExtractorSep(nn.Module):
@@ -157,10 +166,11 @@ class ContrasExtractorSep(nn.Module):
         self.feature_extraction_image2 = ContrasExtractorLayer(generator,
                                                                dtype)
 
-    def forward(self, image1, image2, valid_shape=None):
+    def forward(self, image1, image2, valid_shape=None, band=None):
+        """``band``: both images are that band, and so are the features."""
         return {
-            'dense_features1': self.feature_extraction_image1(image1,
-                                                              valid_shape),
-            'dense_features2': self.feature_extraction_image2(image2,
-                                                              valid_shape),
+            'dense_features1': self.feature_extraction_image1(
+                image1, valid_shape, band),
+            'dense_features2': self.feature_extraction_image2(
+                image2, valid_shape, band),
         }

@@ -163,6 +163,8 @@ class BaseModel:
                 "available; pass device='cpu' to run on the CPU")
         self.rank = parallel.get_rank()
         self.world = parallel.get_world_size()
+        # batch-1 evaluation split into image bands (RefRestorationModel)
+        self.spatial = False
         self.log_dict = {}
         self.schedule_fn = None
         if self.is_train and opt.get('train'):
@@ -193,8 +195,9 @@ class BaseModel:
     def validation(self, dataloader, current_iter, tb_logger,
                    save_img=False):
         """``dist_validation`` at world size > 1, else
-        ``nondist_validation``."""
-        if self.world > 1:
+        ``nondist_validation``; with ``spatial`` (``val_spatial_shard`` in
+        evaluation) every rank takes every image, split into bands."""
+        if self.world > 1 and not self.spatial:
             return self.dist_validation(dataloader, current_iter, tb_logger,
                                         save_img)
         return self.nondist_validation(dataloader, current_iter, tb_logger,

@@ -62,9 +62,21 @@ batch: the nets start from rank 0's weights, every backward is followed
 by ``sync_gradients`` (G's and D's gradients averaged over the ranks),
 D's BatchNorm takes the global batch's statistics, the gradient-penalty
 coefficients are drawn for the global batch and each rank takes its
-slice, and ``log_dict`` holds the global batch's values. The top-level
-``val_spatial_shard`` option (batch-1 evaluation split into image bands
-across devices) raises there; at world size 1 it changes nothing.
+slice, and ``log_dict`` holds the global batch's values.
+
+The top-level ``val_spatial_shard`` option is read in evaluation only, as
+in the JAX package (in training it changes nothing). At world size > 1
+each image is then split into horizontal bands, one a rank
+(``parallel.band_for``: rank r owns LR rows ``[r h / world, (r + 1) h /
+world)`` of the bucket-padded LR height h, and 4 times those in HR):
+``feed_data`` keeps the rank's band of each input, ``test`` runs the nets
+on it, with a halo exchange at every 3x3 conv, the reference's features
+gathered whole, and B1 and B3 on the band's rows, then all-gathers the
+output along H, so that every rank holds the whole image, and the offset
+telemetry is the whole image's mean. Where h does not split into bands of
+at least 2 rows every rank computes the whole image (logged). The
+validation loop then walks every image on every rank (the collectives
+need all of them on one image), and rank 0 alone saves and logs each.
 """
 import functools
 import logging
@@ -180,10 +192,10 @@ class RefRestorationModel(SRModel):
         self.net_map = define_network(opt['network_map'], generator)
         self.net_extractor = define_network(opt['network_extractor'],
                                             generator)
-        if self.world > 1 and opt.get('val_spatial_shard'):
-            raise NotImplementedError(
-                'val_spatial_shard: the split of batch-1 evaluation into '
-                'image bands across processes is not ported')
+        # batch-1 evaluation in image bands across the ranks (read in
+        # evaluation only, as the JAX package does)
+        self.spatial = bool(not self.is_train and self.world > 1
+                            and opt.get('val_spatial_shard'))
         self._load_pretrained(opt.get('path') or {})
         for net in (self.net_map, self.net_extractor):
             net.to(self.device).eval().requires_grad_(False)
@@ -192,6 +204,7 @@ class RefRestorationModel(SRModel):
         self.output = None
         self._eval_crop = None
         self._valid_lr = None
+        self._band = None
         self._offset_warn_stats = {}
         if self.is_train:
             self.init_training_settings()
@@ -236,7 +249,9 @@ class RefRestorationModel(SRModel):
         sizes are kept, so the nets mask the pad bands and
         ``cropped_output`` crops back to (4h, 4w). Training batches are not
         padded. Other keys, such as the loader's 'padding',
-        'original_size' and 'lq_path', are not read here.
+        'original_size' and 'lq_path', are not read here. With
+        ``val_spatial_shard`` at world size > 1 each input keeps the rank's
+        band of its (padded) rows.
         """
         keys = ('img_in_lq', 'img_ref', 'img_in_up')
         if self.is_train:
@@ -253,21 +268,47 @@ class RefRestorationModel(SRModel):
             arrays['img_in_up'] = _pad_to(arrays['img_in_up'], 4 * bucket)
             self._eval_crop = (4 * h, 4 * w)
             self._valid_lr = (h, w)
+        self._band = self._band_of(arrays) if self.spatial else None
+        if self._band is not None:
+            hr = self._band.scaled(4)
+            arrays = {'img_in_lq': self._band.take(arrays['img_in_lq']),
+                      'img_ref': hr.take(arrays['img_ref']),
+                      'img_in_up': hr.take(arrays['img_in_up'])}
         self.batch = {k: v.to(self.device) for k, v in arrays.items()}
+
+    def _band_of(self, arrays):
+        """This rank's LR band of the padded inputs, or None where every
+        rank computes the whole image: LR rows that do not split into
+        bands of 2 or more (``parallel.band_for``, which logs it), or a
+        reference whose HR height is not the input's."""
+        h = arrays['img_in_lq'].shape[1]
+        heights = {arrays[k].shape[1] for k in ('img_ref', 'img_in_up')}
+        if heights != {4 * h}:
+            logger.warning(f'val_spatial_shard: HR heights {sorted(heights)} '
+                           f'are not 4 x the LR {h}; every rank computes '
+                           'the whole image')
+            return None
+        return parallel.band_for(h, self.rank, self.world)
 
     @torch.inference_mode()
     def test(self):
         """Match, then restore; ``self.output`` is the padded (B, 4H, 4W, 3)
-        result."""
+        result. With a band, each rank computes its band and the output is
+        all-gathered: every rank holds the whole image."""
         vs_lr = self._valid_lr
         vs_hr = None if vs_lr is None else (4 * vs_lr[0], 4 * vs_lr[1])
+        band = self._band
+        hr = None if band is None else band.scaled(4)
         feats = self.net_extractor(self.batch['img_in_up'],
-                                   self.batch['img_ref'], vs_hr)
+                                   self.batch['img_ref'], vs_hr, hr)
         pre_offset, ref_feat = self.net_map(feats, self.batch['img_ref'],
-                                            vs_hr)
+                                            vs_hr, band)
         self.output = self.net_g(self.batch['img_in_lq'], pre_offset,
-                                 ref_feat, vs_lr)
-        self._offset_warn_stats = self.net_g.dyn_agg_restore.offset_stats()
+                                 ref_feat, vs_lr, band)
+        if band is not None:
+            self.output = parallel.gather_rows(self.output, hr)
+        self._offset_warn_stats = self.net_g.dyn_agg_restore.offset_stats(
+            reduce=band is not None)
 
     def cropped_output(self):
         """The last output cropped to the request's own size. Warns when a

@@ -4,7 +4,9 @@ Counterpart of the evaluation half of ``c2matching_tpu/models/
 sr_model.py``: ``nondist_validation`` and, at world size > 1,
 ``dist_validation`` run ``_validation_loop``, which takes every image (or
 rank r's, every world-th from r) through the subclass's
-``_validation_images``, optionally saves the result, averages the metrics
+``_validation_images``, optionally saves the result (in
+``nondist_validation`` under a process group, where every rank takes
+every image, rank 0 alone saves and logs each), averages the metrics
 of ``_compute_val_metrics`` (named by ``_VAL_METRIC_LABELS``; the sums and
 the count all-reduced over the ranks) and logs them in the JAX package's
 format, to tensorboard too when a writer is given; ``_save_val_image``
@@ -27,7 +29,9 @@ class SRModel(BaseModel):
 
     def nondist_validation(self, dataloader, current_iter, tb_logger,
                            save_img=False):
-        """{metric: average} of the model on ``dataloader``."""
+        """{metric: average} of the model on ``dataloader``; under a
+        process group every rank takes every image (the banded evaluation)
+        and rank 0 alone saves and logs each."""
         return self._validation_loop(dataloader, current_iter, tb_logger,
                                      save_img)
 
@@ -45,20 +49,23 @@ class SRModel(BaseModel):
         names = list(self._VAL_METRIC_LABELS)
         sums = {k: 0. for k in names}
         count = 0
+        # the process that saves and logs each of its images: every rank
+        # of a strided loop, rank 0 where every rank takes every image
+        writes = world > 1 or self.rank == 0
         for idx, val_data in enumerate(dataloader):
             if idx % world != rank:
                 continue
             img_name = osp.splitext(
                 osp.basename(val_data['lq_path'][0]))[0]
             sr_img, gt_img = self._validation_images(val_data)
-            if save_img:
+            if save_img and writes:
                 self._save_val_image(sr_img, img_name, dataset_name,
                                      current_iter)
             vals = self._compute_val_metrics(sr_img, gt_img)
             for k in names:
                 sums[k] += vals[k]
             count += 1
-            if not self.is_train and self._VAL_LOG_PER_IMAGE:
+            if not self.is_train and self._VAL_LOG_PER_IMAGE and writes:
                 logger.info(f'# img {img_name} ' + ' '.join(
                     f'# {self._VAL_METRIC_LABELS[k]}: {vals[k]:.4e}'
                     for k in names) + '.')

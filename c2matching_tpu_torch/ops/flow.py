@@ -3,23 +3,39 @@
 Counterpart of ``c2matching_tpu/ops/flow.py``. Each function takes any
 number of leading batch axes, so the batched forms are the single-image
 forms applied to a (B, ...) tensor.
+
+With a ``band`` (a ``parallel.Band`` at the relu3 scale,
+``val_spatial_shard``) the match indices are one rank's query rows and
+the results that rank's rows of the image's.
 """
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import exchange_halo
 
-def index_to_flow(max_idx, pad=2):
+# the candidates' shifts reach 2 relu3-scale rows (i * step for i < 3 at
+# each scale's step)
+SHIFT_REACH = 2
+
+
+def index_to_flow(max_idx, pad=2, band=None):
     """Flat row-major match indices (..., h, w) -> (..., h+pad, w+pad, 2)
-    float32 relative flow, last dim (x, y), zero-padded bottom/right."""
+    float32 relative flow, last dim (x, y), zero-padded bottom/right.
+
+    ``band``: the indices are the query rows ``[row0, row0 + h)`` of the
+    band; the flow is the band's ``rows``, zero-padded at the image's
+    bottom only."""
     h, w = max_idx.shape[-2:]
+    row0 = 0 if band is None else band.row0
+    bottom = pad if band is None else band.rows - h
     max_idx = max_idx.to(torch.int64)
     flow_w = (max_idx % w).to(torch.float32)
     flow_h = (max_idx // w).to(torch.float32)
     grid_x = torch.arange(w, dtype=torch.float32, device=max_idx.device)
-    grid_y = torch.arange(h, dtype=torch.float32,
+    grid_y = torch.arange(row0, row0 + h, dtype=torch.float32,
                           device=max_idx.device)[:, None]
     flow = torch.stack((flow_w - grid_x, flow_h - grid_y), dim=-1)
-    return F.pad(flow, (0, 0, 0, pad, 0, pad))
+    return F.pad(flow, (0, 0, 0, pad, 0, bottom))
 
 
 def tensor_shift(x, shift, fill_val=0.0):
@@ -45,7 +61,8 @@ def upsample_flow(flow, factor):
     return up * float(factor)
 
 
-def match_to_pre_offsets(max_idx, patch_size=3, valid_shape=None):
+def match_to_pre_offsets(max_idx, patch_size=3, valid_shape=None,
+                         band=None):
     """Match indices (..., h-2, w-2) at relu3_1 scale -> the three-scale
     9-candidate pre-offset stacks of the restoration net.
 
@@ -54,25 +71,38 @@ def match_to_pre_offsets(max_idx, patch_size=3, valid_shape=None):
     ``pad`` rows/cols at ITS border, which lies inside the padded grid, so
     the flow is re-zeroed at rows >= vh-pad / cols >= vw-pad.
 
+    ``band``: the relu3-scale band of the indices' query rows; each result
+    is that band's rows at its scale. The shifted copies reach
+    ``SHIFT_REACH`` relu3 rows above the band, taken from the rank above
+    before the upsampling.
+
     Returns:
         {'relu3_1': (..., 9, h, w, 2), 'relu2_1': (..., 9, 2h, 2w, 2),
          'relu1_1': (..., 9, 4h, 4w, 2)}; last dim (x, y).
     """
     pad = patch_size - 1
-    flow3 = index_to_flow(max_idx, pad=pad)
+    flow3 = index_to_flow(max_idx, pad=pad, band=band)
     if valid_shape is not None:
         h, w = flow3.shape[-3:-1]
-        row = torch.arange(h, device=flow3.device)[:, None, None]
+        row0 = 0 if band is None else band.row0
+        row = torch.arange(row0, row0 + h, device=flow3.device)[:, None, None]
         col = torch.arange(w, device=flow3.device)[None, :, None]
         keep = (row < int(valid_shape[0]) - pad) & \
             (col < int(valid_shape[1]) - pad)
         flow3 = flow3 * keep.to(flow3.dtype)
-    return {'relu3_1': shifted_offsets(flow3, step=1),
-            'relu2_1': shifted_offsets(upsample_flow(flow3, 2), step=2),
-            'relu1_1': shifted_offsets(upsample_flow(flow3, 4), step=4)}
+    if band is None:
+        return {'relu3_1': shifted_offsets(flow3, step=1),
+                'relu2_1': shifted_offsets(upsample_flow(flow3, 2), step=2),
+                'relu1_1': shifted_offsets(upsample_flow(flow3, 4), step=4)}
+    ext = exchange_halo(flow3, band, SHIFT_REACH, 0)
+    out = {}
+    for key, f in (('relu3_1', 1), ('relu2_1', 2), ('relu1_1', 4)):
+        up = ext if f == 1 else upsample_flow(ext, f)
+        out[key] = shifted_offsets(up, step=f)[..., SHIFT_REACH * f:, :, :]
+    return out
 
 
-def batched_pre_offsets(max_idx, patch_size=3, valid_shape=None):
+def batched_pre_offsets(max_idx, patch_size=3, valid_shape=None, band=None):
     """``match_to_pre_offsets`` over a (B, h-2, w-2) batch; ``valid_shape``
     is shared by the batch."""
-    return match_to_pre_offsets(max_idx, patch_size, valid_shape)
+    return match_to_pre_offsets(max_idx, patch_size, valid_shape, band)

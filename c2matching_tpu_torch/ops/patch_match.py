@@ -13,9 +13,14 @@ semantics, pinned to the reference's chunked conv2d search:
 Features are NHWC. The correlation and argmax run in kernel B1
 (``patch_match_kernel.match_argmax``) on a CUDA tensor, and in its plain
 version on a CPU tensor.
+
+With a ``band`` (``val_spatial_shard``) the input features are one rank's
+horizontal band and the reference's are whole: the rank matches the
+query rows of its band against every reference patch.
 """
 import torch
 
+from ..parallel.spatial import exchange_halo
 from .patch_match_kernel import match_argmax
 
 
@@ -46,7 +51,7 @@ def unfold_descriptors(feat, patch_size=3):
 
 
 def batched_patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
-                        valid_shape=None):
+                        valid_shape=None, band=None):
     """Dense patch matching for a batch of image pairs.
 
     Args:
@@ -60,12 +65,22 @@ def batched_patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
             the batch) when the features are bucket-padded: ref patches
             reaching past the valid region get a -1e30 score bias, so the
             winners equal the exact-shape run's.
+        band: None, or the ``parallel.Band`` of ``feat_in`` (its rows of
+            the image; ``feat_ref`` is whole): the query rows are the
+            band's ``[row0, min(row0 + rows, H-p+1))``, whose patches reach
+            p-1 rows into the band below, taken from its rank.
 
     Returns:
-        (max_idx int32, max_val float32), both (B, H-p+1, W-p+1):
-        ``max_idx`` is the flat row-major index of the best ref patch.
+        (max_idx int32, max_val float32), both (B, H-p+1, W-p+1), or
+        (B, nq, W-p+1) for the band's nq query rows: ``max_idx`` is the
+        flat row-major index of the best ref patch.
     """
+    if band is not None:
+        feat_in = exchange_halo(feat_in, band, 0, patch_size - 1)
     d_in = unfold_descriptors(normalize_per_pixel(feat_in), patch_size)
+    if band is not None:
+        last = band.total - (patch_size - 1)
+        d_in = d_in[:, :max(0, min(band.stop, last) - band.row0)]
     d_ref = unfold_descriptors(normalize_per_pixel(feat_ref), patch_size)
     b, hh, ww, dim = d_in.shape
     hr, wr = d_ref.shape[1:3]
@@ -91,7 +106,11 @@ def batched_patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
         q = q.to(dtype)
         r = r.to(dtype)
 
-    max_idx, max_val = match_argmax(q, r, ref_bias)
+    if q.shape[1]:
+        max_idx, max_val = match_argmax(q, r, ref_bias)
+    else:   # a band below the last query row
+        max_idx = torch.zeros((b, 0), dtype=torch.int32, device=q.device)
+        max_val = torch.zeros((b, 0), dtype=torch.float32, device=q.device)
     max_val = max_val / q_norm
     return max_idx.reshape(b, hh, ww), max_val.reshape(b, hh, ww)
 

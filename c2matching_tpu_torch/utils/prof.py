@@ -7,7 +7,9 @@ on the current stream, and the events are read once, after the last call.
 On the CPU the host clock brackets each call (CPU ops finish before they
 return). One module, so that ``scripts/profile_serving.py`` and
 ``scripts/profile_train.py`` time alike and count bytes alike
-(``ByteCounter``).
+(``ByteCounter``). ``ModulePeaks`` names the module that sets a run's
+peak device memory (``scripts/profile_memory.py``, chip_smoke.py's
+banded evaluation).
 """
 import time
 
@@ -117,3 +119,63 @@ def count_gb(fn, *args):
     with ByteCounter() as counter:
         fn(*args)
     return counter.total / 1e9
+
+
+class ModulePeaks:
+    """The CUDA allocator's peak over a run, and each leaf module's share.
+
+    Hooks on every leaf module of ``nets``: before a forward, the peak is
+    folded into ``peak`` and reset; after it, ``(name, input shape, GiB
+    above what was allocated when it began, GiB of its output)`` is kept
+    where it is the module's largest. A convolution's excess over its
+    output is cuDNN's workspace and the halo rows. The hooks read the
+    allocator's counters on the host (no synchronisation). ``total()`` is
+    the run's peak, the allocator's current one folded in; ``top(n)`` the
+    n largest records; ``close()`` removes the hooks. On the CPU the
+    allocator keeps no counters: no hooks, ``total()`` None, no records.
+    """
+
+    def __init__(self, *nets):
+        self.peak, self.records, self._hooks = 0, {}, []
+        self._cuda = torch.cuda.is_available() and any(
+            p.is_cuda for net in nets for p in net.parameters())
+        if not self._cuda:
+            return
+        for net in nets:
+            for name, mod in net.named_modules():
+                if next(mod.children(), None) is None:
+                    self._hooks += [
+                        mod.register_forward_pre_hook(self._pre),
+                        mod.register_forward_hook(
+                            lambda m, a, out, name=name:
+                            self._post(name, a, out))]
+
+    def _pre(self, mod, args):
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        self._entry = torch.cuda.memory_allocated()
+
+    def _post(self, name, args, out):
+        top = torch.cuda.max_memory_allocated()
+        self.peak = max(self.peak, top)
+        gib = (top - self._entry) / 2 ** 30
+        if gib > self.records.get(name, (None, None, -1))[2]:
+            x = next((a for a in args if isinstance(a, torch.Tensor)), None)
+            out_gib = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(out)
+                          if isinstance(t, torch.Tensor)) / 2 ** 30
+            self.records[name] = (name, None if x is None else
+                                  list(x.shape), gib, out_gib)
+
+    def total(self):
+        if not self._cuda:
+            return None
+        return max(self.peak, torch.cuda.max_memory_allocated()) / 2 ** 30
+
+    def top(self, n=3):
+        return sorted(self.records.values(), key=lambda r: -r[2])[:n]
+
+    def close(self):
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []

@@ -150,7 +150,30 @@ Phases:
      card shared) against one process at batch 2 on phase eval's sets:
      the same files within one uint8 step. Each kernel of the training
      path must launch in (i) and (ii).
- 13. options: the options the port took last, on a 10-pair 160-px synth
+ 13. spatial: val_spatial_shard, batch-1 evaluation split into one
+     horizontal band of each image a rank. `python -m
+     c2matching_tpu_torch.test --launcher pytorch` (under
+     torch.distributed.run, TF32 off, cuDNN deterministic) at two ranks
+     sharing the card over gloo, on phase eval's f32 options at full
+     width with val_spatial_shard: true, on phase eval's sets and three
+     HR 512x336 pairs (LR 128x84, bucket 128x96: bands of 64 LR rows),
+     against the same CLI in one process: every image's output within
+     1e-4, the saved PNGs (rank 0 alone saves) within one uint8 step, the
+     averages within 1e-3 dB (SSIM_Y 1e-5) on both ranks; B1 once and B3
+     three times an image on each rank, the last image's B1 and B3
+     operands at the band's arguments held against their plain versions;
+     per rank ms an image, peak memory, halo exchanges and gathers with
+     their bytes (both ranks share the card: not a scaling number). Per
+     rank the leaf module that rose highest above its entry
+     (``ModulePeaks``). The CLI at world size 1 over NCCL with the option
+     on and off, every output bit for bit: a guard that the option is a
+     no-op there (no band is cut at world size 1; NCCL's band collectives
+     need two cards and are not run). The B3 band probe: the lower half of each padded
+     DynAgg image (Ho = H / 2 at padding (1 - H / 2, 1), the whole x), the
+     kernel bit for bit the whole image's columns of those rows, its
+     plain version likewise, and the two within B3's f32 tolerance. One
+     JSON line of the phase's numbers.
+ 14. options: the options the port took last, on a 10-pair 160-px synth
      set whose refs share their inputs' keys, packed into lmdb databases by
      c2matching_tpu_torch.scripts.create_cufed_lmdb (through the lmdb
      package where installed, else the port's own store of the same
@@ -177,7 +200,7 @@ Phases:
      within 2^-5. bytes: profile_serving --cost at batch 16 (serving
      config): each stage's *_hbm_gb and *_hbm_gb_per_s beside its
      *_gflops. One JSON line of the phase's numbers.
- 14. serve: batch serving and the tools. export_serving of the serving
+ 15. serve: batch serving and the tools. export_serving of the serving
      config at batch 2, HR 512x336 (the graph's operator calls, the
      export's seconds and the .pt2's MB); the artifact is loaded and run in
      a fresh process that cannot import c2matching_tpu_torch.models and
@@ -204,7 +227,7 @@ Phases:
      its own process, as the pin of utils/bench_gate.py was taken (torch's
      default TF32 settings): the step with the batch on the card and its
      gate line.
- 15. one JSON line of kernels, the card's line, and last the JSON result.
+ 16. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -1118,9 +1141,9 @@ def _record_kernel_inputs():
         seen['b1'].append((q, r, ref_bias))
         return match(q, r, ref_bias)
 
-    def mdc_rec(x, offset, mask, weight, bias=None):
+    def mdc_rec(x, offset, mask, weight, bias=None, **conv):
         seen['b3'].append((x, offset, mask, weight, bias))
-        return mdc(x, offset, mask, weight, bias)
+        return mdc(x, offset, mask, weight, bias, **conv)
 
     pm.match_argmax, ra.modulated_deform_conv = match_rec, mdc_rec
     try:
@@ -2927,6 +2950,379 @@ def phase_dist(check, dev, report, card, chain_root):
           f'{time.perf_counter() - t2:.1f}', flush=True)
 
 
+# --------------------------------------------------------------- spatial
+SPATIAL_OUT_TOL = 1e-4   # banded vs one process: each image's output (f32
+                         # sums of a conv over a band's halo in another
+                         # order; values of O(1))
+SPATIAL_PNG_STEPS = 1    # uint8 steps between a saved PNG and its twin
+SPATIAL_PSNR_TOL = 1e-3  # dB, the averages of PSNR and PSNR_Y
+SPATIAL_SSIM_TOL = 1e-5  # the average SSIM_Y
+SPATIAL_REQ = (512, 336)  # the request of phase main, 3 pairs, set 'req'
+# cuDNN's v7 API for the runs that read peak memory: with TF32 off, the
+# v8 heuristics of torch 2.11 give the medium DynAgg's conv_offset_mask
+# (128 to 216 channels at 128x192, a band's shape at HR 512x384) a plan
+# that takes ~13.7 GiB of workspace (scripts/profile_memory.py)
+SPATIAL_V7_ENV = {'TORCH_CUDNN_V8_API_DISABLED': '1'}
+SPATIAL_PEAK_RATIO = 1.0  # a rank's peak under the v7 API over one
+                          # process's: a band holds half the image's
+                          # activations and the whole reference's features
+# the test CLI, TF32 off and cuDNN's deterministic algorithms, recording
+# each image's cropped output and host ms (synchronised), the last image's
+# B1 and B3 operands held against their plain versions (checks of this
+# file, whose lines go to the output), the launch counts, the band
+# exchanges' counts and bytes, the peak memory and the leaf modules that
+# rose highest above their entry (utils/prof.py::ModulePeaks, hooks read
+# on the host): one {"rank": ...} line
+SPATIAL_CHILD = """
+import importlib, json, os, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+import chip_smoke as cs
+from c2matching_tpu_torch import ops, parallel, test
+from c2matching_tpu_torch.models.ref_restoration_model import \\
+    RefRestorationModel
+from c2matching_tpu_torch.parallel import spatial
+from c2matching_tpu_torch.utils.prof import ModulePeaks
+pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match')
+ra = importlib.import_module(
+    'c2matching_tpu_torch.models.archs.ref_restoration_arch')
+images, crop = RefRestorationModel._validation_images, \\
+    RefRestorationModel.cropped_output
+match, mdc = pm.match_argmax, ra.modulated_deform_conv
+outputs, ms, last, bands, info = {}, {}, {}, {}, {}
+
+def cropped(self):
+    out = crop(self)
+    self.chip_smoke_out = out
+    return out
+
+def timed(self, val_data):
+    if 'peaks' not in info:
+        info['peaks'] = ModulePeaks(self.net_extractor, self.net_map,
+                                    self.net_g)
+    path = val_data['lq_path'][0]
+    key = path.split('/')[-3] + '/' + os.path.basename(path)
+    last.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = images(self, val_data)
+    torch.cuda.synchronize()
+    ms.setdefault(key.split('/')[0], []).append(
+        1e3 * (time.perf_counter() - t0))
+    outputs[key] = self.chip_smoke_out.cpu()
+    bands[key] = None if self._band is None else self._band.rows
+    info['backend'] = (torch.distributed.get_backend()
+                       if torch.distributed.is_initialized() else None)
+    return result
+
+def match_rec(q, r, ref_bias=None):
+    last['b1'] = (q, r, ref_bias)
+    return match(q, r, ref_bias)
+
+def mdc_rec(x, offset, mask, weight, bias=None, **conv):
+    last.setdefault('b3', []).append((x, offset, mask, conv))
+    return mdc(x, offset, mask, weight, bias, **conv)
+
+RefRestorationModel._validation_images = timed
+RefRestorationModel.cropped_output = cropped
+pm.match_argmax, ra.modulated_deform_conv = match_rec, mdc_rec
+spatial.reset_stats()
+results = test.main(sys.argv[1:])
+launches = {k: getattr(ops, k).launches
+            for k in ('match_argmax', 'deform_im2col')}
+stats = dict(spatial.stats)
+rank = int(os.environ.get('RANK', 0))
+check = cs.Checks()
+with torch.inference_mode():
+    if 'b1' in last:
+        q, r, bias = last['b1']
+        cs._b1_compare(check, q, r, bias, f'spatial rank {rank} band '
+                       f'{tuple(q.shape)} x {tuple(r.shape)}')
+    for x, offset, mask, conv in last.get('b3', []):
+        cs._b3_compare(check, x[0], offset[0], mask[0], f'spatial rank '
+                       f'{rank} band {tuple(offset.shape[1:3])} of '
+                       f'{tuple(x.shape[1:])} padding {conv["padding"]}',
+                       **conv)
+torch.save(outputs, os.environ['CHIP_SMOKE_OUT'] + f'/outputs.rank{rank}.pt')
+print(json.dumps({
+    'rank': rank, 'world': int(os.environ.get('WORLD_SIZE', 1)),
+    'backend': info.get('backend'),
+    'results': results, 'ms': ms, 'bands': bands, 'launches': launches,
+    'stats': stats, 'b1_b3_failed': check.failed,
+    'b1_b3_checked': ('b1' in last) + len(last.get('b3', [])),
+    'peak_gib': info['peaks'].total(),
+    'peak_modules': info['peaks'].top(3)}), flush=True)
+"""
+
+
+def _spatial_options(root, weights, spatial, backend):
+    """Phase eval's f32 options on phase eval's sets and the 'req' set,
+    with ``val_spatial_shard`` and ``dist_params.backend``."""
+    text = _eval_options(EVAL_OPTIONS[0][1], root, weights,
+                         ('synth', 'cufed'))
+    text = text.replace('\nval_func:', f"""
+  test_3:
+    name: req
+    type: RefCUFEDDataset
+    dataroot_in: {root}/req/input
+    dataroot_ref: {root}/req/ref
+    io_backend:
+      type: disk
+    ann_file: {root}/req/pairs.txt
+
+val_func:""", 1)
+    return (text + f'\nval_spatial_shard: {str(spatial).lower()}\n'
+            f'dist_params:\n  backend: {backend}\n')
+
+
+def _spatial_run(root, name, opts, n, env=None):
+    """Start the test CLI of options ``opts`` in SPATIAL_CHILD: at ``n``
+    ranks under torch.distributed.run, or (``n`` 0) alone without a
+    launcher. Its results tree and outputs under ``root``/``name``."""
+    import os
+    out = f'{root}/{name}'
+    os.makedirs(out)
+    child = f'{root}/spatial_child.py'
+    args = ['-opt', opts]
+    cmd = ([sys.executable, child] + args if n == 0 else
+           _torchrun(n, child, *args, '--launcher', 'pytorch'))
+    return _spawn(cmd, root, dict(env or {}, C2MATCHING_ROOT=out,
+                                  CHIP_SMOKE_OUT=out))
+
+
+def _spatial_records(check, what, result, n):
+    ok, text = _dist_done(check, what, result)
+    if not ok:
+        return None
+    lines = _rank_lines(text)
+    for line in text.splitlines():
+        if line.startswith(('ok   b', 'FAIL b')):
+            print(f'  {what}: {line}', flush=True)
+    if not check(len(lines) == max(n, 1), f'{what}: {len(lines)} rank '
+                 'record(s)'):
+        return None
+    for r in lines:
+        check(not r['b1_b3_failed'] and r['b1_b3_checked'] == 4,
+              f'{what}, rank {r["rank"]}: the last image\'s B1 and 3 B3 '
+              f'launches at the band\'s arguments against their plain '
+              f'versions ({r["b1_b3_checked"]} held; failed: '
+              f'{r["b1_b3_failed"]})')
+    return lines
+
+
+def _spatial_outputs(root, name, rank=0):
+    return torch.load(f'{root}/{name}/outputs.rank{rank}.pt',
+                      weights_only=True)
+
+
+def _spatial_pngs(root, name):
+    import os
+    import numpy as np
+    from c2matching_tpu_torch.utils import png
+    vis = f'{root}/{name}/results/synth_smoke/visualization'
+    imgs = {}
+    for sub in sorted(os.listdir(vis)):
+        for fname in sorted(os.listdir(f'{vis}/{sub}')):
+            with open(f'{vis}/{sub}/{fname}', 'rb') as f:
+                imgs[f'{sub}/{fname}'] = png.decode(f.read()).astype(
+                    np.int16)
+    return imgs
+
+
+def _spatial_b3_probe(check, dev):
+    """B3 at a band's arguments: the lower half of each padded DynAgg
+    image of an HR 512x336 request (Ho = H / 2, padding (1 - H / 2, 1), the
+    whole x), the kernel against the same rows of its whole-image columns
+    and against its plain version, which must give those rows of its own
+    whole-image columns bit for bit."""
+    from c2matching_tpu_torch.ops import deform_im2col, deform_im2col_plain
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for layer, h, w, c in (('relu3_1', 128, 96, 256),
+                           ('relu2_1', 256, 192, 128),
+                           ('relu1_1', 512, 384, 64)):
+        x, offset, mask = _dcn_inputs(gen, dev, h, w, c, torch.float32)
+        row0 = h // 2
+        pad = (1 - row0, 1)
+        band = (x, offset[row0:].contiguous(), mask[row0:].contiguous())
+        whole_k = deform_im2col(x, offset, mask)[row0 * w:]
+        band_k = deform_im2col(*band, padding=pad)
+        same_k = torch.equal(band_k, whole_k)
+        del whole_k
+        band_p = deform_im2col_plain(*band, padding=pad)
+        same_p = torch.equal(band_p,
+                             deform_im2col_plain(x, offset, mask)[row0 * w:])
+        err = (band_k - band_p).abs().max().item()
+        label = (f'spatial B3 band probe {layer} {h}x{w}x{c}, rows '
+                 f'{row0}-{h - 1} at padding {pad}')
+        check(same_k, f'{label}: kernel bit for bit the whole image\'s '
+              'columns of those rows')
+        check(same_p, f'{label}: plain version bit for bit its whole '
+              'image\'s columns of those rows')
+        check(err <= B3_F32_TOL, f'{label}: kernel vs plain max |diff| '
+              f'{err:.3g} <= {B3_F32_TOL:g} ('
+              f'{"bit for bit" if err == 0 else "not bit for bit"})')
+        out[layer] = err
+        del band, band_k, band_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_line(what, r, card):
+    n_img = sum(len(v) for v in r['ms'].values())
+    st = r['stats']
+    times = ', '.join(f'{k} {statistics.median(v):.1f}'
+                      for k, v in sorted(r['ms'].items()))
+    print(f'{what}, rank {r["rank"]}: ms an image (median of the set; host '
+          f'clock, synchronised) {times}; peak {r["peak_gib"]:.2f} GiB; '
+          f'launches B1 {r["launches"]["match_argmax"]}, B3 '
+          f'{r["launches"]["deform_im2col"]} over {n_img} images; highest '
+          'above its entry: ' + ', '.join(
+              f'{name} {shape} {gib:.2f} GiB (output {out:.3f})'
+              for name, shape, gib, out in r['peak_modules'][:1])
+          + f'; a band '
+          f'image: {st["halo_exchanges"] / n_img:.0f} halo exchanges, '
+          f'{st["halo_bytes"] / n_img / 2 ** 10:.1f} KiB received, '
+          f'{st["gathers"] / n_img:.0f} gathers, '
+          f'{st["gather_bytes"] / n_img / 2 ** 20:.2f} MiB received '
+          f'({card})', flush=True)
+
+
+def phase_spatial(check, dev, card):
+    """val_spatial_shard on the card: the test CLI at two ranks sharing the
+    card over gloo against one process; at world size 1 over NCCL the
+    option on against off, bit for bit; the B3 band probe."""
+    import numpy as np
+    from c2matching_tpu_torch.scripts import make_synth_dataset as synth
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_spatial_') as root, \
+            contextlib.ExitStack() as stack:
+        stack.callback(lambda: [_stop(p) for p in _DIST_PROCS])
+        _eval_data(root)
+        synth.write_dataset(f'{root}/req', n=3, size=SPATIAL_REQ)
+        weights = _eval_weights(root)
+        opts = {}
+        for key, spatial, backend in (('gloo', True, 'gloo'),
+                                      ('nccl_on', True, 'ici'),
+                                      ('nccl_off', False, 'ici')):
+            opts[key] = f'{root}/{key}.yml'
+            with open(opts[key], 'w') as f:
+                f.write(_spatial_options(root, weights, spatial, backend))
+        with open(f'{root}/spatial_child.py', 'w') as f:
+            f.write(SPATIAL_CHILD)
+        n_img = 3 + 1 + 3
+
+        # two ranks sharing the card, alone on it; then one process and the
+        # two world-size-1 NCCL runs at once; then the two peak runs under
+        # cuDNN's v7 API at once
+        two = _spatial_records(check, 'spatial, 2 ranks on the card over '
+                               'gloo', _spatial_run(
+                                   root, 'two', opts['gloo'], 2)(600), 2)
+        rec = {}
+        for group in ({'one': (opts['gloo'], 0, None),
+                       'nccl_on': (opts['nccl_on'], 1, None),
+                       'nccl_off': (opts['nccl_off'], 1, None)},
+                      {'one_v7': (opts['gloo'], 0, SPATIAL_V7_ENV),
+                       'two_v7': (opts['gloo'], 2, SPATIAL_V7_ENV)}):
+            waits = {k: _spatial_run(root, k, *v) for k, v in group.items()}
+            rec.update({k: _spatial_records(check, f'spatial {k}', w(600),
+                                            group[k][1])
+                        for k, w in waits.items()})
+        probe = _spatial_b3_probe(check, dev)
+        if two is None or None in rec.values():
+            return
+        one = rec['one'][0]
+        for r in two:
+            check(r['backend'] == 'gloo' and r['world'] == 2
+                  and all(r['bands'].values()), f'spatial two ranks over '
+                  f'{r["backend"]}, rank {r["rank"]}: every image split into '
+                  f'bands (LR rows a band: {r["bands"]})')
+            check(r['launches']['match_argmax'] == n_img
+                  and r['launches']['deform_im2col'] == 3 * n_img,
+                  f'spatial rank {r["rank"]}: B1 launched '
+                  f'{r["launches"]["match_argmax"]} times, B3 '
+                  f'{r["launches"]["deform_im2col"]} over {n_img} images '
+                  f'(1 and 3 an image)')
+            _spatial_line('spatial, 2 ranks sharing one card over gloo (not '
+                          'a scaling number: both ranks share the card)', r,
+                          card)
+        _spatial_line('spatial, one process (the option has no effect)',
+                      one, card)
+        check(one['launches']['match_argmax'] == n_img
+              and one['launches']['deform_im2col'] == 3 * n_img
+              and one['stats']['halo_exchanges'] == 0,
+              f'spatial one process: launches {one["launches"]}, no '
+              'exchange')
+        worst = {}
+        for two_k, one_k in (('two', 'one'), ('two_v7', 'one_v7')):
+            want = _spatial_outputs(root, one_k)
+            worst[two_k] = 0.
+            for rank in range(2):
+                got = _spatial_outputs(root, two_k, rank)
+                check(sorted(got) == sorted(want) and len(want) == n_img,
+                      f'spatial {two_k} rank {rank}: {len(got)} outputs')
+                for k, v in want.items():
+                    worst[two_k] = max(worst[two_k],
+                                       float((got[k] - v).abs().max()))
+            check(worst[two_k] <= SPATIAL_OUT_TOL, f'spatial {two_k}: every '
+                  f'image\'s output on both ranks within {worst[two_k]:.3g} '
+                  f'<= {SPATIAL_OUT_TOL:g} of {one_k}\'s')
+        peaks = {'v8 default': ([r['peak_gib'] for r in two],
+                                one['peak_gib']),
+                 'v7 API': ([r['peak_gib'] for r in rec['two_v7']],
+                            rec['one_v7'][0]['peak_gib'])}
+        for what, (ranks, whole) in peaks.items():
+            print(f'spatial peak under cuDNN\'s {what}: ranks ' + ', '.join(
+                f'{p:.2f}' for p in ranks) + f' GiB, one process '
+                f'{whole:.2f} GiB ({card})', flush=True)
+        ranks, whole = peaks['v7 API']
+        check(max(ranks) <= SPATIAL_PEAK_RATIO * whole, f'spatial: a rank\'s '
+              f'peak under cuDNN\'s v7 API {max(ranks):.2f} GiB <= '
+              f'{SPATIAL_PEAK_RATIO:g} x one process\'s {whole:.2f} GiB')
+        pngs = {k: _spatial_pngs(root, k) for k in ('two', 'one')}
+        steps = max((int(np.abs(pngs['two'][k] - v).max())
+                     for k, v in pngs['one'].items()
+                     if k in pngs['two']), default=99)
+        check(sorted(pngs['two']) == sorted(pngs['one'])
+              and len(pngs['one']) == n_img and steps <= SPATIAL_PNG_STEPS,
+              f'spatial: {len(pngs["two"])} PNGs saved once by two ranks, '
+              f'within {steps} <= {SPATIAL_PNG_STEPS} uint8 step of one '
+              'process\'s')
+        metric_diff = {}
+        for r in two:
+            for name, avgs in one['results'].items():
+                for k, v in avgs.items():
+                    d = abs(r['results'][name][k] - v)
+                    metric_diff[k] = max(metric_diff.get(k, 0.), d)
+        for k, d in sorted(metric_diff.items()):
+            tol = SPATIAL_SSIM_TOL if k == 'ssim_y' else SPATIAL_PSNR_TOL
+            check(d <= tol, f'spatial: {k} averages of both ranks within '
+                  f'{d:.3g} <= {tol:g} of one process\'s on every set')
+        nccl = {k: _spatial_outputs(root, k) for k in ('nccl_on', 'nccl_off')}
+        check(rec['nccl_on'][0]['backend'] == 'nccl'
+              and sorted(nccl['nccl_on']) == sorted(nccl['nccl_off'])
+              and all(torch.equal(v, nccl['nccl_off'][k])
+                      for k, v in nccl['nccl_on'].items()),
+              'spatial: the CLI at world size 1 over NCCL, the option on '
+              'vs off, every output bit for bit (a no-op guard: no band is '
+              'cut at world size 1)')
+        print(json.dumps({'phase': 'spatial', 'card': card,
+                          'two_ranks': [{k: r[k] for k in (
+                              'rank', 'ms', 'peak_gib', 'peak_modules',
+                              'launches', 'stats', 'bands')} for r in two],
+                          'one': {k: one[k] for k in (
+                              'ms', 'peak_gib', 'peak_modules',
+                              'launches')},
+                          'max_abs_err': worst['two'],
+                          'max_abs_err_v7': worst['two_v7'],
+                          'peak_gib_by_cudnn_api': peaks,
+                          'png_steps': steps,
+                          'metric_diff': metric_diff,
+                          'b3_band_probe_err': probe}),
+              flush=True)
+
+
 # ---------------------------------------------------------------- options
 OPTIONS_PRETRAIN, OPTIONS_GAN = 1, 1   # stage-3 iterations of the lmdb and
                                        # disk runs
@@ -4014,6 +4410,7 @@ def main():
                 ('train_cpu', lambda: phase_train_cpu(check, dev)),
                 ('dist', lambda: phase_dist(check, dev, report, card,
                                             chain_root)),
+                ('spatial', lambda: phase_spatial(check, dev, card)),
                 ('options', lambda: phase_options(check, dev, card,
                                                   chain_root)),
                 ('serve', lambda: phase_serve(check, dev, report, card))):

@@ -244,11 +244,31 @@ def test_serve_two_ranks_equals_one_process(runs):
     assert 'served' not in rank1    # rank 1 logs errors only
 
 
-def test_val_spatial_shard_raises_above_world_size_one(monkeypatch):
-    """The band split of batch-1 evaluation is not ported: at world size
-    > 1 the option raises; at world size 1 it changes nothing."""
-    opt = dict(_val_opt('.', '.'), val_spatial_shard=True)
-    create_model(opt, 'cpu')
+def test_val_spatial_shard_in_training_changes_nothing(monkeypatch):
+    """The JAX package reads val_spatial_shard in evaluation only: at world
+    size 2 a training model with the option builds and trains (one
+    G-pretrain step), and nothing is banded; an evaluation model takes
+    the bands (``tests/test_torch_spatial.py`` runs them)."""
     monkeypatch.setattr(parallel, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='val_spatial_shard'):
-        create_model(opt, 'cpu')
+    eval_opt = dict(_val_opt('.', '.'), val_spatial_shard=True)
+    assert create_model(eval_opt, 'cpu').spatial
+    opt = dict_to_nonedict(dict(
+        _val_opt('.', '.'), is_train=True, val_spatial_shard=True,
+        train={'lr_g': 1e-4, 'pixel_criterion': 'L1Loss',
+               'pixel_weight': 1.0, 'net_g_pretrain_steps': 10}))
+    model = create_model(opt, 'cpu')
+    assert model.world == 2 and not model.spatial
+    rng = np.random.RandomState(0)
+    model.feed_data({
+        'img_in_lq': rng.rand(1, 16, 12, 3).astype(np.float32),
+        'img_in_up': rng.rand(1, 64, 48, 3).astype(np.float32),
+        'img_ref': rng.rand(1, 64, 48, 3).astype(np.float32),
+        'img_in': rng.rand(1, 64, 48, 3).astype(np.float32)})
+    assert model._band is None
+    assert model.batch['img_in_lq'].shape == (1, 16, 12, 3)
+    before = [p.detach().clone() for p in model.net_g.parameters()]
+    model.optimize_parameters(1)
+    assert model.output.shape == (1, 64, 48, 3)
+    assert np.isfinite(float(model.log_dict['l_pix']))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(before, model.net_g.parameters()))

@@ -1,7 +1,9 @@
 """The port's profilers on the CPU: the timing protocol
 (``c2matching_tpu_torch/utils/prof.py``) and the JSON lines of
 ``scripts/profile_serving.py``, ``scripts/bench_train.py`` and
-``scripts/profile_train.py``, whose key sets are the JAX scripts'. The
+``scripts/profile_train.py``, whose key sets are the JAX scripts', and of
+``scripts/profile_memory.py`` (the port's own; on the CPU its peaks are
+null). The
 byte fields (``*_hbm_gb``, ``*_hbm_gb_per_s``) carry the same names as
 the JAX scripts' but count another thing: the unfused traffic each
 operator names (``utils/prof.py::ByteCounter``), not XLA's estimate.
@@ -20,8 +22,8 @@ import time
 import pytest
 import torch
 
-from c2matching_tpu_torch.scripts import (bench_train, profile_serving,
-                                          profile_train)
+from c2matching_tpu_torch.scripts import (bench_train, profile_memory,
+                                          profile_serving, profile_train)
 from c2matching_tpu_torch.utils import prof
 
 # the JAX scripts' keys (scripts/profile_serving.py, bench_train.py and
@@ -146,6 +148,40 @@ def test_profile_train_keys(monkeypatch, capsys):
     # the byte counter runs through the gradient penalty's autograd.grad
     assert out['d_step_hbm_gb'] > 0
     assert out['g_step_hbm_gb'] > out['g_forward_hbm_gb'] > 0
+
+
+def test_profile_memory_lines(monkeypatch, capsys):
+    """One JSON line a size; on the CPU no allocator counters, so null
+    peaks and no module records; cuDNN's flags restored."""
+    blocks = _small({k: dict(v) for k, v in
+                     profile_memory.F32_BLOCKS.items()})
+    monkeypatch.setattr(profile_memory, 'profile', functools.partial(
+        profile_memory.profile, blocks=blocks))
+    monkeypatch.setenv('CUDNN_CONV_WSCAP_DBG', '512')
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    profile_memory.main(['--hr', '64x48', '32x32', '--cudnn', 'benchmark',
+                         '--device', 'cpu'])
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == flags
+    lines = [json.loads(line)
+             for line in capsys.readouterr().out.splitlines()]
+    assert [r['hr'] for r in lines] == ['64x48', '32x32']
+    for r in lines:
+        assert r['cudnn'] == 'benchmark' and r['peak_gib'] is None
+        assert r['modules'] == []
+        assert r['env'] == {'CUDNN_CONV_WSCAP_DBG': '512',
+                            'TORCH_CUDNN_V8_API_DISABLED': None}
+
+
+def test_module_peaks_without_counters():
+    """CPU parameters: no hooks, no records, no total."""
+    net = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.ReLU())
+    peaks = prof.ModulePeaks(net)
+    net(torch.rand(2, 3))
+    assert peaks.total() is None and peaks.top() == []
+    assert not net[0]._forward_hooks
+    peaks.close()
 
 
 def test_cuda_default_refuses_without_a_card():
