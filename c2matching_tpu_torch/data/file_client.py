@@ -9,9 +9,19 @@ port's own store of the same API and format (``utils/lmdb_shim.py``) and
 logs that it does.
 """
 import logging
+from abc import ABCMeta, abstractmethod
 
 
-class HardDiskBackend:
+class BaseStorageBackend(metaclass=ABCMeta):
+    """A byte store: ``get`` returns the bytes a path (and, for lmdb, a
+    client key) names."""
+
+    @abstractmethod
+    def get(self, filepath):
+        pass
+
+
+class HardDiskBackend(BaseStorageBackend):
     """Raw bytes from the local filesystem."""
 
     def get(self, filepath):
@@ -19,23 +29,29 @@ class HardDiskBackend:
             return f.read()
 
 
-class MemcachedBackend:
+class MemcachedBackend(BaseStorageBackend):
 
     def __init__(self, server_list_cfg, client_cfg, sys_path=None):
         raise ImportError(
             'memcached backend requires the mc package, which is not '
             'available in this environment.')
 
+    def get(self, filepath):
+        raise NotImplementedError
 
-class CephBackend:
+
+class CephBackend(BaseStorageBackend):
 
     def __init__(self, path_mapping=None):
         raise ImportError(
             'ceph backend requires the ceph package, which is not '
             'available in this environment.')
 
+    def get(self, filepath):
+        raise NotImplementedError
 
-class LmdbBackend:
+
+class LmdbBackend(BaseStorageBackend):
     """Values of lmdb databases, one environment per client key.
 
     Args:

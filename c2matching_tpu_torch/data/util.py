@@ -3,7 +3,8 @@
 Counterpart of ``c2matching_tpu/data/util.py`` (``scandir``,
 ``paired_paths_from_ann_file``, ``paired_paths_from_folder``,
 ``paired_paths_from_lmdb``, ``pil_bicubic_resize``, ``pil_chain_lq_up``,
-and the MATLAB bicubic ``imresize_np`` of the back-projection tool). The PIL bicubic resampling
+the MATLAB bicubic ``imresize_np`` of the back-projection tool, and the
+BT.601 ``rgb2ycbcr`` / ``ycbcr2rgb`` pair). The PIL bicubic resampling
 is the port's own bit-exact copy (``data/pil_resize.py``); the uint8
 round trips around it are the JAX package's, so every array is the same
 bit for bit.
@@ -215,3 +216,43 @@ def imresize_np(img, scale, antialiasing=True):
     if squeeze:
         out2 = out2[:, :, 0]
     return out2.astype(np.float32)
+
+
+def rgb2ycbcr(img, only_y=True):
+    """BT.601 RGB -> YCbCr (MATLAB's rgb2ycbcr) of an HWC image: uint8 in
+    [0, 255] or float in [0, 1] in, the same type out (uint8 rounded).
+    ``only_y``: the Y channel alone."""
+    in_img_type = img.dtype
+    img = img.astype(np.float64)
+    if in_img_type != np.uint8:
+        img = img * 255.
+    if only_y:
+        rlt = np.dot(img, [65.481, 128.553, 24.966]) / 255.0 + 16.0
+    else:
+        rlt = np.matmul(
+            img, [[65.481, -37.797, 112.0], [128.553, -74.203, -93.786],
+                  [24.966, 112.0, -18.214]]) / 255.0 + [16, 128, 128]
+    if in_img_type == np.uint8:
+        rlt = rlt.round()
+    else:
+        rlt = rlt / 255.
+    return rlt.astype(in_img_type)
+
+
+def ycbcr2rgb(img):
+    """YCbCr -> RGB of an HWC image, the inverse of ``rgb2ycbcr``: uint8 in
+    [0, 255] or float in [0, 1] in, the same type out (uint8 rounded)."""
+    in_img_type = img.dtype
+    img = img.astype(np.float64)
+    if in_img_type != np.uint8:
+        img = img * 255.
+    rlt = np.matmul(
+        img, [[0.00456621, 0.00456621, 0.00456621],
+              [0, -0.00153632, 0.00791071],
+              [0.00625893, -0.00318811, 0]]) * 255.0 \
+        + [-222.921, 135.576, -276.836]
+    if in_img_type == np.uint8:
+        rlt = rlt.round()
+    else:
+        rlt = rlt / 255.
+    return rlt.astype(in_img_type)

@@ -8,6 +8,7 @@ import logging
 
 from .networks import define_network
 from .ref_restoration_model import RefRestorationModel
+from .sr_model import SRModel
 from .student_contras_distillation_model import \
     StudentContrasDistillationModel
 from .teacher_contras_model import TeacherContrasModel
@@ -15,6 +16,7 @@ from .teacher_contras_model import TeacherContrasModel
 logger = logging.getLogger('base')
 
 MODELS = {'RefRestorationModel': RefRestorationModel,
+          'SRModel': SRModel,
           'TeacherContrasModel': TeacherContrasModel,
           'StudentContrasDistillationModel': StudentContrasDistillationModel}
 
@@ -31,5 +33,6 @@ def create_model(opt, device='cuda'):
     return model
 
 
-__all__ = ['MODELS', 'RefRestorationModel', 'StudentContrasDistillationModel',
-           'TeacherContrasModel', 'create_model', 'define_network']
+__all__ = ['MODELS', 'RefRestorationModel', 'SRModel',
+           'StudentContrasDistillationModel', 'TeacherContrasModel',
+           'create_model', 'define_network']

@@ -28,6 +28,8 @@ class CorrespondenceGenerationArch(nn.Module):
 
     ``match_dtype``: dtype of the correlation operands only (the serving
     knob); None keeps f32. ``dtype``: compute dtype of the VGG19's convs.
+    ``stride`` is taken and not read, as in the JAX package (the match is
+    dense at every stride).
     """
 
     def __init__(self, patch_size=3, stride=1,
@@ -35,8 +37,6 @@ class CorrespondenceGenerationArch(nn.Module):
                  vgg_type='vgg19', match_dtype=None, generator=None,
                  dtype=None):
         super().__init__()
-        if stride != 1:
-            raise NotImplementedError(f'matching stride {stride}')
         self.patch_size = patch_size
         self.match_dtype = match_dtype
         self.vgg = VGGFeatureExtractor(layer_name_list=list(vgg_layer_list),

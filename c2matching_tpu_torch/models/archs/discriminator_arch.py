@@ -38,49 +38,8 @@ and moves its running statistics toward, the same moments.
 import torch
 from torch import nn
 
-from ... import parallel
 from ...ops.patch_match import as_dtype
-from .arch_util import lrelu
-
-
-def _moments(x):
-    """(mean, biased variance) per channel of NCHW ``x``, in float32 (or
-    float64 for a float64 ``x``): the local batch's at world size 1, the
-    global batch's above."""
-    x = x.to(torch.promote_types(x.dtype, torch.float32))
-    if parallel.get_world_size() == 1:
-        mean = x.mean(dim=(0, 2, 3))
-        return mean, ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.)
-    c = x.shape[1]
-    count = x.new_full((1,), float(x.numel() // c))
-    sums = parallel.all_reduce_sum(torch.cat(
-        [x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
-    mean = sums[:c] / sums[-1]
-    return mean, (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.)
-
-
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm over NCHW with flax's arithmetic (see module docstring);
-    the state dict is torch's."""
-
-    def __init__(self, num_features):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
-
-    def forward(self, x, update_stats=True):
-        if not self.training:
-            mean, var = self.running_mean, self.running_var
-        else:
-            mean, var = _moments(x)
-            if update_stats:
-                with torch.no_grad():
-                    self.running_mean.mul_(1 - self.momentum).add_(
-                        self.momentum * mean)
-                    self.running_var.mul_(1 - self.momentum).add_(
-                        self.momentum * var)
-                    self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
-                + self.bias[None, :, None, None]).to(x.dtype)
+from .arch_util import FlaxBatchNorm2d, lrelu
 
 
 class _Conv(nn.Conv2d):

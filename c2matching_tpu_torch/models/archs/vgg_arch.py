@@ -87,11 +87,20 @@ def _normalize(module, x):
         / module.std.view(1, 1, 1, 3).to(x.dtype)
 
 
-def _run(convs, names, x, valid_shape, wanted=None, band=None):
+def _run(convs, names, x, valid_shape, wanted=None, band=None,
+         pooling_stride=2):
     """Run the layer sequence ``names``; each conv output is re-zeroed in
     the pad bands when ``valid_shape`` is given, which halves at every
-    2x2 pool, as does ``band``. Returns the dict of ``wanted``
+    2x2 pool, as does ``band``. ``pooling_stride``: the stride of the 2x2
+    max pools (None: no pools). Returns the dict of ``wanted``
     activations, or the last one when ``wanted`` is None."""
+    if pooling_stride != 2 and (valid_shape is not None
+                                or band is not None):
+        # a size-2 pool of another stride shifts the valid region (row
+        # vh - 1 takes the pad row vh), which halving does not model
+        raise NotImplementedError(
+            'valid_shape masking is only defined for pooling_stride=2, got '
+            f'{pooling_stride}')
     row0 = 0 if band is None else band.row0
     if valid_shape is not None:
         x = x * valid_mask(x, valid_shape, row0)
@@ -104,7 +113,10 @@ def _run(convs, names, x, valid_shape, wanted=None, band=None):
         elif name.startswith('relu'):
             x = F.relu(x)
         elif name.startswith('pool'):
-            x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+            if pooling_stride is None:
+                continue
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 2,
+                             stride=pooling_stride).permute(0, 2, 3, 1)
             valid_shape = halve_valid(valid_shape)
             if band is not None:
                 band = band.scaled(1 / 2)
@@ -116,19 +128,24 @@ def _run(convs, names, x, valid_shape, wanted=None, band=None):
 
 class VGGFeatureExtractor(nn.Module):
     """Truncated VGG returning a dict of named activations; only the layers
-    up to the deepest requested one exist. Inputs are ImageNet-normalized.
-    The JAX package's ``use_input_norm`` / ``remove_pooling`` /
-    ``pooling_stride`` options, which no config sets, are not ported."""
+    up to the deepest requested one exist. ``use_input_norm``: inputs are
+    ImageNet-normalized (the ``mean`` / ``std`` buffers exist only then,
+    as in the reference); ``remove_pooling`` drops the max pools;
+    ``pooling_stride`` is their stride (``valid_shape`` takes only 2)."""
 
-    def __init__(self, layer_name_list, vgg_type='vgg19', generator=None,
+    def __init__(self, layer_name_list, vgg_type='vgg19', use_input_norm=True,
+                 remove_pooling=False, pooling_stride=2, generator=None,
                  dtype=None):
         super().__init__()
         self.layer_name_list = list(layer_name_list)
+        self.use_input_norm = use_input_norm
+        self.pooling_stride = None if remove_pooling else pooling_stride
         names = NAMES[vgg_type]
         last = max(names.index(v) for v in self.layer_name_list)
         self.names = names[:last + 1]
         self.vgg_net = _vgg_convs(self.names, generator, dtype)
-        _imagenet_buffers(self)
+        if use_input_norm:
+            _imagenet_buffers(self)
 
     def forward(self, x, valid_shape=None, band=None):
         """x: (B, H, W, 3) RGB in [0, 1]. Returns {layer_name: feature}.
@@ -136,8 +153,11 @@ class VGGFeatureExtractor(nn.Module):
         ``valid_shape`` (vh, vw): re-zero each conv output in the pad bands
         of a bucket-padded batch. None (exact shapes) is a no-op. ``band``:
         x is that band of the image, and so is each feature."""
-        return _run(self.vgg_net, self.names, _normalize(self, x),
-                    valid_shape, wanted=set(self.layer_name_list), band=band)
+        if self.use_input_norm:
+            x = _normalize(self, x)
+        return _run(self.vgg_net, self.names, x, valid_shape,
+                    wanted=set(self.layer_name_list), band=band,
+                    pooling_stride=self.pooling_stride)
 
 
 class ContrasExtractorLayer(nn.Module):

@@ -1,18 +1,26 @@
-"""Losses of stage-3 training.
+"""Losses of every training stage.
 
-Counterpart of ``c2matching_tpu/models/losses.py``: the pixel losses with
-the weighted, masked reduction (``l1_loss``, ``mse_loss``,
-``charbonnier_loss`` and their classes), ``gan_loss`` for the vanilla,
-lsgan, wgan and hinge types (``loss_weight`` scales the generator side
-only; the ``GANLoss`` class, which no stage-3 step calls, is not ported),
-the WGAN-GP ``gradient_penalty_loss`` through
-``torch.autograd.grad(..., create_graph=True)``, and ``gram_matrix`` with
-``PerceptualLoss`` (criteria l1, l2 and fro; ground-truth features
-detached; at world size > 1 the fro norm is the global batch's, through a
-differentiable all-reduce of the squares). Tensors are NHWC, as in the
-JAX package. ``MaskedTVLoss``, ``PerceptualLossMultiInputs``,
-``TextureLoss`` and ``MapLoss`` belong to stages 1-2 and are not ported
-yet.
+Counterpart of ``c2matching_tpu/models/losses.py``. Tensors are NHWC, as
+in the JAX package.
+
+- The pixel losses with the weighted, masked reduction (``l1_loss``,
+  ``mse_loss``, ``charbonnier_loss`` and their classes) and
+  ``MaskedTVLoss``, the L1 of neighbouring pixels' differences under an
+  optional mask.
+- ``gan_loss`` (and its class ``GANLoss``) for the vanilla, lsgan, wgan
+  and hinge types (``loss_weight`` scales the generator side only).
+- The WGAN-GP ``gradient_penalty_loss`` through
+  ``torch.autograd.grad(..., create_graph=True)``, and its class
+  ``GradientPenaltyLoss``, which draws the interpolation coefficients from
+  a ``torch.Generator`` where the JAX package takes a key.
+- ``gram_matrix`` and the VGG losses: ``PerceptualLoss`` (criteria l1, l2
+  and fro; ground-truth features detached; at world size > 1 the fro norm
+  is the global batch's, through a differentiable all-reduce of the
+  squares) and ``PerceptualLossMultiInputs`` over (B, N, H, W, C) stacks;
+  SRNTT's Gram ``TextureLoss``; ``MapLoss`` between swapped features and
+  the ground truth's VGG features. Each VGG is frozen; the JAX package
+  draws it from its seeded init, and ``generator`` draws it here (or a
+  torchvision state dict loads, ``utils/weights.py``).
 """
 import torch
 import torch.nn.functional as F
@@ -92,6 +100,24 @@ PIXEL_LOSSES = {cls.__name__: cls for cls in (L1Loss, MSELoss,
                                               CharbonnierLoss)}
 
 
+class MaskedTVLoss(L1Loss):
+    """Total variation: the L1 of vertical and of horizontal neighbours'
+    differences, each a masked mean under ``mask`` (B, H, W, 1) when
+    given."""
+
+    def __init__(self, loss_weight=1.0):
+        super().__init__(loss_weight=loss_weight)
+
+    def __call__(self, pred, mask=None):
+        y_diff = super().__call__(pred[:, :-1], pred[:, 1:],
+                                  weight=None if mask is None
+                                  else mask[:, :-1])
+        x_diff = super().__call__(pred[:, :, :-1], pred[:, :, 1:],
+                                  weight=None if mask is None
+                                  else mask[:, :, :-1])
+        return x_diff + y_diff
+
+
 def gan_loss(pred, target_is_real, gan_type='wgan', real_label_val=1.0,
              fake_label_val=0.0, loss_weight=1.0, is_disc=False):
     """GAN loss; ``loss_weight`` scales only the generator-side loss."""
@@ -138,6 +164,40 @@ def gradient_penalty_loss(disc_fn, real_data, fake_data, alpha,
     return loss_weight * ((grad_norm - 1.) ** 2).mean()
 
 
+class GANLoss:
+    """``gan_loss`` with its type, labels and weight fixed."""
+
+    def __init__(self, gan_type, real_label_val=1.0, fake_label_val=0.0,
+                 loss_weight=1.0):
+        self.gan_type = gan_type
+        self.real_label_val = real_label_val
+        self.fake_label_val = fake_label_val
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target_is_real, is_disc=False):
+        return gan_loss(pred, target_is_real, self.gan_type,
+                        self.real_label_val, self.fake_label_val,
+                        self.loss_weight, is_disc)
+
+
+class GradientPenaltyLoss:
+    """``gradient_penalty_loss`` with its weight fixed; the coefficients
+    are ``alpha`` when given, else drawn uniform in [0, 1) per sample by
+    ``generator`` on the CPU (so that the card and the CPU draw the same)
+    and moved to the data's device."""
+
+    def __init__(self, loss_weight=1.0):
+        self.loss_weight = loss_weight
+
+    def __call__(self, disc_fn, real_data, fake_data, generator=None,
+                 alpha=None):
+        if alpha is None:
+            alpha = torch.rand((real_data.shape[0], 1, 1, 1),
+                               generator=generator).to(real_data)
+        return gradient_penalty_loss(disc_fn, real_data, fake_data, alpha,
+                                     self.loss_weight)
+
+
 def gram_matrix(feat, normalize=True):
     """(B, H, W, C) -> (B, C, C) Gram, normalized by c * h * w."""
     b, h, w, c = feat.shape
@@ -153,8 +213,7 @@ class PerceptualLoss(nn.Module):
     and fro. ``forward(x, gt)`` returns (percep_loss, style_loss), either
     None when its weight is 0. The VGG's parameters are frozen; the JAX
     package draws them from its seeded init, and ``generator`` draws them
-    here. Inputs are ImageNet-normalized (``use_input_norm``, the only
-    setting ported).
+    here. ``use_input_norm``: the VGG ImageNet-normalizes its inputs.
 
     ``dtype`` (None is float32; a name such as 'bfloat16' as the JAX
     loss's ``perceptual_opt`` hands it) is the VGG's compute dtype: its
@@ -168,9 +227,6 @@ class PerceptualLoss(nn.Module):
                  perceptual_weight=1.0, style_weight=0.0, norm_img=False,
                  criterion='l1', generator=None, dtype=None):
         super().__init__()
-        if not use_input_norm:
-            raise NotImplementedError('PerceptualLoss: use_input_norm false '
-                                      'is not ported')
         if criterion not in ('l1', 'l2', 'fro'):
             raise NotImplementedError(
                 f'{criterion} criterion has not been supported.')
@@ -180,6 +236,7 @@ class PerceptualLoss(nn.Module):
         self.norm_img = norm_img
         self.criterion = criterion
         self.vgg = VGGFeatureExtractor(list(self.layer_weights), vgg_type,
+                                       use_input_norm=use_input_norm,
                                        generator=generator, dtype=dtype)
         self.vgg.requires_grad_(False)
 
@@ -220,3 +277,95 @@ class PerceptualLoss(nn.Module):
                     gram_matrix(gt_features[k])) * w
             style_loss = style_loss * self.style_weight
         return percep_loss, style_loss
+
+
+class PerceptualLossMultiInputs(PerceptualLoss):
+    """``PerceptualLoss`` over (B, N, H, W, C) stacks of images: the terms
+    of the N pairs (x[:, i], gt[:, i]) summed."""
+
+    def forward(self, x, gt):
+        if x.shape != gt.shape:
+            raise ValueError('The sizes of input and GT should be the same.')
+        total_percep, total_style = 0., 0.
+        for i in range(x.shape[1]):
+            percep, style = super().forward(x[:, i], gt[:, i])
+            total_percep = None if percep is None else total_percep + percep
+            total_style = None if style is None else total_style + style
+        return total_percep, total_style
+
+
+# the Gram normalisers of TextureLoss by layer
+_TEXTURE_DIV = {'relu3_1': 256, 'relu2_1': 512, 'relu1_1': 1024}
+
+
+class TextureLoss(nn.Module):
+    """SRNTT's texture loss: per VGG layer the Frobenius distance of the
+    unnormalised Grams of x's features and of ``maps``' (the swapped
+    features), / 4 / (W^2 div)^2 with W the input's width and div 1024,
+    512 and 256 at relu1/2/3; the mean over the three layers times
+    ``loss_weight``. ``use_weights``: both features are first scaled by
+    sigmoid(-20 w + 0.65) of the layer's ``weights`` (B, H-2, W-2, 1),
+    edge-padded by one pixel."""
+
+    def __init__(self, use_weights=False, loss_weight=1.0, vgg_type='vgg19',
+                 layer_weights=None, use_input_norm=True, generator=None,
+                 dtype=None):
+        super().__init__()
+        self.use_weights = use_weights
+        self.loss_weight = loss_weight
+        layer_weights = layer_weights or {
+            'relu1_1': 1.0, 'relu2_1': 1.0, 'relu3_1': 1.0}
+        self.vgg = VGGFeatureExtractor(list(layer_weights), vgg_type,
+                                       use_input_norm=use_input_norm,
+                                       generator=generator, dtype=dtype)
+        self.vgg.requires_grad_(False)
+
+    def forward(self, x, maps, weights=None):
+        input_size = x.shape[2]
+        x_features = self.vgg(x)
+        losses = 0.
+        for k, xf in x_features.items():
+            mf = maps[k]
+            if self.use_weights and weights is not None:
+                w = F.pad(weights[k].permute(0, 3, 1, 2), (1, 1, 1, 1),
+                          mode='replicate').permute(0, 2, 3, 1)
+                coeff = torch.sigmoid(w * -20. + .65)
+                mf = mf * coeff
+                xf = xf * coeff
+            diff = (gram_matrix(xf, normalize=False)
+                    - gram_matrix(mf, normalize=False))
+            losses = losses + torch.sqrt((diff ** 2).sum()) / 4. / (
+                (input_size * input_size * _TEXTURE_DIV[k]) ** 2)
+        return losses / 3. * self.loss_weight
+
+
+class MapLoss(nn.Module):
+    """The l1 / l2 / fro distance between swapped features (relu3/2/1_1)
+    and the ground truth's VGG features (detached), summed over the layers,
+    times ``map_weight``."""
+
+    def __init__(self, vgg_type='vgg19', map_weight=1.0, criterion='l1',
+                 generator=None, dtype=None):
+        super().__init__()
+        if criterion not in ('l1', 'l2', 'fro'):
+            raise NotImplementedError(criterion)
+        self.map_weight = map_weight
+        self.criterion = criterion
+        self.vgg = VGGFeatureExtractor(['relu3_1', 'relu2_1', 'relu1_1'],
+                                       vgg_type, generator=generator,
+                                       dtype=dtype)
+        self.vgg.requires_grad_(False)
+
+    def forward(self, swapped_features, gt):
+        with torch.no_grad():
+            gt_features = self.vgg(gt.detach())
+        map_loss = 0.
+        for k, gf in gt_features.items():
+            diff = swapped_features[k] - gf
+            if self.criterion == 'l1':
+                map_loss = map_loss + diff.abs().mean()
+            elif self.criterion == 'l2':
+                map_loss = map_loss + (diff ** 2).mean()
+            else:
+                map_loss = map_loss + torch.sqrt((diff ** 2).sum())
+        return map_loss * self.map_weight

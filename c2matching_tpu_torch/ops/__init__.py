@@ -10,20 +10,27 @@ from .dcn_window_kernel import (window_contract, window_contract_plain,
 from .deform_conv import (deform_col2im, deform_conv, deform_conv_backward,
                           deform_conv_backward_plain, deform_im2col,
                           deform_im2col_backward_plain, deform_im2col_plain,
-                          modulated_deform_conv)
-from .flow import batched_pre_offsets, match_to_pre_offsets
+                          deform_psroi_pooling, modulated_deform_conv,
+                          split_backward, torch_weight_to_kco)
+from .flow import (batched_pre_offsets, flow_warp, index_to_flow,
+                   match_to_pre_offsets, resize_flow, shifted_offsets,
+                   tensor_shift, upsample_flow)
 from .patch_match import batched_patch_match, patch_match
 from .patch_match_kernel import match_argmax, match_argmax_plain
-from .resize import pixel_shuffle, upscale
+from .resize import (bilinear_resize, nearest_up, pixel_shuffle,
+                     pixel_unshuffle, upscale)
 
 __all__ = [
-    'batched_patch_match', 'batched_pre_offsets', 'deform_col2im',
-    'deform_conv', 'deform_conv_backward', 'deform_conv_backward_plain',
-    'deform_im2col', 'deform_im2col_backward_plain',
-    'deform_im2col_plain', 'match_argmax',
+    'batched_patch_match', 'batched_pre_offsets', 'bilinear_resize',
+    'deform_col2im', 'deform_conv', 'deform_conv_backward',
+    'deform_conv_backward_plain', 'deform_im2col',
+    'deform_im2col_backward_plain', 'deform_im2col_plain',
+    'deform_psroi_pooling', 'flow_warp', 'index_to_flow', 'match_argmax',
     'match_argmax_plain', 'match_to_pre_offsets', 'modulated_deform_conv',
     'modulated_deform_conv_windowed',
-    'modulated_deform_conv_windowed_chunked', 'patch_match', 'pixel_shuffle',
+    'modulated_deform_conv_windowed_chunked', 'nearest_up', 'patch_match',
+    'pixel_shuffle', 'pixel_unshuffle', 'resize_flow', 'shifted_offsets',
+    'split_backward', 'tensor_shift', 'torch_weight_to_kco', 'upsample_flow',
     'upscale', 'window_applicable', 'window_contract',
     'window_contract_plain', 'window_conv', 'window_conv_plain',
 ]

@@ -18,7 +18,10 @@ gradients, and grad_x when autograd asks for it, for every image in one
 launch of B3's backward kernel (``csrc/deform_conv_backward.cu``,
 ``deform_conv_backward``), which forms the columns' gradient
 ``grad_out @ w_kc^T`` on the tensor cores and never stores it; the weight
-and bias gradients are ``torch.matmul`` and a sum. The semantics are those
+and bias gradients are ``torch.matmul`` and a sum. A shape wider than the
+kernel takes (a group of more than ``BACKWARD_MAX_GROUP`` channels, Co
+above ``BACKWARD_MAX_CO`` or off a multiple of 4) is served by several
+launches of the same kernel (``split_backward``). The semantics are those
 of ``jax.grad`` through the JAX package's ``_mdc_fast_single``: floor has
 zero derivative, a sample outside the image contributes nothing, and
 corners outside the image are zeros that receive no gradient.
@@ -41,6 +44,7 @@ import ctypes
 from typing import List
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -429,9 +433,8 @@ def deform_conv_backward(x, offset, mask, grad_out, w_kc, kernel_size=(3, 3),
     (B, Ho, Wo, G, K, 2) f32, grad_mask (B, Ho, Wo, G, K) f32), each None
     unless ``needs`` asks for it. On a CUDA tensor one launch of the kernel
     covers the whole batch and forms the columns' gradient on the tensor
-    cores (groups of at most ``BACKWARD_MAX_GROUP`` channels, Co a multiple
-    of 4 and at most ``BACKWARD_MAX_CO``; anything else raises); on a CPU
-    tensor the plain version runs."""
+    cores; a wider shape is cut into pieces the kernel takes, each a launch
+    of it (``split_backward``). On a CPU tensor the plain version runs."""
     if not any(needs):
         return None, None, None
     if x.device.type == 'cpu':
@@ -451,12 +454,23 @@ def deform_conv_backward(x, offset, mask, grad_out, w_kc, kernel_size=(3, 3),
     if any(t.device != x.device for t in (offset, mask, grad_out, w_kc)):
         raise ValueError('deform_conv_backward: tensors lie on different '
                          'devices')
+    k = offset.shape[4]
+    kh, kw = _pair(kernel_size)
+    if kh * kw != k:
+        raise ValueError(f'kernel_size {kh}x{kw} does not give {k} taps')
+    return split_backward(_backward_launch, x, offset, mask, grad_out, w_kc,
+                          (kernel_size, stride, padding, dilation), needs)
+
+
+def _backward_launch(x, offset, mask, grad_out, w_kc, kernel_size, stride,
+                     padding, dilation, needs):
+    """One launch of the backward kernel over the batch, at a shape it
+    takes (checked by ``deform_conv_backward``, pieces cut by
+    ``split_backward``)."""
     b, h, w, c = x.shape
     _, ho, wo, g, k, _ = offset.shape
     co = w_kc.shape[1]
     kh, kw = _pair(kernel_size)
-    if kh * kw != k:
-        raise ValueError(f'kernel_size {kh}x{kw} does not give {k} taps')
     if c // g > BACKWARD_MAX_GROUP or co % 4 or co > BACKWARD_MAX_CO:
         raise ValueError(f'deform_conv_backward: the kernel takes groups of '
                          f'at most {BACKWARD_MAX_GROUP} channels and Co a '
@@ -495,6 +509,68 @@ def deform_conv_backward(x, offset, mask, grad_out, w_kc, kernel_size=(3, 3),
 
 
 deform_conv_backward.launches = 0
+
+
+def _subgroups(cg, widest):
+    """The fewest sub-groups, of equal width at most ``widest``, that a
+    group of ``cg`` channels splits into."""
+    return next(s for s in range(1, cg + 1) if cg % s == 0
+                and cg // s <= widest)
+
+
+def split_backward(launch, x, offset, mask, grad_out, w_kc, conv,
+                   needs=(True, True, True)):
+    """``launch(x, offset, mask, grad_out, w_kc, *conv, needs=needs)`` --
+    the backward of one shape the kernel takes -- over as many pieces as a
+    wider shape needs, their gradients summed back:
+
+    - a group of more than ``BACKWARD_MAX_GROUP`` channels is split into
+      the fewest equal sub-groups of at most that many channels (the
+      channel order is unchanged, so x, w_kc and grad_x keep their
+      layout); each
+      sub-group samples at its group's offsets and mask, and the
+      sub-groups' offset and mask gradients, sums over their channels, add
+      up to the group's;
+    - Co above ``BACKWARD_MAX_CO`` or off a multiple of 4 is cut into
+      chunks of at most that many columns of w_kc and grad_out, each
+      padded with zero columns to a multiple of 4; every gradient is
+      linear in grad_out, so the chunks' gradients add up to the whole's.
+
+    Exact up to the order of the f32 sums (grad_x is summed in f32 and
+    rounded to x's dtype once). A shape the kernel takes is one call of
+    ``launch``."""
+    g = offset.shape[3]
+    cg = x.shape[-1] // g
+    s = _subgroups(cg, BACKWARD_MAX_GROUP)
+    if s > 1:
+        offset = offset.repeat_interleave(s, dim=3)
+        mask = mask.repeat_interleave(s, dim=3)
+    co = w_kc.shape[1]
+    step = BACKWARD_MAX_CO
+    if co <= step and co % 4 == 0:
+        pieces = [(w_kc, grad_out)]
+    else:
+        pieces = []
+        for a in range(0, co, step):
+            pad = (-min(step, co - a)) % 4
+            pieces.append((F.pad(w_kc[:, a:a + step], (0, pad)),
+                           F.pad(grad_out[..., a:a + step], (0, pad))))
+    total = [None, None, None]
+    for w_piece, g_piece in pieces:
+        grads = launch(x, offset, mask, g_piece.contiguous(),
+                       w_piece.contiguous(), *conv, needs=needs)
+        total = [t if t is None else (t.float() if acc is None
+                                      else acc + t.float())
+                 for acc, t in zip(total, grads)]
+    grad_x, grad_offset, grad_mask = total
+    if grad_x is not None:
+        grad_x = grad_x.to(x.dtype)
+    if s > 1:
+        if grad_offset is not None:
+            grad_offset = grad_offset.unflatten(3, (g, s)).sum(4)
+        if grad_mask is not None:
+            grad_mask = grad_mask.unflatten(3, (g, s)).sum(4)
+    return grad_x, grad_offset, grad_mask
 
 
 def _mdc_forward(x, offset, mask, w_kc, bias, conv, kept=None):
@@ -597,3 +673,90 @@ def deform_conv(x, offset, weight, bias=None, kernel_size=(3, 3),
                       device=offset.device)
     return modulated_deform_conv(x, offset, mask, weight, bias, kernel_size,
                                  stride, padding, dilation)
+
+
+def deform_psroi_pooling(x, rois, offsets, output_dim, group_size,
+                         pooled_size, spatial_scale=1.0, trans_std=0.0,
+                         no_trans=False, sample_per_part=4, part_size=None):
+    """Deformable position-sensitive ROI pooling of one image, as DCNv2's
+    ``dcn_v2_psroi_pooling`` computes it: rounded ROI corners
+    ([round(x1) * ss - 0.5, (round(x2) + 1) * ss - 0.5)), bins at least 0.1
+    wide, a ``sample_per_part`` x ``sample_per_part`` grid of samples a bin
+    averaged over the samples inside [-0.5, W - 0.5] (each clamped to
+    [0, W - 1] before its floor/ceil bilinear read), and learned offsets
+    per part and class (part floor(p / ps * part), class
+    ctop // (output_dim / num_classes)). Plain torch ops on x's device; no
+    model calls it.
+
+    Args:
+        x: (H, W, C) position-sensitive score maps, C = output_dim *
+            group_size^2, channel c = (ctop * gs + gh) * gs + gw.
+        rois: (N, 5) [batch_idx, x1, y1, x2, y2] in input coordinates
+            (batch_idx is not read).
+        offsets: (N, num_classes, 2, part_size, part_size) normalised part
+            offsets, (x, y) channel order, or None.
+    Returns:
+        (N, pooled_size, pooled_size, output_dim)
+    """
+    h, w, _ = x.shape
+    dev = x.device
+    ps, gs, spp = pooled_size, group_size, sample_per_part
+    part = pooled_size if part_size is None else part_size
+    fps = torch.arange(ps, dtype=torch.float32, device=dev)
+    g_of = torch.floor(fps * gs / ps).long().clamp(0, gs - 1)
+    part_of = torch.floor(fps / ps * part).long()
+    xg = x.reshape(h, w, output_dim, gs, gs)
+    rois = rois.float()
+    n = rois.shape[0]
+    r = torch.round(rois[:, 1:5])
+    roi_start_w = (r[:, 0] * spatial_scale - 0.5)[:, None, None, None]
+    roi_start_h = (r[:, 1] * spatial_scale - 0.5)[:, None, None, None]
+    roi_w = ((r[:, 2] + 1.) * spatial_scale - 0.5
+             - roi_start_w[:, 0, 0, 0]).clamp_min(0.1)[:, None, None, None]
+    roi_h = ((r[:, 3] + 1.) * spatial_scale - 0.5
+             - roi_start_h[:, 0, 0, 0]).clamp_min(0.1)[:, None, None, None]
+    bin_w, bin_h = roi_w / ps, roi_h / ps
+    if no_trans or offsets is None:
+        tx = ty = torch.zeros(n, output_dim, ps, ps, device=dev)
+    else:
+        num_classes = offsets.shape[1]
+        class_of = (torch.arange(output_dim, device=dev)
+                    // max(output_dim // num_classes, 1))
+        off = offsets.float()[:, :, :, part_of][:, :, :, :, part_of]
+        tx = off[:, :, 0][:, class_of] * trans_std       # (N, od, ps, ps)
+        ty = off[:, :, 1][:, class_of] * trans_std
+    # the samples' coordinates: (N, od, ph, pw, ih, iw)
+    wstart = fps[None, None, None, :] * bin_w + roi_start_w + tx * roi_w
+    hstart = fps[None, None, :, None] * bin_h + roi_start_h + ty * roi_h
+    steps = torch.arange(spp, dtype=torch.float32, device=dev)
+    sw = (wstart[..., None, None]
+          + steps[None, :] * (bin_w / spp)[..., None, None])
+    sh = (hstart[..., None, None]
+          + steps[:, None] * (bin_h / spp)[..., None, None])
+    valid = (sw >= -0.5) & (sw <= w - 0.5) & (sh >= -0.5) & (sh <= h - 0.5)
+    swc = sw.clamp(0., w - 1.)
+    shc = sh.clamp(0., h - 1.)
+    x1i, x2i = torch.floor(swc).long(), torch.ceil(swc).long()
+    y1i, y2i = torch.floor(shc).long(), torch.ceil(shc).long()
+    dx, dy = swc - x1i, shc - y1i
+    od_i = torch.arange(output_dim, device=dev)[:, None, None, None, None]
+    gh_i = g_of[None, :, None, None, None]
+    gw_i = g_of[None, None, :, None, None]
+
+    def at(yy, xx):
+        return xg[yy, xx, od_i, gh_i, gw_i]
+
+    val = ((1 - dx) * (1 - dy) * at(y1i, x1i) + (1 - dx) * dy * at(y2i, x1i)
+           + dx * (1 - dy) * at(y1i, x2i) + dx * dy * at(y2i, x2i))
+    vf = valid.to(val.dtype)
+    cnt = vf.sum(dim=(-1, -2))
+    total = (val * vf).sum(dim=(-1, -2))
+    pooled = torch.where(cnt > 0, total / cnt.clamp_min(1.), 0.)
+    return pooled.permute(0, 2, 3, 1)
+
+
+def torch_weight_to_kco(w_oihw):
+    """A torch DCN weight (Cout, Cin, kh, kw) in this op's (K, Cin, Cout)
+    layout, taps in row-major (ky, kx) order."""
+    cout, cin, kh, kw = w_oihw.shape
+    return w_oihw.permute(2, 3, 1, 0).reshape(kh * kw, cin, cout)

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.spatial import exchange_halo
+from .resize import bilinear_resize
 
 # the candidates' shifts reach 2 relu3-scale rows (i * step for i < 3 at
 # each scale's step)
@@ -106,3 +107,42 @@ def batched_pre_offsets(max_idx, patch_size=3, valid_shape=None, band=None):
     """``match_to_pre_offsets`` over a (B, h-2, w-2) batch; ``valid_shape``
     is shared by the batch."""
     return match_to_pre_offsets(max_idx, patch_size, valid_shape, band)
+
+
+def resize_flow(flow, size_type, sizes, method='bilinear'):
+    """Resize a flow field (B, H, W, 2), last dim (x, y), by a ratio
+    (``sizes`` = (ratio_h, ratio_w)) or to a shape (``sizes`` = (h, w)),
+    its values scaled by the resize ratios; bilinear without
+    antialiasing."""
+    _, flow_h, flow_w, _ = flow.shape
+    if size_type == 'ratio':
+        output_h = int(flow_h * sizes[0])
+        output_w = int(flow_w * sizes[1])
+    elif size_type == 'shape':
+        output_h, output_w = sizes
+    else:
+        raise ValueError(
+            f'Size type should be ratio or shape, but got {size_type}.')
+    if method != 'bilinear':
+        raise NotImplementedError(method)
+    scale = torch.tensor([output_w / flow_w, output_h / flow_h],
+                         dtype=flow.dtype, device=flow.device)
+    return bilinear_resize(flow * scale, output_h, output_w)
+
+
+def flow_warp(x, flow):
+    """Bilinear warp of x (B, H, W, C) by flow (B, H, W, 2), last dim
+    (x, y), with zero padding, as the reference's ``flow_warp``: the point
+    v = grid + flow is normalised to 2v / max(n - 1, 1) - 1 and sampled by
+    ``F.grid_sample(align_corners=False)``, so each axis is read at
+    v * n / (n - 1) - 0.5 (a border-growing rescale, not plain grid +
+    flow)."""
+    _, h, w, _ = x.shape
+    grid_y = torch.arange(h, dtype=torch.float32, device=x.device)[:, None]
+    grid_x = torch.arange(w, dtype=torch.float32, device=x.device)[None, :]
+    vx = 2.0 * (grid_x + flow[..., 0]) / max(w - 1, 1) - 1.0
+    vy = 2.0 * (grid_y + flow[..., 1]) / max(h - 1, 1) - 1.0
+    grid = torch.stack((vx, vy), dim=-1).to(x.dtype)
+    out = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode='bilinear',
+                        padding_mode='zeros', align_corners=False)
+    return out.permute(0, 2, 3, 1)

@@ -1,7 +1,8 @@
 """On-device resize ops for network interiors (NHWC).
 
 Counterpart of ``c2matching_tpu/ops/resize.py``: the bilinear x4 base
-path of RestorationNet and the depth-to-space of its tails.
+path of RestorationNet, the depth-to-space of its tails and its inverse,
+a bilinear resample to any size and the nearest-neighbour upsample.
 """
 import torch
 import torch.nn.functional as F
@@ -72,8 +73,28 @@ def upscale(x, factor=4, method='bilinear', valid_shape=None, band=None):
     return _axis_resize(x, 2, x.shape[2] * factor, valid_n=vw)
 
 
+def bilinear_resize(x, out_h, out_w):
+    """NHWC bilinear resample to (out_h, out_w), torch F.interpolate(
+    bilinear, align_corners=False) semantics at any scale, up or down, and
+    no antialiasing; separable along H then W."""
+    return _axis_resize(_axis_resize(x, 1, out_h), 2, out_w)
+
+
+def nearest_up(x, factor):
+    """Nearest-neighbour integer upsample of NHWC (each pixel repeated
+    ``factor`` x ``factor`` times)."""
+    return x.repeat_interleave(factor, 1).repeat_interleave(factor, 2)
+
+
 def pixel_shuffle(x, factor=2):
     """Depth-to-space: (B, H, W, C*r*r) -> (B, H*r, W*r, C), output channel
     c taken from input channel c*r*r + dy*r + dx, which is torch's
     F.pixel_shuffle order."""
     return F.pixel_shuffle(x.permute(0, 3, 1, 2), factor).permute(0, 2, 3, 1)
+
+
+def pixel_unshuffle(x, factor=2):
+    """Space-to-depth, the inverse of ``pixel_shuffle``: (B, H, W, C) ->
+    (B, H/r, W/r, C*r*r)."""
+    return F.pixel_unshuffle(x.permute(0, 3, 1, 2),
+                             factor).permute(0, 2, 3, 1)

@@ -10,8 +10,9 @@ The ``lmdb`` package packs when it is installed; otherwise the port's
 store of the same API and format (``utils/lmdb_shim.py``), which both
 packages' ``LmdbBackend`` read. The PNG bytes differ from cv2's (another
 compressor); the decoded pixels and ``meta_info.txt`` do not. Sources
-are PNG: the port has no JPEG decoder, and a ``.jpg`` or ``.jpeg`` file
-raises.
+are PNG or baseline JPEG (``.jpg`` / ``.jpeg``, decoded by the port's
+``utils/jpeg.py`` as cv2 decodes them) and are stored as PNG, as the JAX
+packer stores them.
 
     python -m c2matching_tpu_torch.scripts.create_cufed_lmdb \
         --in_dir datasets/CUFED/input --ref_dir datasets/CUFED/ref \
@@ -24,6 +25,7 @@ import os.path as osp
 
 from ..data.pil_resize import resize_bicubic
 from ..utils import png
+from ..utils.util import imfrombytes
 
 SUFFIXES = ('', '_lq', '_up')
 
@@ -50,12 +52,6 @@ def pack(folder, out_root, name, gt_size=160, scale=4):
               'lmdb_shim.py), which LmdbBackend reads')
     files = sorted(f for f in os.listdir(folder)
                    if f.lower().endswith(('.png', '.jpg', '.jpeg')))
-    jpegs = [f for f in files if not f.lower().endswith('.png')]
-    if jpegs:
-        raise ValueError(
-            f'{folder}: {len(jpegs)} JPEG file(s), {jpegs[0]} first; the '
-            'port has no JPEG decoder: convert the sources to PNG, or pack '
-            'them with scripts/create_cufed_lmdb.py (cv2)')
     paths = {suffix: osp.join(out_root, f'{name}{suffix}.lmdb')
              for suffix in SUFFIXES}
     meta = {suffix: [] for suffix in SUFFIXES}
@@ -68,7 +64,7 @@ def pack(folder, out_root, name, gt_size=160, scale=4):
             txns[suffix] = stack.enter_context(env.begin(write=True))
         for fname in files:
             with open(osp.join(folder, fname), 'rb') as f:
-                img = png.decode(f.read())
+                img = imfrombytes(f.read())
             key = osp.splitext(fname)[0]
             for suffix, sel in zip(SUFFIXES,
                                    make_variants(img, gt_size, scale)):

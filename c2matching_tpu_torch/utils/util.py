@@ -2,9 +2,10 @@
 
 Counterpart of ``c2matching_tpu/utils/util.py`` (``mkdir_and_rename``,
 ``make_exp_dirs``, ``check_resume``, ``tensor2img``, ``imwrite``,
-``imfrombytes``, ``impad``, ``ProgressBar``). Images go through the
-port's own PNG codec (``utils/png.py``) instead of cv2; they are BGR uint8
-HWC, as cv2 gives them.
+``imfrombytes``, ``impad``, ``mod_crop_to_multiple``, ``ProgressBar``).
+Images go through the port's own PNG codec (``utils/png.py``) and JPEG
+decoder (``utils/jpeg.py``) instead of cv2; they are BGR uint8 HWC, as cv2
+gives them.
 """
 import os
 import os.path as osp
@@ -15,7 +16,7 @@ from shutil import get_terminal_size
 import numpy as np
 import torch
 
-from . import png
+from . import jpeg, png
 
 
 def mkdir_and_rename(path):
@@ -97,8 +98,10 @@ def imwrite(img, file_path, auto_mkdir=True):
 
 
 def imfrombytes(content):
-    """Decode PNG bytes to a BGR HWC uint8 array (cv2 IMREAD_COLOR
-    semantics)."""
+    """Decode PNG or JPEG bytes, told apart by their magic bytes, to a BGR
+    HWC uint8 array (cv2 IMREAD_COLOR semantics)."""
+    if bytes(content[:3]) == jpeg.MAGIC:
+        return jpeg.decode(content)
     return png.decode(content)
 
 
@@ -112,6 +115,13 @@ def impad(img, shape, pad_val=0):
     if img.ndim == 3:
         pad_width = pad_width + ((0, 0),)
     return np.pad(img, pad_width, mode='constant', constant_values=pad_val)
+
+
+def mod_crop_to_multiple(x, multiple):
+    """An HWC image's spatial dims rounded down to a multiple of
+    ``multiple``."""
+    h, w = x.shape[:2]
+    return x[:h - h % multiple, :w - w % multiple]
 
 
 class ProgressBar:

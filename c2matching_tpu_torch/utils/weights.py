@@ -140,3 +140,81 @@ def discriminator_state_dict(variables):
     _conv(out, 'out_block.1', p['out_conv1'])
     _conv(out, 'out_block.3', p['out_conv2'])
     return out
+
+
+def dcn_state_dict(tree):
+    """DCNv2Module / DCN / DCNSep flax params -> state dict: the weight
+    (9, Cin, Cout) as (Cout, Cin, 3, 3), the bias and, where the module has
+    one, ``conv_offset_mask``."""
+    p = _params(tree)
+    weight = np.asarray(p['weight'])
+    k, ci, co = weight.shape
+    out = {'weight': _tensor(np.transpose(weight.reshape(3, k // 3, ci, co),
+                                          (3, 2, 0, 1))),
+           'bias': _tensor(p['bias'])}
+    if 'conv_offset_mask' in p:
+        _conv(out, 'conv_offset_mask', p['conv_offset_mask'])
+    return out
+
+
+def _spectral_conv(out, key, leaf, stats):
+    """A SpectralNormConv's kernel and bias (``weight_orig``, ``bias``) and
+    its power-iteration pair (``weight_u``, ``weight_v``): flax's v runs
+    over the kernel's (ky, kx, Cin) flattening, torch's over (Cin, ky,
+    kx)."""
+    kernel = np.asarray(leaf['kernel'])
+    kh, kw, ci, _ = kernel.shape
+    out[f'{key}.weight_orig'] = _tensor(np.transpose(kernel, (3, 2, 0, 1)))
+    out[f'{key}.bias'] = _tensor(leaf['bias'])
+    out[f'{key}.weight_u'] = _tensor(stats['u'])
+    out[f'{key}.weight_v'] = _tensor(np.transpose(
+        np.asarray(stats['v']).reshape(kh, kw, ci), (2, 0, 1)).reshape(-1))
+
+
+def residual_block_state_dict(variables):
+    """A standalone ResidualBlockNoBN's flax variables -> state dict; with
+    ``sn`` ('spectral_stats' present) each conv is a SpectralNormConv."""
+    p = _params(variables)
+    stats = variables.get('spectral_stats') if 'params' in variables \
+        else None
+    out = {}
+    for name in ('conv1', 'conv2'):
+        if stats is not None:
+            _spectral_conv(out, name, p[name], stats[name])
+        else:
+            _conv(out, name, p[name])
+    return out
+
+
+def residual_block_bn_state_dict(variables):
+    """ResidualBlockWithBN flax variables ('params' and 'batch_stats') ->
+    state dict, the running statistics into ``running_mean`` /
+    ``running_var``."""
+    p = variables['params']
+    stats = variables['batch_stats']
+    out = {}
+    for conv_name, bn in (('conv1', 'bn1'), ('conv2', 'bn2')):
+        _conv(out, conv_name, p[conv_name])
+        out[f'{bn}.weight'] = _tensor(p[bn]['scale'])
+        out[f'{bn}.bias'] = _tensor(p[bn]['bias'])
+        out[f'{bn}.running_mean'] = _tensor(stats[bn]['mean'])
+        out[f'{bn}.running_var'] = _tensor(stats[bn]['var'])
+        out[f'{bn}.num_batches_tracked'] = torch.tensor(0)
+    return out
+
+
+def upsample_state_dict(tree):
+    """Upsample flax params (``conv{i}``) -> state dict (the convs at the
+    even indices of its ``nn.Sequential``)."""
+    p = _params(tree)
+    out = {}
+    for i in range(len(p)):
+        _conv(out, str(2 * i), p[f'conv{i}'])
+    return out
+
+
+def upsample_shuffle_state_dict(tree):
+    """UpsampleShuffle flax params -> state dict."""
+    out = {}
+    _conv(out, 'conv', _params(tree)['conv'])
+    return out

@@ -200,7 +200,30 @@ Phases:
      within 2^-5. bytes: profile_serving --cost at batch 16 (serving
      config): each stage's *_hbm_gb and *_hbm_gb_per_s beside its
      *_gflops. One JSON line of the phase's numbers.
- 15. serve: batch serving and the tools. export_serving of the serving
+ 15. extras: the off-path pieces. DCNSep (groups 8, a random
+     conv_offset_mask) at the DynAgg widths at HR 512x384 (relu1
+     512x384x64, relu2 256x192x128, relu3 128x96x256): one B3 launch a
+     forward, B3's columns against deform_im2col_plain, the module's
+     output against the same module on the CPU; module, B3, plain and
+     grid_sample times beside B3's bound. DCNSep forward and backward at
+     batch 9 at the training shapes (160x160x64, 80x80x128, 40x40x256):
+     9 forward launches and 1 backward launch, the x, offset and mask
+     gradients through autograd against deform_conv_backward_plain within
+     phase b3bwd's gates, forward, autograd backward and kernel times
+     beside the bounds. The backward's pieces: DCN(128, one group) at
+     batch 9, 40x40 (two 64-channel sub-groups, one launch) and
+     DCNv2Module(64 -> 330) at batch 4, 80x80 (two Co chunks, two
+     launches), forward and backward against the plain versions and
+     against the CPU, no launch of the columns' route. SRModel
+     (model_type SRModel) on a net of the ported blocks at nf 64 (conv,
+     two spectral-norm residual blocks, a DCN, two BN residual blocks in
+     eval, Upsample(4)): test_x8 at LR 120x80, batch 2, against the CPU,
+     8 x batch B3 launches; one optimize_parameters step against the CPU
+     (logs and gradients). TextureLoss (use_weights), MapLoss,
+     PerceptualLossMultiInputs, MaskedTVLoss and deform_psroi_pooling at
+     batch 9, gt 160, against the CPU, each one's ms. One JSON line of the
+     phase's numbers.
+ 16. serve: batch serving and the tools. export_serving of the serving
      config at batch 2, HR 512x336 (the graph's operator calls, the
      export's seconds and the .pt2's MB); the artifact is loaded and run in
      a fresh process that cannot import c2matching_tpu_torch.models and
@@ -227,7 +250,7 @@ Phases:
      its own process, as the pin of utils/bench_gate.py was taken (torch's
      default TF32 settings): the step with the batch on the card and its
      gate line.
- 16. one JSON line of kernels, the card's line, and last the JSON result.
+ 17. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -3798,6 +3821,474 @@ def phase_options(check, dev, card, chain_root):
     print(json.dumps(out), flush=True)
 
 
+# ----------------------------------------------------------------- extras
+# DCNSep at the DynAgg widths at HR 512x384 (no bucket padding), groups 8
+EXTRAS_FWD = (('relu3_1', 128, 96, 256), ('relu2_1', 256, 192, 128),
+              ('relu1_1', 512, 384, 64))
+EXTRAS_BATCH = 9     # stage-3 training's batch at gt 160
+# the repair's shapes: (label, module, C, Co, groups, batch, h, w)
+EXTRAS_REPAIR = (('DCN group 128', 'DCN', 128, 128, 1, 9, 40, 40),
+                 ('DCNv2Module Co 330', 'DCNv2Module', 64, 330, 8, 4, 80, 80))
+EXTRAS_CPU_REL = 1e-4  # card vs CPU, of each tensor's largest magnitude: a
+                       # DCN module's output and gradients, the x8 output
+                       # (cuDNN's convs and the kernels against CPU convs
+                       # and the plain versions: sums in other orders)
+EXTRAS_LOSS_REL = 1e-4  # card vs CPU of each loss's value: VGG features by
+                        # cuDNN and by CPU convs, reduced in other orders
+EXTRAS_SR_LR = (120, 80)  # the x8 ensemble's non-square LR input
+EXTRAS_SR_BATCH = 2
+
+
+def _extras_sr_arch():
+    """A net built from the ported blocks at nf 64 (conv, 2 spectral-norm
+    residual blocks, a DCN of one 64-channel group, 2 BN residual blocks,
+    x4 Upsample, conv to RGB), registered as ``ExtrasSR`` so that
+    SRModel's define_network builds it."""
+    from torch import nn
+    from c2matching_tpu_torch.models.archs import ARCHS
+    from c2matching_tpu_torch.models.archs import arch_util as au
+    from c2matching_tpu_torch.models.archs.dcn_arch import DCN
+
+    class ExtrasSR(nn.Module):
+        def __init__(self, nf=64, generator=None):
+            super().__init__()
+            self.conv_first = au.conv(3, nf, generator)
+            self.sn_blocks = nn.ModuleList(
+                au.ResidualBlockNoBN(nf, generator, sn=True)
+                for _ in range(2))
+            with torch.no_grad():
+                # sn_bias divides a bias by its norm, which takes no
+                # gradient: at a zero bias its gradient is 1e12 times
+                # the output's, so the blocks start from a drawn one
+                for block in self.sn_blocks:
+                    for layer in (block.conv1, block.conv2):
+                        layer.bias.normal_(0.0, 0.02, generator=generator)
+            self.dcn = DCN(nf, nf, 1, generator)
+            with torch.no_grad():   # learned offsets of a few pixels
+                self.dcn.conv_offset_mask.weight.normal_(
+                    0.0, 0.05, generator=generator)
+            self.bn_blocks = nn.ModuleList(
+                au.ResidualBlockWithBN(nf, generator) for _ in range(2))
+            self.upsample = au.Upsample(4, nf, generator)
+            self.conv_last = au.conv(nf, 3, generator)
+
+        def forward(self, x):
+            feat = au.lrelu(self.conv_first(x))
+            for block in self.sn_blocks:
+                feat = block(feat)
+            feat = feat + self.dcn(feat)
+            for block in self.bn_blocks:
+                feat = block(feat)
+            return self.conv_last(self.upsample(feat))
+
+    ARCHS['ExtrasSR'] = ExtrasSR
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, ``want`` on the CPU."""
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _dcn_module(kind, c, co, g, gen, offset_std=0.05):
+    """A DCN module of the port on the CPU with a seeded init and, where it
+    has one, a non-zero conv_offset_mask (learned offsets of a few
+    pixels)."""
+    from c2matching_tpu_torch.models.archs import dcn_arch
+    module = getattr(dcn_arch, kind)(c, co, g, gen)
+    if hasattr(module, 'conv_offset_mask'):
+        with torch.no_grad():
+            module.conv_offset_mask.weight.normal_(0.0, offset_std,
+                                                   generator=gen)
+            module.conv_offset_mask.bias.normal_(0.0, 0.5, generator=gen)
+    return module
+
+
+def _extras_forward(check, dev, card):
+    """DCNSep forward at the DynAgg widths at HR 512x384 (one image, groups
+    8): B3's columns against deform_im2col_plain, the module's output
+    against the same module on the CPU, one B3 launch a forward; module,
+    B3, plain and grid_sample times beside B3's bound."""
+    from c2matching_tpu_torch.ops import deform_im2col, deform_im2col_plain
+    gen = torch.Generator().manual_seed(21)
+    out = {}
+    for layer, h, w, c in EXTRAS_FWD:
+        label = f'extras DCNSep forward {layer} {h}x{w}x{c}'
+        module = _dcn_module('DCNSep', c, c, 8, gen)
+        x = torch.randn(1, h, w, c, generator=gen)
+        extra = torch.randn(1, h, w, c, generator=gen)
+        with torch.no_grad():
+            want = module(x, extra)
+            module.to(dev)
+            xd, ed = x.to(dev), extra.to(dev)
+            deform_im2col.launches = 0
+            got = module(xd, ed)
+            launches = deform_im2col.launches
+            offset, mask = module.offset_mask(ed)
+            offset, mask = offset[0].contiguous(), mask[0].contiguous()
+        check(launches == 1, f'{label}: B3 launched {launches} time(s), 1 '
+              'expected')
+        err = _b3_compare(check, xd[0], offset, mask, label)
+        rel = _rel_err(got, want)
+        check(rel <= EXTRAS_CPU_REL, f'{label}: card vs CPU output '
+              f'{rel:.3g} <= {EXTRAS_CPU_REL:g} of its largest')
+        with torch.no_grad():
+            module_ms = cuda_ms(lambda: module(xd, ed))
+        b3_ms = cuda_ms(lambda: deform_im2col(xd[0], offset, mask))
+        plain_ms = cuda_ms(lambda: deform_im2col_plain(xd[0], offset, mask),
+                           min_ms=1.0)
+        grid_ms = _b3_library(check, xd[0], offset, mask, label)
+        b_ms, b_by = bound(*_b3_work(xd[0], offset, mask), torch.float32)
+        out[layer] = {'shape': [h, w, c], 'launches': launches,
+                      'module_ms': module_ms, 'b3_ms': b3_ms,
+                      'plain_ms': plain_ms, 'grid_sample_ms': grid_ms,
+                      'bound_ms': b_ms, 'bound_by': b_by,
+                      'max_abs_err': err, 'cpu_rel': rel}
+        print(f'{label}: module {module_ms:.4f} ms, B3 {b3_ms:.4f} ms, '
+              f'plain {plain_ms:.3f} ms, grid_sample {grid_ms:.4f} ms, '
+              f'bound {b_ms:.4f} ms by {b_by}; card vs CPU {rel:.3g} '
+              f'({card})', flush=True)
+        del module, xd, ed, offset, mask, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def _extras_backward(check, dev, card):
+    """DCNSep forward and backward at batch 9 at the training shapes: the
+    x, offset and mask gradients through autograd (one backward launch a
+    backward) against deform_conv_backward_plain within phase b3bwd's
+    gates; forward and backward ms beside their bounds."""
+    from c2matching_tpu_torch.models.archs.dcn_arch import DCNv2Module
+    from c2matching_tpu_torch.ops import (deform_conv_backward,
+                                          deform_conv_backward_plain,
+                                          deform_im2col)
+    gen = torch.Generator().manual_seed(22)
+    out = {}
+    for layer, h, w, c in TRAIN_B3:
+        label = f'extras DCNSep batch {EXTRAS_BATCH} {layer} {h}x{w}x{c}'
+        module = _dcn_module('DCNSep', c, c, 8, gen).to(dev)
+        x = torch.randn(EXTRAS_BATCH, h, w, c, generator=gen).to(dev)
+        extra = torch.randn(EXTRAS_BATCH, h, w, c, generator=gen).to(dev)
+        grad_out = torch.randn(EXTRAS_BATCH, h, w, c, generator=gen).to(dev)
+        with torch.no_grad():
+            offset, mask = module.offset_mask(extra)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, offset, mask)]
+        deform_im2col.launches = deform_conv_backward.launches = 0
+        # the module's deformable conv at those offsets and mask
+        y = DCNv2Module.forward(module, *leaves)
+        got = torch.autograd.grad(y, leaves, grad_out, retain_graph=True)
+        launches = {'forward': deform_im2col.launches,
+                    'backward': deform_conv_backward.launches}
+        check(launches == {'forward': EXTRAS_BATCH, 'backward': 1},
+              f'{label}: launches {launches}, {EXTRAS_BATCH} forward and 1 '
+              'backward expected')
+        w_kc = module.weight.detach().permute(2, 3, 1, 0).reshape(9 * c, c)
+        want = deform_conv_backward_plain(x, offset, mask, grad_out, w_kc)
+        errs = {}
+        for name, g, wnt, rel in zip(('x', 'offset', 'mask'), got, want,
+                                     (B3B_X_REL, B3B_REL, B3B_REL)):
+            err = (g - wnt).abs().max().item()
+            scale = wnt.abs().max().item()
+            errs[name] = err
+            check(err <= rel * scale, f'{label}: grad_{name} max |diff| '
+                  f'{err:.3g} <= {rel:g} x {scale:.3g}')
+        del want
+        fwd_ms = cuda_ms(lambda: module(x, extra))
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            y, leaves, grad_out, retain_graph=True))
+        kernel_ms = cuda_ms(lambda: deform_conv_backward(
+            x, offset, mask, grad_out, w_kc))
+        work = [0, 0]
+        for i in range(EXTRAS_BATCH):
+            one = _b3_work(x[i], offset[i], mask[i])
+            work = [a + b for a, b in zip(work, one)]
+        fwd_bound, fwd_by = bound(*work, torch.float32)
+        bwd_bound, bwd_by = _b3b_bound(*_b3b_work(x, offset, mask, grad_out,
+                                                  w_kc))
+        out[layer] = {'shape': [EXTRAS_BATCH, h, w, c], 'launches': launches,
+                      'forward_ms': fwd_ms, 'backward_ms': bwd_ms,
+                      'backward_kernel_ms': kernel_ms,
+                      'forward_b3_bound_ms': fwd_bound,
+                      'forward_bound_by': fwd_by,
+                      'backward_bound_ms': bwd_bound,
+                      'backward_bound_by': bwd_by,
+                      'max_abs_err': errs}
+        print(f'{label}: module forward {fwd_ms:.4f} ms (B3 bound '
+              f'{fwd_bound:.4f} by {fwd_by}), autograd backward '
+              f'{bwd_ms:.4f} ms, backward kernel with grad_x {kernel_ms:.4f} '
+              f'ms (offset and mask bound {bwd_bound:.4f} by {bwd_by}) '
+              f'({card})', flush=True)
+        del module, x, extra, grad_out, offset, mask, leaves, y, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _extras_repair(check, dev, card):
+    """The shapes the backward kernel took in pieces since the repair: a
+    group of 128 channels (two sub-groups, one launch) and Co 330 (two
+    chunks, two launches). Forward and backward against the plain
+    versions on the card and against the same module on the CPU; every
+    gradient from the kernel (its launch count, none of the columns'
+    route)."""
+    from c2matching_tpu_torch.ops import (deform_col2im, deform_conv_backward,
+                                          deform_conv_backward_plain,
+                                          deform_im2col)
+    gen = torch.Generator().manual_seed(23)
+    out = {}
+    for label, kind, c, co, g, b, h, w in EXTRAS_REPAIR:
+        label = f'extras repair {label} ({kind} {c} -> {co}, {g} group(s), ' \
+                f'batch {b} at {h}x{w})'
+        module = _dcn_module(kind, c, co, g, gen)
+        x = torch.randn(b, h, w, c, generator=gen)
+        grad_out = torch.randn(b, h, w, co, generator=gen)
+        if kind == 'DCNv2Module':
+            shift = torch.randint(-3, 4, (b, h, w, 1, 9, 2), generator=gen)
+            inputs = [x, shift + 0.5 * torch.randn(b, h, w, g, 9, 2,
+                                                   generator=gen),
+                      torch.rand(b, h, w, g, 9, generator=gen)]
+        else:
+            inputs = [x]
+        grads = []
+        for where in ('cpu', dev):
+            mod = module.to(where)
+            mod.zero_grad(set_to_none=True)
+            leaves = [t.detach().to(where).requires_grad_(True)
+                      for t in inputs]
+            deform_im2col.launches = deform_conv_backward.launches = 0
+            deform_col2im.launches = 0
+            y = mod(*leaves)
+            y.backward(grad_out.to(where))
+            grads.append((y.detach(), [t.grad for t in leaves],
+                          {n: p.grad for n, p in mod.named_parameters()}))
+        pieces = -(-co // 320)
+        launches = {'forward': deform_im2col.launches,
+                    'backward': deform_conv_backward.launches,
+                    'columns_route': deform_col2im.launches}
+        check(launches == {'forward': b, 'backward': pieces,
+                           'columns_route': 0},
+              f'{label}: launches {launches}, {b} forward, {pieces} backward '
+              'and no columns\' route expected')
+        (y_cpu, in_cpu, p_cpu), (y_dev, in_dev, p_dev) = grads
+        worst = _rel_err(y_dev, y_cpu)
+        for name, got, want in (
+                [('output', y_dev, y_cpu)]
+                + [(f'grad input {i}', a, b_)
+                   for i, (a, b_) in enumerate(zip(in_dev, in_cpu))]
+                + [(f'grad {n}', p_dev[n], p_cpu[n]) for n in p_cpu]):
+            rel = _rel_err(got, want)
+            worst = max(worst, rel)
+            check(rel <= EXTRAS_CPU_REL, f'{label}: card vs CPU {name} '
+                  f'{rel:.3g} <= {EXTRAS_CPU_REL:g} of its largest')
+        # the kernel's pieces against the plain backward on the card
+        with torch.no_grad():
+            xd = x.to(dev)
+            if kind == 'DCNv2Module':
+                offset, mask = (t.to(dev) for t in inputs[1:])
+            else:
+                offset, mask = module.offset_mask(xd)
+            w_kc = module.weight.detach().permute(2, 3, 1, 0).reshape(
+                9 * c, co)
+            god = grad_out.to(dev)
+            got = deform_conv_backward(xd, offset, mask, god, w_kc)
+            want = deform_conv_backward_plain(xd, offset, mask, god, w_kc)
+        _b3_compare(check, xd[0], offset[0], mask[0], label)
+        errs = {}
+        for name, gk, wnt, rel in zip(('x', 'offset', 'mask'), got, want,
+                                      (B3B_X_REL, B3B_REL, B3B_REL)):
+            err = (gk - wnt).abs().max().item()
+            scale = wnt.abs().max().item()
+            errs[name] = err
+            check(err <= rel * scale, f'{label}: grad_{name} against the '
+                  f'plain backward {err:.3g} <= {rel:g} x {scale:.3g}')
+        needs = (False, True, True)
+        bwd_ms = cuda_ms(lambda: deform_conv_backward(xd, offset, mask, god,
+                                                      w_kc, needs=needs))
+        plain_ms = cuda_ms(lambda: deform_conv_backward_plain(
+            xd, offset, mask, god, w_kc, needs=needs), min_ms=1.0)
+        b_ms, b_by = _b3b_bound(*_b3b_work(xd, offset, mask, god, w_kc))
+        key = f'{kind}_c{c}_co{co}_g{g}'
+        out[key] = {'shape': [b, h, w, c, co, g], 'launches': launches,
+                    'backward_ms': bwd_ms, 'plain_ms': plain_ms,
+                    'bound_ms': b_ms, 'bound_by': b_by, 'max_abs_err': errs,
+                    'cpu_rel': worst}
+        print(f'{label}: backward (offset and mask) {bwd_ms:.4f} ms in '
+              f'{pieces} launch(es), plain {plain_ms:.3f} ms, bound '
+              f'{b_ms:.4f} ms by {b_by}; card vs CPU worst {worst:.3g} '
+              f'({card})', flush=True)
+        del module, grads, got, want, xd, offset, mask, god
+        torch.cuda.empty_cache()
+    return out
+
+
+def _extras_sr(check, dev, card):
+    """SRModel on ExtrasSR: test_x8 on a non-square LR 120x80 on the card
+    against the CPU (8 x batch B3 launches), and one optimize_parameters
+    step card vs CPU (the logs and every gradient)."""
+    from c2matching_tpu_torch.models import create_model
+    from c2matching_tpu_torch.ops import deform_conv_backward, deform_im2col
+    _extras_sr_arch()
+    gen = torch.Generator().manual_seed(24)
+    h, w = EXTRAS_SR_LR
+    lq = torch.rand(EXTRAS_SR_BATCH, h, w, 3, generator=gen)
+    opt = {'model_type': 'SRModel', 'is_train': False, 'manual_seed': 3,
+           'network_g': {'type': 'ExtrasSR', 'nf': 64}, 'path': {},
+           'crop_border': 4, 'val': {'use_x8': True}}
+    outs = []
+    for where in ('cpu', dev):
+        model = create_model(opt, device=where)
+        model.feed_data({'img_in_lq': lq})
+        deform_im2col.launches = 0
+        model.test_x8()
+        launches = deform_im2col.launches
+        outs.append(model.output.cpu())
+    want_launches = 8 * EXTRAS_SR_BATCH
+    check(launches == want_launches, f'extras SRModel.test_x8: B3 launched '
+          f'{launches} times, {want_launches} expected (8 x batch)')
+    x8_rel = _rel_err(outs[1], outs[0])
+    check(outs[1].shape == (EXTRAS_SR_BATCH, 4 * h, 4 * w, 3)
+          and bool(torch.isfinite(outs[1]).all()),
+          f'extras SRModel.test_x8: output {tuple(outs[1].shape)}, finite')
+    check(x8_rel <= EXTRAS_CPU_REL, f'extras SRModel.test_x8 LR {h}x{w} '
+          f'batch {EXTRAS_SR_BATCH}: card vs CPU {x8_rel:.3g} <= '
+          f'{EXTRAS_CPU_REL:g} of its largest')
+    x8_ms = cuda_ms(model.test_x8)
+    test_ms = cuda_ms(model.test)
+    # one training step, card vs CPU, at LR 40 (gt 160)
+    train_opt = dict(opt, is_train=True, train={
+        'lr_g': 1e-4, 'pixel_criterion': 'L1Loss', 'pixel_weight': 1.0,
+        'lr_scheme': 'MultiStepLR', 'lr_steps': [100]})
+    batch = {'img_in_lq': torch.rand(EXTRAS_SR_BATCH, 40, 40, 3,
+                                     generator=gen),
+             'img_in': torch.rand(EXTRAS_SR_BATCH, 160, 160, 3,
+                                  generator=gen)}
+    models = []
+    for where in ('cpu', dev):
+        model = create_model(train_opt, device=where)
+        model.feed_data(batch)
+        deform_im2col.launches = deform_conv_backward.launches = 0
+        model.optimize_parameters(1)
+        models.append(model)
+    step_launches = {'forward': deform_im2col.launches,
+                     'backward': deform_conv_backward.launches}
+    check(step_launches == {'forward': EXTRAS_SR_BATCH, 'backward': 1},
+          f'extras SRModel step: launches {step_launches}')
+    cpu, dev_model = models
+    for k, v in cpu.log_dict.items():
+        want, got = float(v), float(dev_model.log_dict[k])
+        check(abs(got - want) <= TRAIN_CPU_REL * abs(want),
+              f'extras SRModel step: {k} card {got:.6g} vs CPU {want:.6g} '
+              f'(rel {TRAIN_CPU_REL:g})')
+    grads = dict(cpu.net_g.named_parameters())
+    top = max(p.grad.abs().max().item() for p in grads.values())
+    err = max((p.grad.cpu() - grads[n].grad).abs().max().item()
+              for n, p in dev_model.net_g.named_parameters())
+    check(err <= TRAIN_CPU_REL * top, f'extras SRModel step: gradients max '
+          f'|card - CPU| {err:.3g} <= {TRAIN_CPU_REL:g} x {top:.3g}')
+
+    def step():
+        dev_model.optimize_parameters(2)
+
+    step_ms = cuda_ms(step)
+    print(f'extras SRModel (ExtrasSR nf 64): test_x8 {x8_ms:.3f} ms, test '
+          f'{test_ms:.3f} ms at LR {h}x{w} batch {EXTRAS_SR_BATCH}; a '
+          f'training step {step_ms:.3f} ms at LR 40 batch '
+          f'{EXTRAS_SR_BATCH} ({card})', flush=True)
+    del models, cpu, dev_model
+    torch.cuda.empty_cache()
+    return {'x8_launches': launches, 'x8_cpu_rel': x8_rel, 'x8_ms': x8_ms,
+            'test_ms': test_ms, 'step_launches': step_launches,
+            'step_ms': step_ms, 'step_grad_err': err}
+
+
+def _extras_losses(check, dev, card):
+    """The losses no config calls and deform_psroi_pooling, card vs CPU,
+    at batch 9, gt 160; each call's ms on the card, its inputs there
+    already."""
+    import copy
+    from c2matching_tpu_torch.models import losses
+    from c2matching_tpu_torch.ops import deform_psroi_pooling
+    gen = torch.Generator().manual_seed(25)
+    b, s = EXTRAS_BATCH, 160
+    od, gs, ps = 8, 7, 7
+    inp = {k: torch.rand(b, s // f, s // f, c, generator=gen)
+           for k, f, c in (('relu1_1', 1, 64), ('relu2_1', 2, 128),
+                           ('relu3_1', 4, 256))}
+    inp.update({f'w_{k}': torch.rand(b, v.shape[1] - 2, v.shape[2] - 2, 1,
+                                     generator=gen)
+                for k, v in list(inp.items())})
+    corner = torch.rand(128, 2, generator=gen) * (s - 40)
+    size = 8 + torch.rand(128, 2, generator=gen) * 30
+    inp.update(
+        x=torch.rand(b, s, s, 3, generator=gen),
+        gt=torch.rand(b, s, s, 3, generator=gen),
+        stack=torch.rand(b, 2, s, s, 3, generator=gen),
+        stack_gt=torch.rand(b, 2, s, s, 3, generator=gen),
+        mask=(torch.rand(b, s, s, 1, generator=gen) > 0.3).float(),
+        score=torch.randn(s // 4, s // 4, od * gs * gs, generator=gen),
+        rois=torch.cat([torch.zeros(128, 1), corner, corner + size], 1),
+        offsets=torch.randn(128, 2, 2, ps, ps, generator=gen))
+    layers = ('relu1_1', 'relu2_1', 'relu3_1')
+    gen_vgg = torch.Generator().manual_seed(26)
+    calls = {
+        'TextureLoss': (
+            losses.TextureLoss(use_weights=True, generator=gen_vgg),
+            lambda m, t: m(t['x'], {k: t[k] for k in layers},
+                           {k: t[f'w_{k}'] for k in layers})),
+        'MapLoss': (losses.MapLoss(criterion='l1', generator=gen_vgg),
+                    lambda m, t: m({k: t[k] for k in layers}, t['gt'])),
+        'PerceptualLossMultiInputs': (
+            losses.PerceptualLossMultiInputs(
+                {'relu1_1': 1.0, 'relu2_1': 1.0}, criterion='fro',
+                style_weight=1.0, use_input_norm=False, generator=gen_vgg),
+            lambda m, t: sum(m(t['stack'], t['stack_gt']))),
+        'MaskedTVLoss': (losses.MaskedTVLoss(0.5),
+                         lambda m, t: m(t['x'], t['mask'])),
+        'deform_psroi_pooling': (
+            None, lambda m, t: deform_psroi_pooling(
+                t['score'], t['rois'], t['offsets'], od, gs, ps,
+                spatial_scale=0.25, trans_std=0.1, sample_per_part=4)),
+    }
+    on_dev = {k: v.to(dev) for k, v in inp.items()}
+    out = {}
+    for name, (module, fn) in calls.items():
+        mod = (copy.deepcopy(module).to(dev)
+               if isinstance(module, torch.nn.Module) else module)
+        with torch.no_grad():
+            want = fn(module, inp)
+            got = fn(mod, on_dev)
+            ms = cuda_ms(lambda: fn(mod, on_dev))
+        rel = _rel_err(got, want)
+        check(rel <= EXTRAS_LOSS_REL and bool(torch.isfinite(got).all()),
+              f'extras {name} batch {b} gt {s}: card vs CPU {rel:.3g} <= '
+              f'{EXTRAS_LOSS_REL:g}')
+        out[name] = {'ms': ms, 'cpu_rel': rel}
+        print(f'extras {name}: {ms:.3f} ms, card vs CPU {rel:.3g} ({card})',
+              flush=True)
+        del mod, got
+    del on_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_extras(check, dev, card):
+    """The off-path pieces on the card: the DCN modules on B3 and its
+    backward at any group width and Co, SRModel's x8 ensemble and step,
+    the remaining losses and deform_psroi_pooling. Prints one JSON
+    line."""
+    t0 = time.perf_counter()
+    out = {'phase': 'extras', 'card': card,
+           'dcnsep_forward': _extras_forward(check, dev, card),
+           'dcnsep_train': _extras_backward(check, dev, card),
+           'repair': _extras_repair(check, dev, card),
+           'sr_model': _extras_sr(check, dev, card),
+           'losses': _extras_losses(check, dev, card)}
+    out['seconds'] = round(time.perf_counter() - t0, 1)
+    print(json.dumps(out), flush=True)
+
+
 # ------------------------------------------------------------------ serve
 SERVE_BATCH = 16     # profile_serving's default batch, at HR 512x336
 SERVE_HR = (512, 336)
@@ -4413,6 +4904,7 @@ def main():
                 ('spatial', lambda: phase_spatial(check, dev, card)),
                 ('options', lambda: phase_options(check, dev, card,
                                                   chain_root)),
+                ('extras', lambda: phase_extras(check, dev, card)),
                 ('serve', lambda: phase_serve(check, dev, report, card))):
             try:
                 fn()

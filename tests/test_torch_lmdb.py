@@ -168,12 +168,20 @@ def test_packers_agree(packed, gt):
 
 
 def test_packer_refuses_jpeg(tmp_path):
+    """The packer takes baseline JPEG sources (tests/test_torch_jpeg.py);
+    a JPEG it cannot decode, truncated or progressive, raises naming
+    JPEG."""
     src = tmp_path / 'src'
     src.mkdir()
     (src / 'a.png').write_bytes(png.encode(np.zeros((8, 8, 3), np.uint8)))
-    (src / 'b.jpg').write_bytes(b'\xff\xd8')
+    (src / 'b.jpg').write_bytes(b'\xff\xd8\xff\xe0\x00')
     with pytest.raises(ValueError, match='JPEG'):
         create_cufed_lmdb.pack(str(src), str(tmp_path / 'out'), 'input', 8)
+    _, buf = cv2.imencode('.jpg', np.zeros((8, 8, 3), np.uint8),
+                          [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    (src / 'b.jpg').write_bytes(buf.tobytes())
+    with pytest.raises(ValueError, match='JPEG: progressive'):
+        create_cufed_lmdb.pack(str(src), str(tmp_path / 'out2'), 'input', 8)
 
 
 def test_paired_paths_from_lmdb(packed, tmp_path):
