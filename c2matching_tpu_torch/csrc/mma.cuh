@@ -1,6 +1,8 @@
-// Device helpers shared by the tensor-core kernels (B1 patch_match.cu, B2
-// dcn_window.cu): cp.async copies, ldmatrix fragment loads, mma.sync
-// products, and the split of an f32 value into two TF32 values for 3xTF32.
+// Device helpers shared by the tensor-core kernels: cp.async copies,
+// ldmatrix fragment loads and mma.sync products (B2 dcn_window.cu, the B3
+// backward deform_conv_backward.cu), and the split of an f32 value into two
+// TF32 values for 3xTF32 (those and B1 patch_match.cu, whose products are
+// wgmma).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -13,49 +13,76 @@
 // ref axis) and carries the running (max, argmax) in registers; a second
 // launch merges the partitions.
 //
-// What bounds it on this card: 2 * nq * nr * D operations, 646 GFLOP per
-// image for a CUFED5 request padded to the eval bucket (nq = nr = 11844,
-// D = 2304); the operands are 109 MB (f32) or 55 MB (bf16) each. So the
-// work has to run on the tensor cores:
-// - bf16 operands (the serving config): mma.sync m16n8k16, f32
-//   accumulation; products of two bf16 values are exact in f32.
+// What bounds it on this card: 2 * nq * nr * D operations, 564 GFLOP per
+// image on the main path (nq = 11844 queries of the bucket-padded CUFED5
+// request, nr = 10332 ref rows that can win, D = 2304), against operands of
+// 109 and 95 MB (f32) or half that (bf16). So the tensor cores bound it:
+// - bf16 operands (the serving config): wgmma m64n256k16 with f32
+//   accumulators; products of two bf16 values are exact in f32.
 // - f32 operands: 3xTF32. Each operand splits into big = tf32(x) and
 //   small = tf32(x - big) (cvt.rna, round to nearest, ties away), and
-//   big*small + small*big + big*big accumulate in f32 (mma.sync m16n8k8):
+//   big*small + small*big + big*big accumulate in f32 (wgmma m64n128k8):
 //   the dropped small*small term is ~2^-22 of each product, so the scores
 //   stay within f32 rounding of the exact ones. One plain TF32 pass would
-//   flip near-tie argmaxes. The tensor cores truncate as they add, so the
-//   three products of each 8-word step sum in a fresh fragment that one
-//   rounded f32 add takes into the running sum (see stage_3xtf32).
-// mma.sync and not wgmma: its operands come from registers, so the 3xTF32
-// split happens between the shared-memory load and the product, and one
-// kernel shape serves both types; wgmma reads B from shared memory, where
-// the split would cost a separate pass over both f32 operands.
+//   flip near-tie argmaxes. Three TF32 products per f32 product: 1.69 TFLOP
+//   an image at 495 TFLOP/s.
+// Next after the tensor cores comes L2: each block stages 1 byte into
+// shared memory per 48 (f32, split operands) or 85 (bf16) operations, tens
+// of GB an image, so the tiles are as large as the accumulators allow and
+// blocks that run at once share their tiles in L2 (see Filling the card).
 //
-// Design: a 128 x 128 block tile, 8 warps of 64 x 32, and 32 words of depth
-// per stage (32 f32 or 64 bf16 values) in a 3-stage cp.async ring with one
-// barrier per stage; 16-byte copies into rows padded to 36 words, so the
-// ldmatrix fragment loads are free of bank conflicts. 2 blocks per SM, at
-// most 128 registers a thread (108 KB of shared memory a block). After
-// the last stage of a ref tile each thread adds the bias to its 8 columns of
-// its 8 rows, folds them into a running (max, argmax), and the 4 lanes that
-// share a row merge by shuffles. Ref rows j >= nr get a bias of -inf, so
-// they never win (as patch_match_kernel.py masks them).
+// Why wgmma and TMA: wgmma is the only way to Hopper's full tensor-core
+// rate, and TMA feeds it with no thread spending registers or instructions
+// on the copies. wgmma reads its operands from shared memory, so the
+// 3xTF32 split cannot sit between a load and the product as it did with
+// mma.sync; it is a separate elementwise pass (split_kernel) into scratch
+// the wrapper allocates: (2, B, N, D), big then small. That pass reads the
+// operands once and writes them twice, ~0.2 ms an image, against a
+// product of ~1.7 TFLOP; the tiles then land ready for the tensor cores.
+//
+// Design: 3 warpgroups a block, one block an SM (~193 KB of shared memory).
+// - Warpgroup 0 is the producer: one thread keeps a ring of STAGES tiles
+//   in flight with cp.async.bulk.tensor (TMA) on an mbarrier each
+//   ("full"), from 3-D tensor maps (D, N, slices) with 128-byte swizzle; a
+//   stage is 128 bytes of depth (32 f32 or 64 bf16 values) of the block's
+//   BM = 128 query rows and BN ref rows (of big and small for f32). TMA
+//   zero-fills rows past nq or nr and depth past D. setmaxnreg gives the
+//   producer 40 registers and the consumers 232.
+// - Warpgroups 1 and 2 are consumers, 64 query rows each, both reading the
+//   same ref tile. Each issues wgmma on the landed stage, waits for those
+//   products, and releases the stage to the producer ("empty", one arrive
+//   a warp); the two consumers keep each other's waits covered (keeping a
+//   stage's products in flight while issuing the next measured slower).
+//   f32: the 3 x 4 products of a stage sum in a fresh accumulator (scale-d
+//   0 on the first), and one rounded f32 add takes that chunk into the
+//   running sum: the tensor cores truncate as they add, and truncating at
+//   the scale of the running sum over all 2304 depths drifts by ~1e-4
+//   (measured on the card with mma.sync). bf16 accumulates straight.
+// - After the last stage of a ref tile each thread adds the bias to its
+//   BN / 4 columns of its 2 rows, folds them into a running (max, argmax),
+//   and the 4 lanes that share a row merge by shuffles. The fold is once a
+//   ref tile (every 72 f32 or 36 bf16 stages); while one consumer folds or
+//   adds its chunk, the other's products keep the tensor cores busy. Ref
+//   rows past the partition or past nr never win (as
+//   patch_match_kernel.py masks rows past nr).
 //
 // Filling the card: at the main path's 11844 queries, 128-row query tiles
-// give 93 blocks for 132 SMs. So the ref axis is split into partitions
-// (c2m_match_argmax_parts picks their number from the SM count and the
-// occupancy); each (partition, query tile) block writes a partial
-// (max, argmax) to scratch, and a second launch merges the partials. The
+// give 93 blocks for 132 SMs. So the ref axis is split into partitions of
+// ceil(nr / parts) rows (c2m_match_argmax_parts picks their number from
+// the SM count); each (partition, query tile) block writes a partial
+// (max, argmax) to scratch, and a last launch merges the partials. The
 // partition is blockIdx.x: blocks that run at once cover a few query tiles
-// and every partition, so they walk the same r tiles and r comes from L2.
+// and every partition, so they walk the same r tiles and r comes from L2;
+// and every block walks the same number of ref tiles, so the partitions of
+// a query tile stay in step and read its q tiles from L2 together.
 //
 // Tie rule: within a thread the columns arrive in increasing j, and a value
 // replaces the running best only if strictly larger. Every merge (the
-// lanes of a quad, the warps of a block, the partitions) takes the larger
-// value and, on an exact tie, the smaller index. So the result is the
-// global first maximum of the kernel's scores.
+// lanes of a quad, the partitions) takes the larger value and, on an exact
+// tie, the smaller index. So the result is the global first maximum of the
+// kernel's scores.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,270 +97,431 @@ namespace {
 
 using namespace c2m;
 
-constexpr int BM = 128;        // query rows per block
-constexpr int BN = 128;        // ref rows per tile
-constexpr int BKW = 32;        // 32-bit words of depth per stage
-constexpr int LDW = BKW + 4;   // padded row stride in words
-constexpr int STAGES = 3;
-constexpr int WARPS_M = 2;
-constexpr int WARPS_N = 4;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;  // 256
-constexpr int WM = BM / WARPS_M;  // 64 query rows per warp
-constexpr int WN = BN / WARPS_N;  // 32 ref rows per warp
-constexpr int MT = WM / 16;       // m16 tiles per warp
-constexpr int NT = WN / 8;        // n8 tiles per warp
-constexpr int STAGE_WORDS = (BM + BN) * LDW;
-constexpr int SMEM_BYTES = STAGES * STAGE_WORDS * 4;   // 110,592
-constexpr int CHUNKS = BM * (BKW / 4) / THREADS;       // 16-byte copies
+constexpr int BM = 128;          // query rows per block, 64 a consumer
+constexpr int THREADS = 384;     // producer + 2 consumer warpgroups
+constexpr int ROW_BYTES = 128;   // a stage's depth: one swizzle span
 constexpr int MERGE_THREADS = 256;
+constexpr int SPLIT_THREADS = 256;
 
-static_assert(BM == BN, "one copy loop stages both operands");
-static_assert(2 * WARPS_N * BM <= STAGE_WORDS, "merge buffers fit");
+template <typename T>
+struct Cfg;
+
+template <>
+struct Cfg<float> {
+  static constexpr int BN = 128;      // ref rows per tile
+  static constexpr int STAGES = 3;
+  static constexpr int PIECES = 2;    // TF32 pieces: big and small
+};
+
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int BN = 256;
+  static constexpr int STAGES = 4;
+  static constexpr int PIECES = 1;
+};
+
+template <typename T>
+struct Layout : Cfg<T> {
+  using Cfg<T>::BN;
+  using Cfg<T>::STAGES;
+  using Cfg<T>::PIECES;
+  static constexpr int Q_BYTES = PIECES * BM * ROW_BYTES;
+  static constexpr int R_BYTES = PIECES * BN * ROW_BYTES;
+  static constexpr int STAGE_BYTES = Q_BYTES + R_BYTES;
+  // the ring, and up to 1 KB to align it: 128-byte swizzle repeats every
+  // 8 rows of 128 bytes, so a tile starts on a 1024-byte boundary
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
+  static constexpr int DEPTH = ROW_BYTES / sizeof(T);   // values a stage
+  static constexpr int NACC = BN / 2;   // accumulators a thread (m64)
+};
 
 __device__ __forceinline__ bool better(float v, int j, float best, int best_j) {
   return v > best || (v == best && j < best_j);
 }
 
-// One stage's products for a warp's 64 x 32 tile. a_addr, b_addr: the
-// lane's ldmatrix row addresses in the stage (see the kernel).
-__device__ __forceinline__ void load_b(uint32_t (&bf)[NT][2], uint32_t addr) {
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np)
-    ldmatrix_x4(addr + np * 16 * LDW * 4, bf[2 * np][0], bf[2 * np][1],
-                bf[2 * np + 1][0], bf[2 * np + 1][1]);
+// ---------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void stage_bf16(float (&acc)[MT][NT][4],
-                                           uint32_t a_addr, uint32_t b_addr) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (a fresh barrier
+// is in phase 0, so waiting on parity 1 passes at once).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A (128-byte, rows, 1) box of a 3-D tensor map at (depth c0, row c1,
+// slice c2) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (the stride byte
+// offset); the leading byte offset is unused in this layout. A step of
+// depth within the 128-byte row adds its byte offset / 16 to the address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator above the wait
+// that completes it (the wgmma statements name it only as they issue).
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < BKW / 8; ++kk) {
-    uint32_t bf[NT][2];
-    load_b(bf, b_addr + kk * 32);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32, in registers) = A (64 x k, shared) * B (N x k, shared)^T
+// + (scale_d ? D : 0). Accumulator layout, with warp w of the warpgroup,
+// g = lane / 4, t = lane % 4: d[4j + 2h + e] is row 16w + g + 8h, column
+// 8j + 2t + e.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_products(
+    float (&acc)[Layout<T>::NACC], uint32_t stage, int cw, bool first);
+
+// f32: the three TF32 products of 4 depth steps of 8, into a fresh
+// accumulator (scale-d 0 on the first product).
+template <>
+__device__ __forceinline__ void stage_products<float>(float (&acc)[64],
+                                                      uint32_t stage, int cw,
+                                                      bool) {
+  using L = Layout<float>;
+  const uint64_t q_big = sw128_desc(stage + cw * 64 * ROW_BYTES);
+  const uint64_t q_small = sw128_desc(stage + (BM + cw * 64) * ROW_BYTES);
+  const uint64_t r_big = sw128_desc(stage + L::Q_BYTES);
+  const uint64_t r_small = sw128_desc(stage + L::Q_BYTES + L::BN * ROW_BYTES);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t a[4];
-      ldmatrix_x4(a_addr + mt * 16 * LDW * 4 + kk * 32, a[0], a[1], a[2],
-                  a[3]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        mma_bf16(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
-    }
+  for (int k = 0; k < ROW_BYTES / 32; ++k) {
+    const int o = k * 2;   // 32 bytes of depth, in 16-byte units
+    wgmma_tf32_n128(acc, q_big + o, r_small + o, k > 0);
+    wgmma_tf32_n128(acc, q_small + o, r_big + o, 1);
+    wgmma_tf32_n128(acc, q_big + o, r_big + o, 1);
   }
 }
 
-// The three products of 8 words sum in a fresh fragment, which one rounded
-// f32 add then takes into the running sum: the tensor cores' additions
-// truncate, and truncating at the scale of the running sum 864 times over
-// D = 2304 drifts by ~1e-4 (measured on the card). Not unrolled over kk:
-// unrolled, the fragments of four steps spill at 128 registers.
-__device__ __forceinline__ void stage_3xtf32(float (&acc)[MT][NT][4],
-                                             uint32_t a_addr,
-                                             uint32_t b_addr) {
-#pragma unroll 1
-  for (int kk = 0; kk < BKW / 8; ++kk) {
-    uint32_t bf[NT][2], b_big[NT][2], b_small[NT][2];
-    load_b(bf, b_addr + kk * 32);
+// bf16: 4 depth steps of 16 into the running accumulator (scale-d 0 on the
+// first step of a ref tile).
+template <>
+__device__ __forceinline__ void stage_products<__nv_bfloat16>(
+    float (&acc)[128], uint32_t stage, int cw, bool first) {
+  using L = Layout<__nv_bfloat16>;
+  const uint64_t qd = sw128_desc(stage + cw * 64 * ROW_BYTES);
+  const uint64_t rd = sw128_desc(stage + L::Q_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+  for (int k = 0; k < ROW_BYTES / 32; ++k)
+    wgmma_bf16_n256(acc, qd + 2 * k, rd + 2 * k, !(first && k == 0));
+}
+
+// Folds a finished ref tile (columns n0 ..., those below n_end) into the
+// thread's running best of its rows h = 0, 1 (see the accumulator layout).
+template <int NACC>
+__device__ __forceinline__ void fold_tile(const float (&acc)[NACC],
+                                          const float* __restrict__ bias,
+                                          int n0, int n_end, int t,
+                                          float (&best_v)[2],
+                                          int (&best_j)[2]) {
+  float bj[NACC / 2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        split_tf32(bf[nt][e], b_big[nt][e], b_small[nt][e]);
+  for (int j = 0; j < NACC / 4; ++j)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t a[4], a_big[4], a_small[4];
-      ldmatrix_x4(a_addr + mt * 16 * LDW * 4 + kk * 32, a[0], a[1], a[2],
-                  a[3]);
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + 8 * j + 2 * t + e;
+      bj[2 * j + e] =
+          col < n_end ? (bias ? __ldg(bias + col) : 0.f) : -INFINITY;
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(a[e], a_big[e], a_small[e]);
+  for (int h = 0; h < 2; ++h) {
+    float v = -INFINITY;
+    int jv = 0x7fffffff;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float sum8[4];
-        mma_tf32_zero(sum8, a_big, b_small[nt][0], b_small[nt][1]);
-        mma_tf32(sum8, a_small, b_big[nt][0], b_big[nt][1]);
-        mma_tf32(sum8, a_big, b_big[nt][0], b_big[nt][1]);
+    for (int j = 0; j < NACC / 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += sum8[e];
+      for (int e = 0; e < 2; ++e) {
+        const float sc = acc[4 * j + 2 * h + e] + bj[2 * j + e];
+        if (sc > v) {
+          v = sc;
+          jv = n0 + 8 * j + 2 * t + e;
+        }
+      }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int oj = __shfl_xor_sync(0xffffffffu, jv, o);
+      if (better(ov, oj, v, jv)) {
+        v = ov;
+        jv = oj;
       }
     }
+    // earlier tiles hold smaller indices: strict > keeps them on ties
+    if (v > best_v[h]) {
+      best_v[h] = v;
+      best_j[h] = jv;
+    }
   }
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32 and mma.m16n8k16 .bf16),
-// counted in 32-bit words of depth, identical for both types: with
-// g = lane / 4 and t = lane % 4, A holds (row g, word t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4); B holds (ref row g, word t), (g, t + 4); the
-// accumulator holds (row g, cols 2t, 2t + 1), (row g + 8, same cols).
-// ldmatrix.x4 delivers exactly these from four 8 x 4-word matrices.
+// q_map and r_map cover (D, N, slices): slice s of q_map is image s of q
+// for bf16, and big (s < batch) or small (s >= batch) of image s % batch of
+// the split f32 operand.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-match_argmax_kernel(const T* __restrict__ q, const T* __restrict__ r,
-                    const float* __restrict__ bias, int nq, int nr, int dw,
-                    int parts, float* __restrict__ out_val,
+__global__ void __launch_bounds__(THREADS, 1)
+match_argmax_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap r_map,
+                    const float* __restrict__ bias, int batch, int nq, int nr,
+                    int d, int parts, float* __restrict__ out_val,
                     int* __restrict__ out_idx) {
-  extern __shared__ __align__(16) uint32_t smem[];
+  using L = Layout<T>;
+  __shared__ __align__(8) uint64_t full_bar[L::STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[L::STAGES];
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t ring = (smem_addr(smem) + 1023u) & ~1023u;
+
   const int part = blockIdx.x;
   const int m0 = blockIdx.y * BM;
   const int b = blockIdx.z;
-  const int n_tiles = (nr + BN - 1) / BN;
-  const int tile0 =
-      static_cast<int>(static_cast<int64_t>(part) * n_tiles / parts);
-  const int tile1 =
-      static_cast<int>(static_cast<int64_t>(part + 1) * n_tiles / parts);
-  const int k_tiles = (dw + BKW - 1) / BKW;
-  const int steps = (tile1 - tile0) * k_tiles;
+  // the partition's ref rows [n_begin, n_end), walked in n_tiles tiles
+  const int part_rows = (nr + parts - 1) / parts;
+  const int n_tiles = (part_rows + L::BN - 1) / L::BN;
+  const int n_begin = part * part_rows;
+  const int n_end = min(nr, n_begin + part_rows);
+  const int k_stages = (d + L::DEPTH - 1) / L::DEPTH;
+  const int steps = n_tiles * k_stages;
+  const int wg = threadIdx.x / 128;
 
-  const int64_t row_bytes = static_cast<int64_t>(dw) * 4;
-  const char* qb = reinterpret_cast<const char*>(q) +
-                   static_cast<int64_t>(b) * nq * row_bytes;
-  const char* rb = reinterpret_cast<const char*>(r) +
-                   static_cast<int64_t>(b) * nr * row_bytes;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp / WARPS_N;
-  const int warp_n = warp % WARPS_N;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const uint32_t smem0 = smem_addr(smem);
-
-  // One stage: BM query rows and BN ref rows of BKW words each, as 16-byte
-  // copies; copy c goes to row c / 8, column 4 * (c % 8). Rows past nq or
-  // nr and words past dw are zero-filled.
-  auto load_stage = [&](int step, int slot) {
-    const int n0 = (tile0 + step / k_tiles) * BN;
-    const int w0 = (step % k_tiles) * BKW;
-    const uint32_t sa = smem0 + slot * STAGE_WORDS * 4;
-    const uint32_t sb = sa + BM * LDW * 4;
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int c = tid + i * THREADS;
-      const int row = c >> 3;
-      const int word = w0 + 4 * (c & 7);
-      const uint32_t off = (row * LDW + 4 * (c & 7)) * 4;
-      const bool kin = word < dw;
-      const bool qin = kin && m0 + row < nq;
-      const bool rin = kin && n0 + row < nr;
-      cp_async16(sa + off,
-                      qin ? qb + (m0 + row) * row_bytes + word * 4 : qb,
-                      qin ? 16 : 0);
-      cp_async16(sb + off,
-                      rin ? rb + (n0 + row) * row_bytes + word * 4 : rb,
-                      rin ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), 8);   // the consumers' 8 warps
     }
-  };
-
-  // ldmatrix row addresses (bytes from a stage's start): an m16 x 8-word
-  // A tile, and two n8 x 8-word B tiles
-  const uint32_t a_off =
-      ((warp_m * WM + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDW +
-       4 * (lane >> 4)) * 4;
-  const uint32_t b_off =
-      ((BM + warp_n * WN + (lane & 7) + 8 * (lane >> 4)) * LDW +
-       4 * ((lane >> 3) & 1)) * 4;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  // the running best of rows 4 * s + t (s = 0, 1) of the thread's 8
-  float run_v[2] = {-INFINITY, -INFINITY};
-  int run_j[2] = {0x7fffffff, 0x7fffffff};
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_stage(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (s + STAGES - 1 < steps)
-      load_stage(s + STAGES - 1, (s + STAGES - 1) % STAGES);
-    cp_async_commit();
-
-    const uint32_t stage = smem0 + (s % STAGES) * STAGE_WORDS * 4;
-    if constexpr (std::is_same<T, float>::value)
-      stage_3xtf32(acc, stage + a_off, stage + b_off);
-    else
-      stage_bf16(acc, stage + a_off, stage + b_off);
-
-    if ((s + 1) % k_tiles == 0) {
-      // the ref tile is complete: fold its scores into the running best
-      const int j0 = (tile0 + s / k_tiles) * BN + warp_n * WN + 2 * t;
-      float bj[NT][2];
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % L::STAGES;
+        const uint32_t parity = (step / L::STAGES) & 1;
+        const uint32_t full = smem_addr(&full_bar[s]);
+        mbar_wait(smem_addr(&empty_bar[s]), parity ^ 1);
+        mbar_expect_tx(full, L::STAGE_BYTES);
+        const int n0 = n_begin + (step / k_stages) * L::BN;
+        const int k0 = (step % k_stages) * L::DEPTH;
+        const uint32_t stage = ring + s * L::STAGE_BYTES;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = j0 + nt * 8 + e;
-          bj[nt][e] = j < nr ? (bias ? __ldg(bias + j) : 0.f) : -INFINITY;
+        for (int piece = 0; piece < L::PIECES; ++piece) {
+          tma_load(stage + piece * BM * ROW_BYTES, &q_map, full, k0, m0,
+                   b + piece * batch);
+          tma_load(stage + L::Q_BYTES + piece * L::BN * ROW_BYTES, &r_map,
+                   full, k0, n0, b + piece * batch);
         }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int t = lane & 3;
+    float acc[L::NACC];
+    float run[std::is_same<T, float>::value ? L::NACC : 1];
+    float best_v[2] = {-INFINITY, -INFINITY};
+    int best_j[2] = {0x7fffffff, 0x7fffffff};
+    int step = 0;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      for (int ks = 0; ks < k_stages; ++ks, ++step) {
+        const int s = step % L::STAGES;
+        mbar_wait(smem_addr(&full_bar[s]), (step / L::STAGES) & 1);
+        wgmma_fence();
+        stage_products<T>(acc, ring + s * L::STAGE_BYTES, cw, ks == 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+        if (lane == 0) mbar_arrive(smem_addr(&empty_bar[s]));
+        if constexpr (std::is_same<T, float>::value) {
+          // one rounded f32 add a stage takes the chunk into the sum
 #pragma unroll
-      for (int ri = 0; ri < 2 * MT; ++ri) {
-        const int mt = ri >> 1;
-        const int h = ri & 1;
-        float v = -INFINITY;
-        int jv = 0x7fffffff;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float sc = acc[mt][nt][2 * h + e] + bj[nt][e];
-            if (sc > v) {
-              v = sc;
-              jv = j0 + nt * 8 + e;
-            }
-            acc[mt][nt][2 * h + e] = 0.f;
-          }
-#pragma unroll
-        for (int o = 1; o <= 2; o <<= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-          const int oj = __shfl_xor_sync(0xffffffffu, jv, o);
-          if (better(ov, oj, v, jv)) {
-            v = ov;
-            jv = oj;
-          }
+          for (int i = 0; i < L::NACC; ++i)
+            run[i] = ks == 0 ? acc[i] : run[i] + acc[i];
         }
-        // earlier tiles hold smaller indices: strict > keeps them on ties
-        if ((ri & 3) == t && v > run_v[ri >> 2]) {
-          run_v[ri >> 2] = v;
-          run_j[ri >> 2] = jv;
+      }
+      if constexpr (std::is_same<T, float>::value)
+        fold_tile(run, bias, n_begin + tile * L::BN, n_end, t, best_v,
+                  best_j);
+      else
+        fold_tile(acc, bias, n_begin + tile * L::BN, n_end, t, best_v,
+                  best_j);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + cw * 64 + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+        if (row < nq) {
+          const int64_t o =
+              (static_cast<int64_t>(b) * parts + part) * nq + row;
+          out_val[o] = best_v[h];
+          out_idx[o] = best_j[h];
         }
       }
     }
   }
+}
 
-  // merge the WARPS_N warps that share each query row
-  cp_async_wait<0>();
-  __syncthreads();
-  float* red_v = reinterpret_cast<float*>(smem);
-  int* red_j = reinterpret_cast<int*>(smem + WARPS_N * BM);
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int ri = 4 * s + t;
-    const int row = warp_m * WM + (ri >> 1) * 16 + (ri & 1) * 8 + g;
-    red_v[warp_n * BM + row] = run_v[s];
-    red_j[warp_n * BM + row] = run_j[s];
-  }
-  __syncthreads();
-  if (tid < BM && m0 + tid < nq) {
-    float v = red_v[tid];
-    int jv = red_j[tid];
-#pragma unroll
-    for (int wn = 1; wn < WARPS_N; ++wn) {
-      if (better(red_v[wn * BM + tid], red_j[wn * BM + tid], v, jv)) {
-        v = red_v[wn * BM + tid];
-        jv = red_j[wn * BM + tid];
-      }
-    }
-    const int64_t o = (static_cast<int64_t>(b) * parts + part) * nq + m0 + tid;
-    out_val[o] = v;
-    out_idx[o] = jv;
+// The f32 operand x (n values, n % 4 == 0) as big = tf32(x) in out[0, n)
+// and small = tf32(x - big) in out[n, 2n), rounded as cvt.rna rounds.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+             int64_t n4) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * SPLIT_THREADS +
+                   threadIdx.x;
+       i < n4; i += static_cast<int64_t>(gridDim.x) * SPLIT_THREADS) {
+    const float4 v = x[i];
+    uint32_t big[4], small[4];
+    split_tf32(__float_as_uint(v.x), big[0], small[0]);
+    split_tf32(__float_as_uint(v.y), big[1], small[1]);
+    split_tf32(__float_as_uint(v.z), big[2], small[2]);
+    split_tf32(__float_as_uint(v.w), big[3], small[3]);
+    out[i] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                         __uint_as_float(big[2]), __uint_as_float(big[3]));
+    out[n4 + i] =
+        make_float4(__uint_as_float(small[0]), __uint_as_float(small[1]),
+                    __uint_as_float(small[2]), __uint_as_float(small[3]));
   }
 }
 
@@ -363,31 +551,84 @@ merge_parts_kernel(const float* __restrict__ part_val,
   idx[i] = jv;
 }
 
+// ------------------------------------------------------------------- host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda of its own).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of (slices, rows, d) values of T, boxes of 128 bytes x box_rows.
+template <typename T>
+bool make_map(CUtensorMap* map, const void* base, int d, int rows,
+              int slices, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(slices)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(d) * sizeof(T),
+      static_cast<cuuint64_t>(rows) * d * sizeof(T)};
+  const cuuint32_t box[3] = {ROW_BYTES / sizeof(T),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map,
+                std::is_same<T, float>::value
+                    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T>
 cudaError_t prepare() {
   return cudaFuncSetAttribute(match_argmax_kernel<T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              SMEM_BYTES);
+                              Layout<T>::SMEM_BYTES);
 }
 
 // The number of ref-axis partitions: the least estimated makespan, in ref
-// tiles of work, over the resident blocks of the card (ties: fewer).
+// tiles of work, over the resident blocks of the card (ties: fewer). Every
+// partition holds ceil(nr / parts) rows, so every block walks the same
+// number of tiles: the blocks of one query tile then stay in step, and
+// its q tiles reach L2 once for all of them (blocks of unequal lengths
+// drift apart over the waves, and each reads q from memory again).
 template <typename T>
 int partitions(int batch, int nq, int nr) {
   if (prepare<T>() != cudaSuccess) return -1;
-  const int slots = c2m::sm_count() *
-                    c2m::blocks_per_sm(match_argmax_kernel<T>, THREADS,
-                                       SMEM_BYTES);
+  const int slots =
+      c2m::sm_count() * c2m::blocks_per_sm(match_argmax_kernel<T>, THREADS,
+                                           Layout<T>::SMEM_BYTES);
   if (slots <= 0) return -1;
   const int64_t q_tiles = static_cast<int64_t>(batch) * ((nq + BM - 1) / BM);
+  constexpr int BN = Layout<T>::BN;
   const int n_tiles = (nr + BN - 1) / BN;
   int best = 1;
   double best_cost = 0.0;
   for (int p = 1; p <= n_tiles; ++p) {
     const int64_t waves = (q_tiles * p + slots - 1) / slots;
+    const int tiles = ((nr + p - 1) / p + BN - 1) / BN;
     // a quarter tile of fixed cost per block: the ring's fill, the merges
-    const double cost =
-        static_cast<double>(waves) * ((n_tiles + p - 1) / p + 0.25);
+    const double cost = static_cast<double>(waves) * (tiles + 0.25);
     if (p == 1 || cost < best_cost) {
       best = p;
       best_cost = cost;
@@ -396,23 +637,48 @@ int partitions(int batch, int nq, int nr) {
   return best;
 }
 
+// Splits the f32 operand x (n values) into out (2n values).
+cudaError_t split(const void* x, void* out, int64_t n, cudaStream_t s) {
+  const int64_t n4 = n / 4;
+  const int64_t want = (n4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  const int64_t cap = static_cast<int64_t>(c2m::sm_count()) * 16;
+  const int blocks = static_cast<int>(want < cap ? want : cap);
+  split_kernel<<<blocks > 0 ? blocks : 1, SPLIT_THREADS, 0, s>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(out), n4);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* r, const void* bias, int batch, int nq,
-           int nr, int d, int parts, void* part_val, void* part_idx,
-           void* idx, void* val, void* stream) {
+           int nr, int d, int parts, void* q_split, void* r_split,
+           void* part_val, void* part_idx, void* idx, void* val,
+           void* stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   const int q_tiles = (nq + BM - 1) / BM;
-  if (parts < 1 || q_tiles > 65535 || batch > 65535)
+  if (parts < 1 || q_tiles > 65535 || batch > 65535 ||
+      (f32 && (!q_split || !r_split)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dw = static_cast<int>(d * sizeof(T) / 4);
+  if (f32) {
+    err = split(q, q_split, static_cast<int64_t>(batch) * nq * d, s);
+    if (err == cudaSuccess)
+      err = split(r, r_split, static_cast<int64_t>(batch) * nr * d, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int slices = f32 ? 2 * batch : batch;
+  CUtensorMap q_map, r_map;
+  if (!make_map<T>(&q_map, f32 ? q_split : q, d, nq, slices, BM) ||
+      !make_map<T>(&r_map, f32 ? r_split : r, d, nr, slices,
+                   Layout<T>::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* out_val = static_cast<float*>(parts > 1 ? part_val : val);
   int* out_idx = static_cast<int*>(parts > 1 ? part_idx : idx);
-  match_argmax_kernel<T><<<dim3(parts, q_tiles, batch), THREADS, SMEM_BYTES,
-                           s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(r),
-      static_cast<const float*>(bias), nq, nr, dw, parts, out_val, out_idx);
+  match_argmax_kernel<T>
+      <<<dim3(parts, q_tiles, batch), THREADS, Layout<T>::SMEM_BYTES, s>>>(
+          q_map, r_map, static_cast<const float*>(bias), batch, nq, nr, d,
+          parts, out_val, out_idx);
   err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
   const int64_t rows = static_cast<int64_t>(batch) * nq;
@@ -433,21 +699,24 @@ extern "C" int c2m_match_argmax_parts(int batch, int nq, int nr, int bf16) {
 }
 
 // Requires d % 8 == 0 and 16-byte aligned q and r (the wrapper checks
-// both); part_val and part_idx hold (batch, parts, nq) when parts > 1.
+// both); q_split and r_split hold (2, batch, nq or nr, d) f32 (f32 only);
+// part_val and part_idx hold (batch, parts, nq) when parts > 1.
 extern "C" int c2m_match_argmax_f32(const void* q, const void* r,
                                     const void* bias, int batch, int nq,
-                                    int nr, int d, int parts, void* part_val,
+                                    int nr, int d, int parts, void* q_split,
+                                    void* r_split, void* part_val,
                                     void* part_idx, void* idx, void* val,
                                     void* stream) {
-  return launch<float>(q, r, bias, batch, nq, nr, d, parts, part_val,
-                       part_idx, idx, val, stream);
+  return launch<float>(q, r, bias, batch, nq, nr, d, parts, q_split, r_split,
+                       part_val, part_idx, idx, val, stream);
 }
 
 extern "C" int c2m_match_argmax_bf16(const void* q, const void* r,
                                      const void* bias, int batch, int nq,
-                                     int nr, int d, int parts, void* part_val,
+                                     int nr, int d, int parts, void* q_split,
+                                     void* r_split, void* part_val,
                                      void* part_idx, void* idx, void* val,
                                      void* stream) {
-  return launch<__nv_bfloat16>(q, r, bias, batch, nq, nr, d, parts, part_val,
-                               part_idx, idx, val, stream);
+  return launch<__nv_bfloat16>(q, r, bias, batch, nq, nr, d, parts, q_split,
+                               r_split, part_val, part_idx, idx, val, stream);
 }

@@ -2,13 +2,15 @@
 argmax over ref rows, without writing the scores.
 
 Counterpart of ``c2matching_tpu/ops/pallas/patch_match_kernel.py``. The
-CUDA source is ``csrc/patch_match.cu``: tensor cores through ``mma.sync``,
-bf16 operands as they are and f32 operands as 3xTF32 (each split into two
-TF32 parts, three products summed in f32). ``match_argmax`` calls the
-registered operator ``torch.ops.c2matching.match_argmax`` (a fake
-implementation gives its output shapes to ``torch.export``): on a CPU
-tensor it takes the plain version, ``match_argmax_plain``; on a CUDA
-tensor it launches the kernel or raises.
+CUDA source is ``csrc/patch_match.cu``: Hopper's ``wgmma`` on tiles that
+TMA brings into a shared-memory ring, bf16 operands as they are and f32
+operands as 3xTF32 (each split into two TF32 parts by an elementwise pass
+into scratch the wrapper allocates, three products summed in f32).
+``match_argmax`` calls the registered operator
+``torch.ops.c2matching.match_argmax`` (a fake implementation gives its
+output shapes to ``torch.export``): on a CPU tensor it takes the plain
+version, ``match_argmax_plain``; on a CUDA tensor it launches the kernel or
+raises.
 """
 import ctypes
 from typing import Optional, Tuple
@@ -18,7 +20,7 @@ import torch
 from . import _build
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-             + [ctypes.c_void_p] * 5)
+             + [ctypes.c_void_p] * 7)
 _ENTRY = {torch.float32: 'c2m_match_argmax_f32',
           torch.bfloat16: 'c2m_match_argmax_bf16'}
 
@@ -67,9 +69,11 @@ def match_argmax(q, r, ref_bias=None):
         (max_idx int32, max_val float32), each (B, Nq) or (Nq,).
 
     Calls the registered operator ``torch.ops.c2matching.match_argmax``.
-    On a CUDA tensor D must be a multiple of 8 (16 bytes of bf16). The
+    On a CUDA tensor D must be a multiple of 8 (16 bytes of bf16, the
+    tensor maps' stride unit). For f32 operands the wrapper allocates
+    their TF32 split as scratch: two f32 copies of q and of r. The
     kernel may split the ref axis into partitions and merge them in a
-    second launch; ``match_argmax.launches`` counts one per call all the
+    last launch; ``match_argmax.launches`` counts one per call all the
     same.
     """
     if q.dim() == 2:
@@ -103,8 +107,15 @@ def _match_argmax_op(q: torch.Tensor, r: torch.Tensor,
     val = torch.empty((b, nq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         parts = partitions(b, nq, nr, q.dtype)
-        # the partitions' (max, argmax), merged by the kernel's second launch
-        part_val = part_idx = None
+        # f32: the operands' (big, small) TF32 parts, written by the
+        # kernel's split pass; the partitions' (max, argmax), merged by its
+        # last launch
+        q_split = r_split = part_val = part_idx = None
+        if q.dtype == torch.float32:
+            q_split = torch.empty((2,) + tuple(q.shape), dtype=q.dtype,
+                                  device=q.device)
+            r_split = torch.empty((2,) + tuple(r.shape), dtype=r.dtype,
+                                  device=q.device)
         if parts > 1:
             part_val = torch.empty((b, parts, nq), dtype=torch.float32,
                                    device=q.device)
@@ -113,6 +124,8 @@ def _match_argmax_op(q: torch.Tensor, r: torch.Tensor,
         err = _kernel(q.dtype)(
             q.data_ptr(), r.data_ptr(),
             None if bias is None else bias.data_ptr(), b, nq, nr, d, parts,
+            None if q_split is None else q_split.data_ptr(),
+            None if r_split is None else r_split.data_ptr(),
             None if part_val is None else part_val.data_ptr(),
             None if part_idx is None else part_idx.data_ptr(),
             idx.data_ptr(), val.data_ptr(),

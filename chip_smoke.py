@@ -8,13 +8,16 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases:
   1. card: name and power limit; build the kernels from csrc/ (nvcc).
-  2. b1: the patch-match argmax kernel against its plain version on
-     random descriptors at the unpadded CUFED5 shape (10332 x 10332,
-     D = 2304) in f32 and bf16, plus ragged shapes (batch 2, nq and nr off
-     the 128-row tiles, a depth off the 32-word stages), the depths the
-     wrapper refuses, exact ties across ref tiles and across the
-     partitions of the ref axis, near ties (top-2 gaps from 1e-7 to 1e-3
-     on patch-structured descriptors at D = 2304) and the ref_bias
+  2. b1: the patch-match argmax kernel (wgmma on a TMA-fed ring) against
+     its plain version on random descriptors at the unpadded CUFED5 shape
+     (10332 x 10332, D = 2304) in f32 and bf16, plus ragged shapes (batch
+     2, nq and nr off the 128-row query and 128- or 256-row ref tiles, a
+     depth off the ring's 128-byte stages and one below a stage, where
+     TMA zero-fills), the depths the wrapper refuses, exact ties across
+     ref tiles and across the partitions of the ref axis on query rows of
+     both consumer warpgroups, at batch 1 and 3 (the tensor maps' batch
+     stride), near ties (top-2 gaps from 1e-7 to 1e-3 on
+     patch-structured descriptors at D = 2304) and the ref_bias
      exclusion.
   3. b3: the deformable im2col kernel against its plain version on random
      inputs at the three unpadded DynAgg shapes of CUFED5 in f32 and bf16,
@@ -46,13 +49,15 @@ Phases:
      same nets run on the CPU, where the plain versions run. One more
      HR 512x336 request per config records every kernel's inputs.
   6. path: each kernel against its plain version on exactly the tensors
-     the main path gave it (B1 at 11844 x 11844 x 2304 with the valid-shape
-     ref_bias; B3 at the padded 128x96, 256x192 and 512x384 DynAggs), in
-     both configs; then the windowed op, which no model calls, on the
-     relu1 (blk 4) and relu2 (blk 2) DynAggs' own tensors: the branch it
-     takes, B2 in image mode against its plain version and rows mode
-     there, the prep's and B2's times, and the windowed op against the
-     exact op. These are the times of the kernels line.
+     the main path gave it (B1 at 11844 x 10332 x 2304: the ref rows that
+     can win, no ref_bias; its indices mapped to the 126 x 94 grid and
+     held against the plain version on all 11844 ref rows with the
+     valid-shape ref_bias; B3 at the padded 128x96, 256x192 and 512x384
+     DynAggs), in both configs; then the windowed op, which no model
+     calls, on the relu1 (blk 4) and relu2 (blk 2) DynAggs' own tensors:
+     the branch it takes, B2 in image mode against its plain version and
+     rows mode there, the prep's and B2's times, and the windowed op
+     against the exact op. These are the times of the kernels line.
   7. eval: the port's test runner (c2matching_tpu_torch.test.run, what
      `python -m c2matching_tpu_torch.test` calls) on the card, through
      options files written from options/test/test_synth_smoke.yml (f32)
@@ -328,10 +333,12 @@ DCN_SHAPES = (('relu3_1', 128, 84, 256), ('relu2_1', 256, 168, 128),
               ('relu1_1', 512, 336, 64))
 # what the main path hands the kernels for REQUESTS[0], padded to the
 # bucket of 16 LR pixels (LR 128x84 -> 128x96): relu3_1 features of
-# 128x96 give 126x94 descriptors, and the ref_bias excludes the 126 x 12
-# ref patches past the valid 128x84; DynAgg samples at 1x, 2x and 4x
+# 128x96 give 126x94 descriptors; B1 gets the 126 x 82 ref patches inside
+# the valid 128x84 (the 126 x 12 past it cannot win); DynAgg samples at 1x,
+# 2x and 4x
 PATH_B1 = (1, 126 * 94, 9 * 256)
-PATH_B1_EXCLUDED = 126 * (94 - 82)
+PATH_B1_GRID = (126, 94, 126, 82)   # (hr, wr) of the ref grid, (vh, vw) kept
+PATH_B1_KEPT = (1, 126 * 82, 9 * 256)
 PATH_B3 = ((128, 96, 256), (256, 192, 128), (512, 384, 64))
 # the windowed op's (blk, win) by the padded DynAgg shape it serves; the
 # same shapes, with random DynAgg-structured inputs, in phase b2
@@ -488,6 +495,55 @@ def _b1_library_ms(q, r, bias):
     return cuda_ms(call)
 
 
+def _b1_grid_bias(hr, wr, vh, vw, dev):
+    """The ref_bias of an hr x wr ref grid whose top-left vh x vw block is
+    kept: 0 there, -1e30 elsewhere (the JAX package's valid-shape bias)."""
+    row = torch.arange(hr, device=dev)[:, None]
+    col = torch.arange(wr, device=dev)[None, :]
+    return torch.where((row < vh) & (col < vw), 0.0, -1e30).float(
+    ).reshape(-1)
+
+
+def _b1_full_compare(check, q, r_kept, r_full, bias, grid, label):
+    """The kernel on the kept rows, its indices mapped to the whole grid,
+    against the plain version on the whole grid with the bias: the gates of
+    _b1_compare, and no excluded row wins."""
+    from c2matching_tpu_torch.ops import match_argmax, match_argmax_plain
+    pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match')
+    hr, wr, vh, vw = grid
+    idx_k, val_k = match_argmax(q, r_kept)
+    idx_k = pm.full_ref_index(idx_k, wr, vw)
+    idx_p, val_p = match_argmax_plain(q, r_full, bias)
+    scores = torch.matmul(q.float(), r_full.float().mT) + bias
+    top2 = scores.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > B1_GAP_TOL
+    picked = scores.gather(-1, idx_k.long()[..., None])[..., 0]
+    err = (val_k - val_p).abs().max().item()
+    check(bool(((idx_k == idx_p) | ~clear).all())
+          and bool(((picked - val_p).abs() <= B1_GAP_TOL).all())
+          and err <= B1_VAL_TOL and bool((bias[idx_k.long()] == 0).all()),
+          f'b1 {label}: indices mapped to the {hr}x{wr} grid equal the '
+          f'plain version\'s on all {r_full.shape[1]} ref rows with the '
+          f'ref_bias on the {int(clear.sum())} of {clear.numel()} rows with '
+          f'top-2 gap > {B1_GAP_TOL:g} (on all rows: '
+          f'{int((idx_k == idx_p).sum())}), each picked index within '
+          f'{B1_GAP_TOL:g} of the max, max |val diff| {err:.3g} <= '
+          f'{B1_VAL_TOL:g}, no excluded row wins')
+
+
+def _b1_call_peak(q, r, bias=None):
+    """Bytes one call adds at its peak above what is allocated before it:
+    its outputs, the partitions' partials and, for f32, the split
+    operands."""
+    from c2matching_tpu_torch.ops import match_argmax
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    match_argmax(q, r, bias)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def phase_b1(check, dev):
     from c2matching_tpu_torch.ops import match_argmax, match_argmax_plain
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -517,6 +573,11 @@ def phase_b1(check, dev):
         _b1_compare(check, randn(2, 300, 72).to(dtype),
                     randn(2, 470, 72).to(dtype), None,
                     f'ragged 2x300x470x72 {name}')
+        # a depth below one 128-byte stage, one query warpgroup's rows
+        # past nq, and one ref row past a tile
+        _b1_compare(check, randn(3, 65, 16).to(dtype),
+                    randn(3, 257, 16).to(dtype), None,
+                    f'ragged 3x65x257x16 {name}')
         r = randn(2, 3001, 2312)
         _b1_compare(check, randn(2, 1000, 2312).to(dtype),
                     (r / r.norm(dim=-1, keepdim=True)).to(dtype), None,
@@ -542,8 +603,8 @@ def phase_b1(check, dev):
                   f'b1 ties {name}: the lowest duplicate index wins')
         # exact ties across ref tiles and across partitions: few queries
         # split the ref axis into many partitions, many into few
-        for nq_tie in (200, 4096):
-            _b1_tie_probe(check, gen, dev, dtype, nq_tie)
+        for nq_tie, batch in ((200, 1), (4096, 1), (200, 3)):
+            _b1_tie_probe(check, gen, dev, dtype, nq_tie, batch)
         # near ties at full depth
         q, r = _b1_near_ties(gen, dev)
         _b1_compare(check, q.to(dtype), r.to(dtype), None,
@@ -569,25 +630,30 @@ def _b1_parts(batch, nq, nr, dtype):
     return pmk.partitions(batch, nq, nr, dtype)
 
 
-def _b1_tie_probe(check, gen, dev, dtype, nq, d=256, copies=3):
+def _b1_tie_probe(check, gen, dev, dtype, nq, batch=1, d=256, copies=3):
     """Each query's best ref row duplicated at `copies` random positions
-    among normalised random rows (at least 5120 ref rows, 4 per
-    duplicate): the lowest position must win."""
+    of its image among normalised random rows (at least 5120 ref rows, 4
+    per duplicate; other positions in each image): the lowest position
+    must win, on the query rows of both consumer warpgroups (64 each of a
+    block's 128), across ref tiles and partitions, in every image."""
     from c2matching_tpu_torch.ops import match_argmax
     name = str(dtype).replace('torch.', '')
     nr = max(5120, 4 * copies * nq)
-    base = torch.randn(nq, d, generator=gen, device=dev)
-    r = torch.randn(nr, d, generator=gen, device=dev)
+    base = torch.randn(batch, nq, d, generator=gen, device=dev)
+    r = torch.randn(batch, nr, d, generator=gen, device=dev)
     r = r / r.norm(dim=-1, keepdim=True)
-    pos = torch.randperm(nr, generator=gen, device=dev)[:copies * nq]
-    pos = pos.reshape(nq, copies)
-    r[pos.reshape(-1)] = base.repeat_interleave(copies, dim=0)
-    parts = _b1_parts(1, nq, nr, dtype)
+    pos = torch.stack([torch.randperm(nr, generator=gen, device=dev)
+                       [:copies * nq] for _ in range(batch)])
+    pos = pos.reshape(batch, nq, copies)
+    for i in range(batch):
+        r[i, pos[i].reshape(-1)] = base[i].repeat_interleave(copies, dim=0)
+    parts = _b1_parts(batch, nq, nr, dtype)
     idx, _ = match_argmax((2 * base).to(dtype), r.to(dtype))
-    check(torch.equal(idx.long(), pos.min(dim=1).values),
-          f'b1 ties {name} {nq}x{nr}x{d}: the lowest of {copies} duplicates '
-          f'wins across 128-row ref tiles and {parts} partitions')
-    if nq <= 256:
+    check(torch.equal(idx.long(), pos.min(dim=-1).values),
+          f'b1 ties {name} {batch}x{nq}x{nr}x{d}: the lowest of {copies} '
+          'duplicates wins across ref tiles, both consumer warpgroups\' '
+          f'rows and {parts} partitions')
+    if nq * batch <= 256:
         check(parts > 1, f'b1 ties {name} {nq}x{nr}: the ref axis is split '
               f'({parts} partitions)')
 
@@ -1151,28 +1217,38 @@ def _stage_ms(model, batch):
 @contextlib.contextmanager
 def _record_kernel_inputs():
     """Record what the main path hands each kernel: (q, r, ref_bias) of
-    every match and (x, offset, mask, weight, bias) of every DynAgg's DCN,
-    the whole batch. Wraps the names the callers look up; the kernels and
-    their launch counters stay as they are."""
+    every match, the whole ref grid each match's kept rows were cut from
+    ((r, hr, wr, vh, vw) of ``kept_ref_rows``, its rows not yet
+    normalised), and (x, offset, mask,
+    weight, bias) of every DynAgg's DCN, the whole batch. Wraps the names
+    the callers look up; the kernels and their launch counters stay as
+    they are."""
     pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match')
     ra = importlib.import_module(
         'c2matching_tpu_torch.models.archs.ref_restoration_arch')
-    seen = {'b1': [], 'b3': []}
-    match, mdc = pm.match_argmax, ra.modulated_deform_conv
+    seen = {'b1': [], 'b1_grid': [], 'b3': []}
+    match, kept, mdc = (pm.match_argmax, pm.kept_ref_rows,
+                        ra.modulated_deform_conv)
 
     def match_rec(q, r, ref_bias=None):
         seen['b1'].append((q, r, ref_bias))
         return match(q, r, ref_bias)
 
+    def kept_rec(r, hr, wr, vh, vw):
+        seen['b1_grid'].append((r, hr, wr, vh, vw))
+        return kept(r, hr, wr, vh, vw)
+
     def mdc_rec(x, offset, mask, weight, bias=None, **conv):
         seen['b3'].append((x, offset, mask, weight, bias))
         return mdc(x, offset, mask, weight, bias, **conv)
 
-    pm.match_argmax, ra.modulated_deform_conv = match_rec, mdc_rec
+    pm.match_argmax, pm.kept_ref_rows, ra.modulated_deform_conv = (
+        match_rec, kept_rec, mdc_rec)
     try:
         yield seen
     finally:
-        pm.match_argmax, ra.modulated_deform_conv = match, mdc
+        pm.match_argmax, pm.kept_ref_rows, ra.modulated_deform_conv = (
+            match, kept, mdc)
 
 
 def phase_main(check, dev, report, card, recorded):
@@ -1233,26 +1309,36 @@ def phase_path(check, report, recorded, card):
     """Each kernel against its plain version on the tensors the main path
     gave it for the HR 512x336 request, in both configs; then the windowed
     op on the relu1 and relu2 DynAggs' tensors."""
+    from c2matching_tpu_torch.ops import match_argmax
     for cfg, dtype in (('f32', torch.float32), ('serving', torch.bfloat16)):
         name = str(dtype).replace('torch.', '')
         seen = recorded.pop(cfg)
         # the request's one image
         seen['b3'] = [(x[0], offset[0], mask[0], weight, bias)
                       for x, offset, mask, weight, bias in seen['b3']]
-        check(len(seen['b1']) == 1, f'path {cfg}: one match call '
-              f'({len(seen["b1"])})')
-        q, r, bias = seen['b1'][0]
-        excluded = -1 if bias is None else int((bias < 0).sum())
-        check(tuple(q.shape) == PATH_B1 and tuple(r.shape) == PATH_B1
-              and q.dtype == dtype and excluded == PATH_B1_EXCLUDED,
+        check(len(seen['b1']) == 1 and len(seen['b1_grid']) == 1,
+              f'path {cfg}: one match call ({len(seen["b1"])}) on the kept '
+              f'rows of one ref grid ({len(seen["b1_grid"])})')
+        (q, r, bias), = seen['b1']
+        r_full, *grid = seen['b1_grid'][0]
+        check(tuple(q.shape) == PATH_B1 and tuple(r.shape) == PATH_B1_KEPT
+              and tuple(r_full.shape) == PATH_B1
+              and tuple(grid) == PATH_B1_GRID and bias is None
+              and q.dtype == dtype and r.dtype == dtype,
               f'path {cfg}: B1 gets q {tuple(q.shape)}, r {tuple(r.shape)} '
-              f'{q.dtype}, ref_bias excluding {excluded} rows')
+              f'{r.dtype} (the rows of {tuple(grid[2:])} in the ref grid '
+              f'{tuple(grid[:2])}), ref_bias {bias}')
         label = f'main path {q.shape[1]}x{r.shape[1]}x{q.shape[2]} {name}'
-        idx, err = _b1_compare(check, q, r, bias, label)
-        check(bool((bias[idx.long()] == 0).all()),
-              f'b1 {label}: no excluded row wins')
-        ms, plain_ms = _b1_time(q, r, bias, label)
-        moved, ops = _b1_work(q, r, bias)
+        _, err = _b1_compare(check, q, r, None, label)
+        full_bias = _b1_grid_bias(*grid, dev=q.device)
+        # the whole grid as the main path treats its kept rows: each row
+        # normalised, then cast to the match's dtype
+        r_full = (r_full / (torch.sqrt(torch.sum(
+            r_full * r_full, dim=-1, keepdim=True)) + 1e-5)).to(dtype)
+        _b1_full_compare(check, q, r, r_full, full_bias, grid, label)
+        ms, plain_ms = _b1_time(q, r, None, label)
+        scratch = _b1_call_peak(q, r)
+        moved, ops = _b1_work(q, r, None)
         if dtype == torch.float32:
             # the kernel's pipe: three TF32 products per f32 product
             simt_ms, _ = bound(moved, ops, torch.float32)
@@ -1263,15 +1349,22 @@ def phase_path(check, report, recorded, card):
         else:
             bound_ms, bound_by = bound(moved, ops, dtype)
             pipe = f'bf16 at {PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s'
-        library_ms = _b1_library_ms(q, r, bias)
+        library_ms = _b1_library_ms(q, r, None)
+        full_ms = cuda_ms(lambda: match_argmax(q, r_full, full_bias))
+        full_lib_ms = _b1_library_ms(q, r_full, full_bias)
         print(f'b1 {label}: bound {bound_ms:.3f} ms by {bound_by} ({pipe}), '
-              f'torch.matmul + max {library_ms:.3f} ms ({card})', flush=True)
+              f'torch.matmul + max {library_ms:.3f} ms on the same rows; on '
+              f'all {r_full.shape[1]} ref rows with the ref_bias: kernel '
+              f'{full_ms:.3f} ms, torch.matmul + max {full_lib_ms:.3f} ms; '
+              f'the call adds {scratch / 2**30:.3f} GiB (outputs and '
+              f'scratch) ({card})', flush=True)
         report[f'b1_{name}'] = {'ms': ms, 'plain_ms': plain_ms,
                                 'max_abs_err': err, 'bound_ms': bound_ms,
                                 'bound_by': bound_by,
                                 'library_ms': library_ms}
-        del q, r, bias, idx
+        del q, r, r_full, full_bias
         seen['b1'].clear()
+        seen['b1_grid'].clear()
         torch.cuda.empty_cache()
 
         shapes = sorted(tuple(d[0].shape) for d in seen['b3'])
@@ -4482,7 +4575,9 @@ def _b1_batch_compare(check, q, r, bias, label):
     err = 0.0
     n_clear = n_same = n_rows = n_far = n_excluded = 0
     for i in range(q.shape[0]):
-        scores = torch.matmul(q[i].float(), r[i].float().mT) + bias
+        scores = torch.matmul(q[i].float(), r[i].float().mT)
+        if bias is not None:
+            scores = scores + bias
         idx_p, val_p = match_argmax_plain(q[i:i + 1], r[i:i + 1], bias)
         top2 = scores.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > B1_GAP_TOL
@@ -4492,7 +4587,8 @@ def _b1_batch_compare(check, q, r, bias, label):
         n_same += int((same | ~clear).sum())
         n_rows += clear.numel()
         n_far += int(((picked - val_p[0]).abs() > B1_GAP_TOL).sum())
-        n_excluded += int((bias[idx_k[i].long()] != 0).sum())
+        if bias is not None:
+            n_excluded += int((bias[idx_k[i].long()] != 0).sum())
         err = max(err, (val_k[i] - val_p[0]).abs().max().item())
         del scores, top2
     check(n_same == n_rows, f'b1 {label}: indices equal on the {n_clear} of '
@@ -4515,23 +4611,29 @@ def _serve_flush_kernels(check, seen, cfg, dtype, card):
                                           match_argmax, match_argmax_plain)
     name = str(dtype).replace('torch.', '')
     q, r, bias = seen['b1'][0]
-    check(tuple(q.shape) == (SERVE_BATCH,) + PATH_B1[1:] and q.dtype == dtype
-          and int((bias < 0).sum()) == PATH_B1_EXCLUDED,
-          f'serve {cfg}: B1 gets q {tuple(q.shape)} {q.dtype}')
+    check(tuple(q.shape) == (SERVE_BATCH,) + PATH_B1[1:]
+          and tuple(r.shape) == (SERVE_BATCH,) + PATH_B1_KEPT[1:]
+          and q.dtype == dtype and bias is None,
+          f'serve {cfg}: B1 gets q {tuple(q.shape)} {q.dtype}, the kept ref '
+          f'rows {tuple(r.shape)}, ref_bias {bias}')
     label = f'batch {q.shape[0]} {q.shape[1]}x{r.shape[1]}x{q.shape[2]} {name}'
     b1 = {'max_abs_err': _b1_batch_compare(check, q, r, bias, label)}
     b1['ms'] = cuda_ms(lambda: match_argmax(q, r, bias))
     b1['plain_ms'] = cuda_ms(lambda: match_argmax_plain(q, r, bias))
     b1['library_ms'] = _b1_library_ms(q, r, bias)
+    scratch = _b1_call_peak(q, r, bias)
     moved, ops = _b1_work(q, r, bias)
     b1['bound_ms'], b1['bound_by'] = (
         bound(moved, B1_TF32_PRODUCTS * ops, 'tf32')
         if dtype == torch.float32 else bound(moved, ops, dtype))
     print(f'b1 {label}: kernel {b1["ms"]:.3f} ms, plain {b1["plain_ms"]:.3f}'
           f' ms, torch.matmul + max {b1["library_ms"]:.3f} ms, bound '
-          f'{b1["bound_ms"]:.3f} ms by {b1["bound_by"]} ({card})', flush=True)
+          f'{b1["bound_ms"]:.3f} ms by {b1["bound_by"]}; the call adds '
+          f'{scratch / 2**30:.3f} GiB (outputs and scratch) ({card})',
+          flush=True)
     del q, r, bias
     seen['b1'].clear()
+    seen['b1_grid'].clear()
     torch.cuda.empty_cache()
 
     shapes = sorted(tuple(d[0].shape) for d in seen['b3'])

@@ -38,9 +38,10 @@ def test_every_source_of_the_port_finds_its_headers():
 @pytest.mark.parametrize('name', ['patch_match', 'dcn_window',
                                   'deform_conv_backward'])
 def test_tensor_core_kernels_share_their_helpers(name):
-    """B1, B2 and B3's backward take their mma.sync, cp.async, ldmatrix
-    and 3xTF32 split helpers from one header, so an edit there rebuilds
-    all three."""
+    """B1, B2 and B3's backward take their tensor-core helpers from one
+    header (the 3xTF32 split and shared-memory addresses; B2 and B3's
+    backward also mma.sync, cp.async and ldmatrix), so an edit there
+    rebuilds all three."""
     assert (_build.CSRC / 'mma.cuh') in _build.local_headers(
         _build.CSRC / f'{name}.cu')
     assert _build.library_path(name).name.startswith(f'{name}-')

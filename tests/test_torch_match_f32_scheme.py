@@ -4,12 +4,16 @@ torch on the CPU, against the JAX package's ``match_argmax``.
 On the card B1 takes f32 operands as 3xTF32: each value x splits into
 big = tf32(x) and small = tf32(x - big), both rounded as the kernel's
 ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero), and the
-scores are big.big + big.small + small.big summed in f32. The emulation
-here does the same with bit operations and three f32 products. It is held
-against JAX's Pallas kernel in interpret mode (true f32) with chip_smoke's
-criteria: indices equal wherever the exact top-2 gap exceeds 1e-4, and
-values within 1e-4. A single TF32 pass, the scheme the kernel refuses, is
-shown to flip near ties that 3xTF32 keeps.
+scores are big.big + big.small + small.big summed in f32. The kernel's
+tensor cores sum each chunk of depth (one 32-value stage of its ring) in a
+fresh accumulator, and one rounded f32 add takes the chunk into the
+running score. The emulation here does the same with bit operations and
+three f32 products, over the whole depth at once or chunk by chunk at the
+sizes the kernel may use. It is held against JAX's Pallas kernel in
+interpret mode (true f32) with chip_smoke's criteria: indices equal
+wherever the exact top-2 gap exceeds 1e-4, and values within 1e-4. A
+single TF32 pass, the scheme the kernel refuses, is shown to flip near
+ties that 3xTF32 keeps.
 """
 import numpy as np
 import pytest
@@ -22,6 +26,10 @@ from c2matching_tpu.ops.pallas import match_argmax as jax_match_argmax
 B1_VAL_TOL = 1e-4   # chip_smoke.py: |kernel - plain| of the max score
 B1_GAP_TOL = 1e-4   # chip_smoke.py: indices must agree above this gap
 D = 9 * 256         # the main path's depth: 3 x 3 patches of relu3_1
+# depth summed in one fresh accumulator before the f32 add: None, the
+# whole depth in one f32 matmul; 32, one stage of the kernel's ring; 8, a
+# single wgmma step; 64 and 256, longer chunks the kernel may take
+CHUNKS = (None, 8, 32, 64, 256)
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -46,12 +54,18 @@ def split_tf32(x):
     return big, tf32_rna(x - big)
 
 
-def match_argmax_3xtf32(q, r, bias=None):
+def match_argmax_3xtf32(q, r, bias=None, chunk=None):
     """B1's f32 scheme: three TF32 products summed in f32, the bias,
-    then the first maximum."""
+    then the first maximum. With ``chunk``, each ``chunk`` values of
+    depth sum their three products in a fresh f32 sum, which one f32 add
+    takes into the running scores."""
     qb, qs = split_tf32(q)
     rb, rs = split_tf32(r)
-    scores = qb @ rs.T + qs @ rb.T + qb @ rb.T
+    scores = torch.zeros(q.shape[0], r.shape[0])
+    for k in range(0, q.shape[1], chunk or q.shape[1]):
+        c = slice(k, k + (chunk or q.shape[1]))
+        scores = scores + (qb[:, c] @ rs[:, c].T + qs[:, c] @ rb[:, c].T
+                           + qb[:, c] @ rb[:, c].T)
     if bias is not None:
         scores = scores + bias
     return scores.argmax(-1), scores.amax(-1)
@@ -124,20 +138,33 @@ def test_split_keeps_f32_precision():
                 & 0x1FFF).any()
 
 
-@pytest.mark.parametrize('seed,excluded', [(0, 0), (1, 0), (2, 150)])
-def test_3xtf32_matches_jax_interpret(seed, excluded):
+@pytest.fixture(scope='module')
+def jax_results():
+    """JAX's Pallas kernel in interpret mode on each seed's inputs, once
+    for every chunk size."""
+    return {}
+
+
+@pytest.mark.parametrize('seed,excluded,chunk', [
+    pytest.param(seed, excluded, chunk, id=f'{seed}-{excluded}' + (
+        '' if chunk is None else f'-chunk{chunk}'))
+    for chunk in CHUNKS for seed, excluded in [(0, 0), (1, 0), (2, 150)]])
+def test_3xtf32_matches_jax_interpret(seed, excluded, chunk, jax_results):
     """Near ties at the main path's depth, with and without ref rows
-    excluded by the -1e30 bias: chip_smoke's criteria against JAX's
-    Pallas kernel in interpret mode."""
+    excluded by the -1e30 bias, the depth summed at once or chunk by
+    chunk: chip_smoke's criteria against JAX's Pallas kernel in interpret
+    mode."""
     rng = np.random.RandomState(seed)
     q, r, bias = patch_descriptors(rng, 200, 180, excluded)
-    want_i, want_v = jax_match_argmax(
-        jnp.asarray(q), jnp.asarray(r),
-        ref_bias=None if bias is None else jnp.asarray(bias), tile_q=128,
-        tile_r=128, interpret=True)
+    if seed not in jax_results:
+        jax_results[seed] = jax_match_argmax(
+            jnp.asarray(q), jnp.asarray(r),
+            ref_bias=None if bias is None else jnp.asarray(bias),
+            tile_q=128, tile_r=128, interpret=True)
+    want_i, want_v = jax_results[seed]
     got_i, got_v = match_argmax_3xtf32(
         torch.from_numpy(q), torch.from_numpy(r),
-        None if bias is None else torch.from_numpy(bias))
+        None if bias is None else torch.from_numpy(bias), chunk)
     gap = exact_top2_gap(q, r, bias)
     clear = gap > B1_GAP_TOL
     assert clear.sum() > 20
@@ -153,8 +180,9 @@ def test_3xtf32_keeps_near_ties_that_one_tf32_pass_flips():
     """On rows whose exact top-2 gap lies in [1e-6, 1e-4], below
     chip_smoke's criterion, 3xTF32 picks the exact winner on every row
     and its values stay within 1e-5 of the exact maxima (it measured
-    ~1e-6); a single TF32 pass flips some of those rows (7 of ~200 with
-    this seed) and its values drift by ~9e-5, at the edge of B1_VAL_TOL."""
+    ~1e-6), summed at once or chunk by chunk; a single TF32 pass flips
+    some of those rows (7 of ~200 with this seed) and its values drift by
+    ~9e-5, at the edge of B1_VAL_TOL."""
     rng = np.random.RandomState(3)
     q, r, _ = patch_descriptors(rng, 400, 100)
     scores = q.astype(np.float64) @ r.astype(np.float64).T
@@ -163,9 +191,10 @@ def test_3xtf32_keeps_near_ties_that_one_tf32_pass_flips():
     near = (gap >= 1e-6) & (gap <= 1e-4)
     assert near.sum() > 100
     qt, rt = torch.from_numpy(q), torch.from_numpy(r)
-    three, val3 = match_argmax_3xtf32(qt, rt)
+    for chunk in CHUNKS:
+        three, val3 = match_argmax_3xtf32(qt, rt, chunk=chunk)
+        assert np.array_equal(three.numpy()[near], exact[near]), chunk
+        assert np.abs(val3.numpy() - scores.max(-1)).max() < 1e-5, chunk
     one, val1 = match_argmax_tf32(qt, rt)
-    assert np.array_equal(three.numpy()[near], exact[near])
     assert (one.numpy()[near] != exact[near]).sum() >= 3
-    assert np.abs(val3.numpy() - scores.max(-1)).max() < 1e-5
     assert np.abs(val1.numpy() - scores.max(-1)).max() > 3e-5

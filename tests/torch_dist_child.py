@@ -23,6 +23,10 @@ bounded time for each process. Its modes:
   outputs, offset statistics, band and collective counts.
 - ``spatial_units <out>``: the banded ops on ``unit_inputs()``; each rank
   writes its results.
+- ``match_band <inputs .pt> <out>``: ``batched_patch_match`` on the rank's
+  band of the inputs' ``feat_in`` against the whole ``feat_ref``, with
+  their ``valid_shape`` and ``compute_dtype``; each rank writes its
+  indices and values.
 
 ``start(jobs)`` starts the jobs and returns the wait of ``spawn``.
 """
@@ -309,10 +313,32 @@ def _spatial_units(out_path):
         dist.destroy_process_group()
 
 
+def _match_band(in_path, out_path):
+    import torch
+    import torch.distributed as dist
+    from c2matching_tpu_torch.ops.patch_match import batched_patch_match
+    from c2matching_tpu_torch.parallel import band_for, init_distributed
+    torch.set_num_threads(1)
+    rank, world, _ = init_distributed({}, 'pytorch', 'cpu')
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        feat_in = inputs['feat_in']
+        band = band_for(feat_in.shape[1], rank, world)
+        idx, val = batched_patch_match(
+            band.take(feat_in), inputs['feat_ref'],
+            compute_dtype=inputs['compute_dtype'],
+            valid_shape=inputs['valid_shape'], band=band)
+        torch.save({'band': (band.row0, band.rows), 'idx': idx, 'val': val},
+                   f'{out_path}.rank{rank}')
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv):
     mode, rest = argv[0], argv[1:]
     modes = {'validate': _validate, 'validate_spatial': _validate_spatial,
-             'spatial': _spatial, 'spatial_units': _spatial_units}
+             'spatial': _spatial, 'spatial_units': _spatial_units,
+             'match_band': _match_band}
     if mode in modes:
         modes[mode](*rest)
         return
