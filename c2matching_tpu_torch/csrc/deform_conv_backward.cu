@@ -20,160 +20,192 @@
 // gradient and receive no grad_x. A bf16 x is read into f32; w_kc is f32
 // (the wrapper rounds it to bf16 first for a bf16 x, as the forward does).
 //
-// What bounds it on this card: operations by count, latency in practice.
-// G is 2 * P * 9C * Co flops a DynAgg image (1.9 GFLOP at relu3 40 x 40 x
-// 256 and at relu1 160 x 160 x 64), run as 3xTF32 on the tensor cores:
-// three times that at 495 TFLOP/s, against ~10 MB of x, offsets, mask,
-// grad_out and gradients per image. Formed in device memory and multiplied
-// outside, G alone was 15-59 MB a DynAgg image written and read back. The
-// corner dots gather four corners of every (pixel, tap, group) sample from
-// x: 16.6 M samples of 32 bytes a corner at relu1 and batch 9.
+// What bounds it on this card. G is 2 * P * 9C * Co flops a DynAgg image
+// (1.9 GFLOP at relu3 40 x 40 x 256 and at relu1 160 x 160 x 64), run as
+// 3xTF32 on the tensor cores: three times that at 495 TFLOP/s, 0.10 ms a
+// training DynAgg at batch 9. Beside it the corner dots gather four corners
+// of every (pixel, tap, group) sample of x (16.6 M samples of 32 bytes a
+// corner at relu1) and read and write every sample's offsets and mask
+// (0.4 GB at relu1). Measured on the mma.sync kernel this replaces
+// (scripts/bench_dcn_backward.py --roles), the products set the pace at
+// relu3 (0.50 of 0.57 ms), the dots at relu1 (0.92 of 1.17 ms), and the two
+// tie at relu2.
 //
-// Design: one block a SM (512 threads) walks tiles of PT output pixels of
-// the batch's images (blockIdx.x, + gridDim.x, ...). Per tile the (tap,
-// group) slices of w_kc are taken in chunks of whole groups of one tap, at
-// most NC = 64 rows (G columns): 8 groups of cg 8, 4 of cg 16, 2 of cg 32.
-// Two roles run side by side, handing G over through two shared buffers
-// (named barriers FULL and EMPTY, one pair a buffer):
-//   - 8 MMA warps stage the tile's grad_out rows (PT x Co f32) once with
-//     cp.async and form each chunk's G = grad_out tile @ chunk^T, depth Co
-//     in slices of KS = 32 through a 3-slot cp.async ring; the warps tile
-//     G 2 x 4 (PT 64) or 4 x 2 (PT 128), two m16 tiles each. 3xTF32
-//     mma.sync m16n8k8: each f32 value splits into big and small TF32 parts
-//     (split_tf32_int; grad_out once a tile into two shared copies at
-//     64-pixel tiles, PRESPLIT), and big*small + small*big + big*big of each
-//     8-deep step sum in a fresh fragment that one rounded f32 add takes
-//     into the running sum, as kernels B1 and B2 do;
-//   - 8 dot warps take the G of the chunk before into the corner dots: one
-//     thread, or 2-4 lanes with 4-channel vectors, per (pixel, group)
-//     sample, two samples a thread at once so that their corner loads are
-//     in flight together, G read from shared memory, the lanes' four dots
-//     reduced by shuffles; the first lane writes the mask and offset
-//     gradients (zeros for an invalid sample); grad_x, when asked, by f32
-//     atomics from every lane. At 8-channel groups (relu1), where the dots
-//     outweigh the products, the corners of the next chunk are copied into
-//     shared memory by cp.async while the current one is summed (GATHER).
-// The group widths of training (8, 16, 32) have their own instantiations,
-// so lanes, groups a chunk and the sample's place are constants (CGT).
-// Tiles are 128 pixels where 64-pixel tiles would fill fewer than two
-// waves of the card (relu3 at batch 9: 113 tiles instead of 225 on 132
-// SMs), else 64.
+// Products: wgmma, the only way to Hopper's full tensor-core rate, as
+// 3xTF32. Each f32 value splits into big = tf32(v) and small = tf32(v -
+// big) (cvt.rna's rounding), and for each 8-deep step big*small +
+// small*big + big*big accumulate; the products of a 32-deep stage (12
+// wgmma) sum in a fresh accumulator that one rounded f32 add takes into
+// the running sum, as kernel B1 does: the tensor cores truncate as they
+// add, so the running sum never passes through them.
+// - B is w_kc. For an f32 x, B1's split pass (split_kernel) writes it as
+//   (big, small) TF32 arrays into scratch (9C x Co f32 each, at most 5.9
+//   MB) before the kernel. TMA brings each stage's 64 x 32 box of both
+//   arrays into shared memory (128-byte swizzle, zeros past 9C rows and
+//   past Co), completing on an mbarrier, in a ring of up to 4 stages that
+//   one producer warp keeps full. For a bf16 x the wrapper has rounded
+//   w_kc to bf16, so it is its own big part and its small part is zero:
+//   TMA reads w_kc itself, with no pass and no scratch, and the big*small
+//   product, which would add exact zeros, is dropped.
+// - A is the tile's grad_out rows (64 pixels x Co f32), brought by TMA in
+//   32-deep boxes, double-buffered so that the next tile's rows land while
+//   this one's are used (one buffer where two do not fit, Co > 256). wgmma
+//   reads A from registers here: each thread loads its fragment of a
+//   stage (4 steps x 4 values) from the swizzled box and splits it in
+//   registers, so A needs no split copy in shared memory and is read once
+//   for its three products. Holding A's split fragments for the whole depth
+//   would take 256 registers a thread at Co = 256; a stage's take 32.
+// A chunk is 64 consecutive columns of G in w_kc's row order, cut to whole
+// samples: at relu1 one tap of all 8 groups. (Chunks of 128 columns
+// measured 1.3x slower at relu1 in f32 and 1.1x faster at relu2 in bf16:
+// one width keeps one path.)
+//
+// Design: one 512-thread block a SM walks units v = blockIdx.x, +
+// gridDim.x, ...: a tile of 64 output pixels of one image and a run of its
+// chunks (all of them, or an equal segment where that fills the card's
+// last wave better). Blocks at work at once hold neighbouring tiles, so the
+// corners they gather come from L2 (with the next task's loads issued
+// ahead, 1.3x faster at relu1 than each block walking a contiguous share).
+// - Warpgroup 0 (4 warps, setmaxnreg 152 registers) issues the products
+//   of each chunk stage by stage: wait for the stage's ring slot, load and
+//   split A's fragments, 12 (bf16: 8) wgmma m64n64k8 into a fresh
+//   accumulator, wait, release the slot, add into the running sum (32 + 32
+//   registers, 32 for the fragments). At the chunk's end it writes G (64 x
+//   64 f32) into one of two shared buffers and arrives on its "full"
+//   mbarrier. (Issuing a stage's products before waiting for the last
+//   stage's, into a second accumulator, took 192 registers, spilled and
+//   measured 1.8x slower in the products.)
+// - Warp 4 is the producer: one thread issues every TMA load.
+// - Warps 5-15 (352 threads, setmaxnreg 120 with warp 4) take the G of each
+//   chunk into the corner dots: one thread, or 2-4 lanes with 4-channel
+//   vectors, per (pixel, sample) task, G read from shared memory, the
+//   lanes' four dots reduced by shuffles; the first lane writes the mask
+//   and offset gradients (zeros for an invalid sample); grad_x, when
+//   asked, by f32 atomics (4-channel vector atomics where the group
+//   allows). A lane takes up to 2 (f32) or 4 (bf16) of the group's
+//   4-channel vectors without grad_x, one with it. A thread decodes its
+//   next task and loads that task's offsets and mask while its current
+//   task's corners are in flight; divisions by the shape's extents are
+//   multiplications by constants the host computes. Carrying two tasks at
+//   once measured slower (the registers spill), and so did copying a
+//   tile's offsets and masks into shared memory by bulk copies, and the
+//   gradients out the same way (L1 lost the room the corners hit in), and
+//   so did copying the next task's corners into shared memory by cp.async
+//   while the current task's dots run, the tasks streamed across a unit's
+//   chunks (f32: 1.26x slower at relu1, 1.10x at relu2, where the ring
+//   lost two stages to the copies' 88 KB).
+//   Then the threads arrive on the buffer's "empty" mbarrier. The
+//   products of chunk n + 1 run while the dots take chunk n.
+// Shared memory: A 2 x 64 x 4 Co bytes, the ring stages x pieces x 8 KB, G
+// 2 x 18 KB; f32 relu1 (Co 64, 4 stages) 133 KiB, relu2 (Co 128, 4 stages)
+// 165 KiB, relu3 (Co 256, 3 stages) 213 KiB; Co 320 keeps one A buffer.
+// Every wait is bounded: a lost arrival ends the launch with an error
+// instead of hanging the card.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using namespace c2m;
 
-constexpr int MMA_WARPS = 8;     // form G
-constexpr int DOT_WARPS = 8;     // take G into the corner dots
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int DOT_THREADS = 32 * DOT_WARPS;
-constexpr int THREADS = MMA_THREADS + DOT_THREADS;
-constexpr int NC = 64;           // w_kc rows (G columns) per chunk, at most
-constexpr int KS = 32;           // depth (output channels) per ring slot
-constexpr int SLOTS = 3;         // ring slots
-constexpr int LDW = KS + 4;      // a slot row's stride in words
-constexpr int LDG = NC + 4;      // G's row stride in words
-constexpr int CU = 2;            // samples a dot thread carries at once
-constexpr int MAX_SMEM = 232448;
-constexpr int MAX_CO = 320;      // grad_out rows of a 64-pixel tile, split
-                                 // in two, fit in shared memory
-// named barriers (0 is __syncthreads, which the roles do not use)
-constexpr int BAR_MMA = 1;       // the MMA warps among themselves
-constexpr int BAR_DOT = 2;       // the dot warps among themselves
-constexpr int BAR_FULL = 3;      // + buffer: G written (MMA arrive, dot wait)
-constexpr int BAR_EMPTY = 5;     // + buffer: G read (dot arrive, MMA wait)
+constexpr int PT = 64;               // output pixels a tile: wgmma's rows
+constexpr int N = 64;                // columns of G a chunk, at most
+constexpr int THREADS = 512;
+constexpr int CONSUMER_WARPS = 4;    // warpgroup 0: the products
+constexpr int PRODUCER_WARP = 4;     // the TMA loads
+constexpr int DOT_WARP0 = 5;         // warps 5-15: the corner dots
+constexpr int DOT_THREADS = THREADS - 32 * DOT_WARP0;
+// 128 x CONSUMER_REGS + 384 x OTHER_REGS = the block's 65536 registers
+constexpr int CONSUMER_REGS = 152;
+constexpr int OTHER_REGS = 120;
+constexpr int KS = TMA_BOX_BYTES / 4;  // depth a stage: 32 f32
+constexpr int A_BOX = PT * TMA_BOX_BYTES;  // a stage of a tile's grad_out
+constexpr int B_BOX = N * TMA_BOX_BYTES;   // a stage of a chunk's w_kc part
+constexpr int LDG = N + 8;           // G's row stride in words: a warp's
+                                     // float2 stores hit distinct banks
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_SMEM = 232448 - 256;  // beside the static barriers
+constexpr int MAX_GROUP = 64;        // channels a group, at most
+constexpr int MAX_CO = 320;
+static_assert(DOT_THREADS % 32 == 0, "whole dot warps");
+static_assert(128 * CONSUMER_REGS + (THREADS - 128) * OTHER_REGS <= 65536,
+              "the block's registers");
 
-// PT output pixels a tile (64 or 128): the MMA warps tile the chunk's G
-// (PT x NC) WARPS_M x WARPS_N, each warp MT m16 by NT n8 tiles
-template <int PT>
-struct Tile {
-  static constexpr int WARPS_M = PT / 32;
-  static constexpr int WARPS_N = MMA_WARPS / WARPS_M;
-  static constexpr int MT = 2;
-  static constexpr int NT = NC / WARPS_N / 8;
-  static_assert(WARPS_M * WARPS_N == MMA_WARPS, "the MMA warps");
-  static_assert(MT * 16 * WARPS_M == PT && NT * 8 * WARPS_N == NC,
-                "the MMA warps cover the chunk's G");
-};
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// Co padded to whole ring slices; grad_out's row stride in words (4 more:
-// the 8 rows of an ldmatrix hit distinct banks)
-constexpr __host__ __device__ int padded_co(int co) {
-  return (co + KS - 1) / KS * KS;
-}
-constexpr __host__ __device__ int a_ld(int co) {
-  return padded_co(co) + 4;
-}
-
-// In the gather path a dot thread's lane-tasks of a chunk read GV vectors
-// of 4 channels (its samples' corners).
-constexpr int GV = 16;
-
-// grad_out rows (twice when pre-split), the weight ring, two G buffers, the
-// tile's pixel table and, in the gather path, two chunks' corners
-constexpr size_t smem_bytes(int co, bool presplit, int pt,
-                            size_t gather_bytes = 0) {
-  return sizeof(float) *
-             ((presplit ? 2 : 1) * static_cast<size_t>(pt) * a_ld(co) +
-              SLOTS * NC * LDW + 2 * pt * LDG + 2 * pt) +
-         gather_bytes;
-}
+// A measurement's switch, which the default build never sets
+// (scripts/bench_dcn_backward.py --roles builds it): C2M_DCB_ROLE=1 runs
+// the products alone (the dot warps only hand the buffers back), 2 the
+// corner dots alone (no products; G is left unwritten). The gradients are
+// then wrong; only the time is read.
+#ifndef C2M_DCB_ROLE
+#define C2M_DCB_ROLE 0
+#endif
 
 template <typename T>
-constexpr size_t gather_bytes() {
-  return 2 * GV * DOT_THREADS * 4 * sizeof(T);
-}
-static_assert(smem_bytes(MAX_CO, true, 64) <= MAX_SMEM,
-              "a 64-pixel tile's grad_out rows, split, fit up to MAX_CO");
-
-
-// 4 channels of x from shared memory
-__device__ __forceinline__ float4 smem4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 smem4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
+__host__ __device__ constexpr int pieces() {
+  return std::is_same<T, float>::value ? 2 : 1;
 }
 
-// global -> shared copy of 4 channels of x (16 bytes of f32, 8 of bf16);
-// ok = false writes zeros and reads nothing
-__device__ __forceinline__ void cp_async_x4(uint32_t dst, const float* src,
-                                            bool ok) {
-  cp_async16(dst, src, ok ? 16 : 0);
+// the alignment slack, A's buffers, the ring and two G buffers
+constexpr size_t smem_bytes(int pieces, int stages, int a_bufs, int n_ks) {
+  return 1024 + static_cast<size_t>(a_bufs) * n_ks * A_BOX +
+         static_cast<size_t>(stages) * pieces * B_BOX +
+         2 * sizeof(float) * PT * LDG;
 }
-__device__ __forceinline__ void cp_async_x4(uint32_t dst,
-                                            const __nv_bfloat16* src,
-                                            bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 8 : 0)
-               : "memory");
+static_assert(smem_bytes(2, 2, 1, (MAX_CO + KS - 1) / KS) <= MAX_SMEM,
+              "the widest grad_out rows fit with one A buffer");
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (the multiplier m and
+// shift s from the host): q = (umulhi(n, m) + n) >> s.
+struct Div {
+  uint32_t m, s;
+};
+
+Div divider(uint32_t d) {
+  uint32_t s = 0;
+  while ((1ull << s) < d) ++s;
+  const uint64_t m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return {static_cast<uint32_t>(m), s};
 }
+
+__device__ __forceinline__ int fast_div(const Div& q, int n) {
+  return static_cast<int>(
+      (__umulhi(static_cast<uint32_t>(n), q.m) + static_cast<uint32_t>(n)) >>
+      q.s);
+}
+
+struct Shape {
+  int h, w, c, ho, wo, g, k_taps, kw, sh, sw, ph, pw, dh, dw;
+  int cg;          // channels a group
+  int n_ks;        // 32-deep stages of Co
+  int stages;      // ring slots
+  int a_bufs;      // A buffers (1 or 2)
+  int ne;          // columns of G a chunk covers: 64 cut to whole samples
+  int nsc;         // samples a chunk: ne / cg
+  int n_chunks;    // chunks of an image's 9C columns
+  int seg_chunks;  // chunks a unit: n_chunks / segments a tile
+  int segs;        // segments a tile
+  int tiles_img;   // 64-pixel tiles of an image
+  int64_t units;   // (tile, segment) units of the batch
+  Div by_nsc, by_g, by_wo, by_kw;
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// 4 channels from 16 (f32) or 8 (bf16) aligned bytes
+// 4 channels from 16 (f32) or 8 (bf16) aligned bytes, through L1
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -194,622 +226,478 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   return d;
 }
 
-// One corner-dot sample of a chunk: its pixel and group within the chunk,
-// its index among the tile's samples, its point and modulation.
-struct Sample {
-  int idx;
-  int pl, gl;
-  float y, x, m;
+// The modulated weight of corner r (0: (y0, x0), 1: (y0, x0 + 1), 2:
+// (y0 + 1, x0), 3: (y0 + 1, x0 + 1)) of a point with fractions (fy, fx).
+__device__ __forceinline__ float corner_weight(float m, float fy, float fx,
+                                               int r) {
+  return m * (r < 2 ? 1.f - fy : fy) * (r % 2 ? fx : 1.f - fx);
+}
+
+// One corner-dot task: its sample's index in the offsets and masks, its
+// pixel's row in G and its first column there, its group's first channel,
+// its tap's point before the offset.
+struct Task {
+  int64_t idx;
+  int pl, gcol, ch0;
+  float by, bx;
   bool act;
 };
 
-// The corner dots of a thread's CU samples, the lanes' vectors of all of
-// them loaded before they are summed. The first lane writes each sample's
-// offset and mask gradients (zeros outside the image) into the tile's
-// (off_out, m_out: skipped when null); every lane adds grad_x.
-template <typename T, bool VEC>
-__device__ __forceinline__ void corner_dots(
-    const Sample (&sm)[CU], const T* __restrict__ x, const float* gbuf,
-    float* off_out, float* m_out, float* __restrict__ g_x, int b, int h,
-    int w, int c, int cg, int g0, int lane_bits, unsigned lane_mask) {
-  // cg and lane_bits are compile-time constants where the kernel was
-  // instantiated for one group width (CGT)
-  const int lanes = 1 << lane_bits;
-  const int lane = threadIdx.x & (lanes - 1);
-  bool valid[CU], ok[CU][4];
-  float fy[CU], fx[CU], sc[CU][4];
-  int64_t corner[CU];
-  const float* gp[CU];
-  const int64_t step[4] = {0, c, static_cast<int64_t>(w) * c,
-                           static_cast<int64_t>(w) * c + c};
+// Task e (of n_tasks) of chunk n of the tile at pixel p0 of image b (rows
+// pixels, the first at `first` in the batch's pixels): lane fastest, then
+// the chunk's sample, then the pixel; column si * Cg of G is tap si / G,
+// group si % G.
+template <int LANES>
+__device__ __forceinline__ Task decode(const Shape& s, int e, int n_tasks,
+                                       int n, int ns, int p0, int rows,
+                                       int64_t first) {
+  Task t;
+  const int sample = e / LANES;
+  t.pl = fast_div(s.by_nsc, sample);
+  const int j = sample - t.pl * s.nsc;
+  // a task's lanes agree on every test
+  t.act = e < n_tasks && t.pl < rows && j < ns;
+  const int si = n * s.nsc + j;
+  const int k = fast_div(s.by_g, si);
+  const int gg = si - k * s.g;
+  const int p = p0 + t.pl;
+  const int py = fast_div(s.by_wo, p);
+  const int ky = fast_div(s.by_kw, k);
+  t.gcol = j * s.cg;
+  t.ch0 = gg * s.cg;
+  t.idx = ((first + t.pl) * s.g + gg) * s.k_taps + k;
+  t.by = static_cast<float>(py * s.sh - s.ph) +
+         static_cast<float>(ky * s.dh);
+  t.bx = static_cast<float>((p - py * s.wo) * s.sw - s.pw) +
+         static_cast<float>((k - ky * s.kw) * s.dw);
+  return t;
+}
+
+// Where a task's point (y, x) falls: inside the image (valid), its
+// fractions, its first corner's index in x and which corners lie inside.
+struct Point {
+  bool valid;
+  bool ok[4];
+  float fy, fx;
+  int64_t corner;
+};
+
+__device__ __forceinline__ Point locate(const Task& q, float y, float x,
+                                        int b, int h, int w, int c) {
+  Point pt;
+  pt.valid = q.act && y > -1.f && y < static_cast<float>(h) && x > -1.f &&
+             x < static_cast<float>(w);
+  pt.fy = pt.fx = 0.f;
+  pt.corner = 0;
 #pragma unroll
-  for (int i = 0; i < CU; ++i) {
-    const Sample& q = sm[i];
-    valid[i] = q.act && q.y > -1.f && q.y < static_cast<float>(h) &&
-               q.x > -1.f && q.x < static_cast<float>(w);
-    fy[i] = fx[i] = 0.f;
-    corner[i] = 0;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) ok[i][r] = false;
-    if (valid[i]) {
-      const float y0f = floorf(q.y);
-      const float x0f = floorf(q.x);
-      fy[i] = q.y - y0f;
-      fx[i] = q.x - x0f;
-      const int y0 = static_cast<int>(y0f);
-      const int x0 = static_cast<int>(x0f);
-      ok[i][0] = y0 >= 0 && x0 >= 0;
-      ok[i][1] = y0 >= 0 && x0 + 1 < w;
-      ok[i][2] = y0 + 1 < h && x0 >= 0;
-      ok[i][3] = y0 + 1 < h && x0 + 1 < w;
-      // only the corners inside the image are read
-      corner[i] = ((static_cast<int64_t>(b) * h + y0) * w + x0) * c +
-                  (g0 + q.gl) * cg;
-    }
-    gp[i] = gbuf + q.pl * LDG + q.gl * cg;
-    sc[i][0] = q.m * (1.f - fy[i]) * (1.f - fx[i]);
-    sc[i][1] = q.m * (1.f - fy[i]) * fx[i];
-    sc[i][2] = q.m * fy[i] * (1.f - fx[i]);
-    sc[i][3] = q.m * fy[i] * fx[i];
+  for (int r = 0; r < 4; ++r) pt.ok[r] = false;
+  if (pt.valid) {
+    const float y0f = floorf(y);
+    const float x0f = floorf(x);
+    pt.fy = y - y0f;
+    pt.fx = x - x0f;
+    const int y0 = static_cast<int>(y0f);
+    const int x0 = static_cast<int>(x0f);
+    pt.ok[0] = y0 >= 0 && x0 >= 0;
+    pt.ok[1] = y0 >= 0 && x0 + 1 < w;
+    pt.ok[2] = y0 + 1 < h && x0 >= 0;
+    pt.ok[3] = y0 + 1 < h && x0 + 1 < w;
+    // only the corners inside the image are read
+    pt.corner = ((static_cast<int64_t>(b) * h + y0) * w + x0) * c + q.ch0;
   }
-  float d[CU][4];
-#pragma unroll
-  for (int i = 0; i < CU; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) d[i][r] = 0.f;
+  return pt;
+}
+
+// The corner dots of one task at point pt with modulation m. The first
+// lane writes the sample's offset and mask gradients (zeros outside the
+// image; each skipped when null); every lane adds grad_x.
+template <typename T, bool VEC, int LANES>
+__device__ __forceinline__ void corner_dots(
+    const Task& q, const Point& pt, float m, const T* __restrict__ x,
+    const float* gbuf, float* __restrict__ off_out,
+    float* __restrict__ m_out, float* __restrict__ g_x, int w, int c, int cg,
+    unsigned lane_mask) {
+  const int lane = threadIdx.x & (LANES - 1);
+  const bool valid = pt.valid;
+  const float fy = pt.fy, fx = pt.fx;
+  const int64_t corner = pt.corner;
+  const bool* ok = pt.ok;
+  // corner r's distance from corner 0, in values
+  const int64_t row = static_cast<int64_t>(w) * c;
+  auto step = [&](int r) { return (r & 1) * c + (r >> 1) * row; };
+  const float* gp = gbuf + q.pl * LDG + q.gcol;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
   if constexpr (VEC) {
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int ch = 4 * lane; ch < cg; ch += 4 * lanes) {
-      float4 gv[CU], cr[CU][4];
-#pragma unroll
-      for (int i = 0; i < CU; ++i) {
-        gv[i] = valid[i] ? *reinterpret_cast<const float4*>(gp[i] + ch) : z;
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          cr[i][r] = ok[i][r] ? load4(x + corner[i] + ch + step[r]) : z;
-      }
-#pragma unroll
-      for (int i = 0; i < CU; ++i) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) d[i][r] = dot4(gv[i], cr[i][r], d[i][r]);
-        if (g_x != nullptr && valid[i]) {
-          const float gs[4] = {gv[i].x, gv[i].y, gv[i].z, gv[i].w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            if (ok[i][r])
-#pragma unroll
-              for (int v = 0; v < 4; ++v)
-                atomicAdd(g_x + (corner[i] + ch + v + step[r]),
-                          sc[i][r] * gs[v]);
-        }
-      }
-    }
-  } else {
-    for (int ch = lane; ch < cg; ch += lanes) {
-#pragma unroll
-      for (int i = 0; i < CU; ++i) {
-        if (!valid[i]) continue;
-        const float gv = gp[i][ch];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          if (ok[i][r]) {
-            d[i][r] += gv * to_f32(x[corner[i] + ch + step[r]]);
-            if (g_x != nullptr)
-              atomicAdd(g_x + (corner[i] + ch + step[r]), sc[i][r] * gv);
-          }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < CU; ++i) {
-    const Sample& q = sm[i];
-    if (!q.act) continue;  // the sample's lanes skip together
-    for (int o = lanes >> 1; o > 0; o >>= 1)
+    for (int ch = 4 * lane; ch < cg; ch += 4 * LANES) {
+      float4 cr[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        d[i][r] += __shfl_xor_sync(lane_mask, d[i][r], o);
-    if (lane != 0) continue;
-    const float ty = fy[i];
-    const float tx = fx[i];
-    if (m_out != nullptr)
-      m_out[q.idx] = valid[i] ? (1.f - ty) * (1.f - tx) * d[i][0] +
-                                  (1.f - ty) * tx * d[i][1] +
-                                  ty * (1.f - tx) * d[i][2] +
-                                  ty * tx * d[i][3]
-                            : 0.f;
-    if (off_out != nullptr) {
-      // d/dy and d/dx of the four corner weights, times the corner dots
-      const float gy = (1.f - tx) * (d[i][2] - d[i][0]) +
-                       tx * (d[i][3] - d[i][1]);
-      const float gx = (1.f - ty) * (d[i][1] - d[i][0]) +
-                       ty * (d[i][3] - d[i][2]);
-      off_out[2 * q.idx] = valid[i] ? q.m * gy : 0.f;
-      off_out[2 * q.idx + 1] = valid[i] ? q.m * gx : 0.f;
-    }
-  }
-}
-
-// The dot warps' work on one tile in the gather path, for group width CG:
-// a thread's lane-tasks keep their (pixel, group, lane) from chunk to chunk,
-// only the tap and the groups' base change. Chunk n's offsets and masks are
-// loaded two chunks ahead, its corners copied into shared memory (cp.async)
-// one chunk ahead, so while a chunk's dots are summed the next chunk's
-// corners are in flight. Each thread reads back only what it copied.
-template <typename T, int CG, int PT>
-__device__ __forceinline__ void gather_tile(
-    const T* __restrict__ x, const float* off_in, const float* m_in,
-    float* off_out, float* m_out, const float* g_s, const float2* pix_s,
-    T* c_s, int dt, unsigned lane_mask, int rows, int b, int h, int w, int c,
-    int g, int k_taps, int kw, int dh, int dw, int cpt, int n_chunks,
-    int& q) {
-  constexpr int LB = CG >= 16 ? 2 : 1;            // lane bits
-  constexpr int LANES = 1 << LB;
-  constexpr int VPL = CG / 4 / LANES;             // vectors a lane
-  constexpr int NG = NC / CG;                     // groups a chunk
-  constexpr int TPT = PT * NG * LANES / DOT_THREADS;  // lane-tasks a thread
-  static_assert(TPT * VPL * 4 == GV, "the gather buffer's vectors");
-  const int lane = dt & (LANES - 1);
-  int pl[TPT], gl[TPT];
-  bool act[TPT];
+        cr[r] = ok[r] ? load4(x + corner + ch + step(r)) : z;
+      const float4 gv =
+          valid ? *reinterpret_cast<const float4*>(gp + ch) : z;
 #pragma unroll
-  for (int j = 0; j < TPT; ++j) {
-    const int sample = (dt + j * DOT_THREADS) >> LB;
-    gl[j] = sample % NG;
-    pl[j] = sample / NG;
-    act[j] = pl[j] < rows;  // a sample's lanes agree
-  }
-  const int64_t step[4] = {0, c, static_cast<int64_t>(w) * c,
-                           static_cast<int64_t>(w) * c + c};
-  const uint32_t c_addr = smem_addr(c_s);
-
-  // the sample's index in the tile's offsets and masks
-  auto index = [&](int n, int j) {
-    return (pl[j] * g + (n % cpt) * NG + gl[j]) * k_taps + n / cpt;
-  };
-  auto load = [&](int n, float (&oy)[TPT], float (&ox)[TPT],
-                  float (&om)[TPT]) {
-#pragma unroll
-    for (int j = 0; j < TPT; ++j) {
-      oy[j] = ox[j] = om[j] = 0.f;
-      if (act[j]) {
-        const float2 o =
-            *reinterpret_cast<const float2*>(off_in + 2 * index(n, j));
-        oy[j] = o.x;
-        ox[j] = o.y;
-        om[j] = m_in[index(n, j)];
-      }
-    }
-  };
-  // the sample's point: its pixel's base, the tap, the offset
-  auto point = [&](int n, int j, float oy, float ox, float& y, float& xs) {
-    const int k = n / cpt;
-    const float2 base = pix_s[pl[j]];
-    y = (base.x + static_cast<float>((k / kw) * dh)) + oy;
-    xs = (base.y + static_cast<float>((k % kw) * dw)) + ox;
-  };
-  auto copy_corners = [&](int n, const float (&oy)[TPT],
-                          const float (&ox)[TPT]) {
-    const uint32_t dst0 = c_addr + ((n & 1) * GV * DOT_THREADS + dt) * 4 *
-                                       static_cast<uint32_t>(sizeof(T));
-#pragma unroll
-    for (int j = 0; j < TPT; ++j) {
-      float y, xs;
-      point(n, j, oy[j], ox[j], y, xs);
-      bool ok[4] = {false, false, false, false};
-      int64_t corner = 0;
-      if (act[j] && y > -1.f && y < static_cast<float>(h) && xs > -1.f &&
-          xs < static_cast<float>(w)) {
-        const int y0 = static_cast<int>(floorf(y));
-        const int x0 = static_cast<int>(floorf(xs));
-        ok[0] = y0 >= 0 && x0 >= 0;
-        ok[1] = y0 >= 0 && x0 + 1 < w;
-        ok[2] = y0 + 1 < h && x0 >= 0;
-        ok[3] = y0 + 1 < h && x0 + 1 < w;
-        corner = ((static_cast<int64_t>(b) * h + y0) * w + x0) * c +
-                 ((n % cpt) * NG + gl[j]) * CG + 4 * lane;
-      }
-#pragma unroll
-      for (int v = 0; v < VPL; ++v)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int slot = (j * VPL + v) * 4 + r;
-          cp_async_x4(dst0 + slot * DOT_THREADS * 4 * sizeof(T),
-                      ok[r] ? x + corner + v * 4 * LANES + step[r] : x,
-                      ok[r]);
-        }
-    }
-  };
-  auto dots = [&](int n, const float (&oy)[TPT], const float (&ox)[TPT],
-                  const float (&om)[TPT]) {
-    const float* gb = g_s + (q & 1) * PT * LDG;
-    const T* src = c_s + ((n & 1) * GV * DOT_THREADS + dt) * 4;
-#pragma unroll
-    for (int j = 0; j < TPT; ++j) {
-      if (!act[j]) continue;  // the sample's lanes skip together
-      float y, xs;
-      point(n, j, oy[j], ox[j], y, xs);
-      const bool valid = y > -1.f && y < static_cast<float>(h) &&
-                         xs > -1.f && xs < static_cast<float>(w);
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int v = 0; v < VPL; ++v) {
-        const float4 gv = *reinterpret_cast<const float4*>(
-            gb + pl[j] * LDG + gl[j] * CG + 4 * lane + v * 4 * LANES);
+      for (int r = 0; r < 4; ++r) d[r] = dot4(gv, cr[r], d[r]);
+      if (g_x != nullptr && valid) {
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          d[r] = dot4(gv, smem4(src + ((j * VPL + v) * 4 + r) *
-                                          DOT_THREADS * 4),
-                      d[r]);
-      }
-#pragma unroll
-      for (int o = LANES >> 1; o > 0; o >>= 1)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) d[r] += __shfl_xor_sync(lane_mask, d[r], o);
-      if (lane != 0) continue;
-      const float fy = valid ? y - floorf(y) : 0.f;
-      const float fx = valid ? xs - floorf(xs) : 0.f;
-      const int idx = index(n, j);
-      if (m_out != nullptr)
-        m_out[idx] = valid ? (1.f - fy) * (1.f - fx) * d[0] +
-                                 (1.f - fy) * fx * d[1] +
-                                 fy * (1.f - fx) * d[2] + fy * fx * d[3]
-                           : 0.f;
-      if (off_out != nullptr) {
-        // d/dy and d/dx of the four corner weights, times the corner dots
-        const float gy = (1.f - fx) * (d[2] - d[0]) + fx * (d[3] - d[1]);
-        const float gx = (1.f - fy) * (d[1] - d[0]) + fy * (d[3] - d[2]);
-        off_out[2 * idx] = valid ? om[j] * gy : 0.f;
-        off_out[2 * idx + 1] = valid ? om[j] * gx : 0.f;
+          if (ok[r]) {
+            const float sc = corner_weight(m, fy, fx, r);
+            atomicAdd(reinterpret_cast<float4*>(g_x + corner + ch + step(r)),
+                      make_float4(sc * gv.x, sc * gv.y, sc * gv.z,
+                                  sc * gv.w));
+          }
       }
     }
-  };
-
-  float oy0[TPT], ox0[TPT], om0[TPT];  // chunk n
-  float oy1[TPT], ox1[TPT], om1[TPT];  // chunk n + 1
-  float oy2[TPT], ox2[TPT], om2[TPT];  // chunk n + 2
-  load(0, oy0, ox0, om0);
-  copy_corners(0, oy0, ox0);
-  cp_async_commit();
-  if (n_chunks > 1) load(1, oy1, ox1, om1);
-  for (int n = 0; n < n_chunks; ++n, ++q) {
-    if (n + 2 < n_chunks) load(n + 2, oy2, ox2, om2);
-    if (n + 1 < n_chunks) copy_corners(n + 1, oy1, ox1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's corners of chunk n landed
-    bar_sync(BAR_FULL + (q & 1), THREADS);
-    dots(n, oy0, ox0, om0);
-    bar_arrive(BAR_EMPTY + (q & 1), THREADS);
+  } else if (valid) {
+    for (int ch = lane; ch < cg; ch += LANES) {
+      const float gv = gp[ch];
 #pragma unroll
-    for (int j = 0; j < TPT; ++j) {
-      oy0[j] = oy1[j];
-      ox0[j] = ox1[j];
-      om0[j] = om1[j];
-      oy1[j] = oy2[j];
-      ox1[j] = ox2[j];
-      om1[j] = om2[j];
+      for (int r = 0; r < 4; ++r)
+        if (ok[r]) {
+          d[r] += gv * to_f32(x[corner + ch + step(r)]);
+          if (g_x != nullptr)
+            atomicAdd(g_x + (corner + ch + step(r)),
+                      corner_weight(m, fy, fx, r) * gv);
+        }
     }
   }
-  cp_async_wait<0>();
+  if (!q.act) return;  // the task's lanes return together
+#pragma unroll
+  for (int o = LANES >> 1; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) d[r] += __shfl_xor_sync(lane_mask, d[r], o);
+  if (lane != 0) return;
+  if (m_out != nullptr)
+    m_out[q.idx] = valid ? (1.f - fy) * (1.f - fx) * d[0] +
+                               (1.f - fy) * fx * d[1] +
+                               fy * (1.f - fx) * d[2] + fy * fx * d[3]
+                         : 0.f;
+  if (off_out != nullptr) {
+    // d/dy and d/dx of the four corner weights, times the corner dots
+    const float gy = (1.f - fx) * (d[2] - d[0]) + fx * (d[3] - d[1]);
+    const float gx = (1.f - fy) * (d[1] - d[0]) + fy * (d[3] - d[2]);
+    *reinterpret_cast<float2*>(off_out + 2 * q.idx) =
+        valid ? make_float2(m * gy, m * gx) : make_float2(0.f, 0.f);
+  }
 }
 
-// VEC: cg is a multiple of 4 and x is aligned for 4-channel loads; the
-// lanes of a sample then take interleaved 4-channel vectors.
-// CGT: the group width when the kernel is instantiated for one (8, 16 or
-// 32 channels, G a multiple of the groups a chunk holds), else 0.
-// PRESPLIT: grad_out's rows are split into their big and small TF32 parts
-// once a tile, in shared memory, instead of at every product (PT 64).
-// GATHER (CGT 8, PT 64, no grad_x): the dot warps copy each chunk's corners
-// into shared memory with cp.async one chunk ahead.
-template <typename T, bool VEC, int CGT, bool PRESPLIT, int PT, bool GATHER>
-__global__ void __launch_bounds__(THREADS, 1)
-mdc_backward_kernel(const T* __restrict__ x, const float* __restrict__ offset,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ gout,
-                    const float* __restrict__ wkc, float* __restrict__ g_offset,
-                    float* __restrict__ g_mask, float* __restrict__ g_x,
-                    int batch, int h, int w, int c, int ho, int wo, int g,
-                    int kh, int kw, int sh, int sw, int ph, int pw, int dh,
-                    int dw, int co, int lane_bits_arg) {
-  constexpr int WARPS_N = Tile<PT>::WARPS_N;
-  constexpr int MT = Tile<PT>::MT;
-  constexpr int NT = Tile<PT>::NT;
-  extern __shared__ __align__(16) float smem[];
-  const int lda = a_ld(co);
-  const int cop = padded_co(co);
-  const int k_taps = kh * kw;
-  const int gk = g * k_taps;
-  float* a_s = smem;                        // grad_out (its big parts)
-  float* a_sm = a_s + PT * lda;             // its small parts (PRESPLIT)
-  float* w_s = a_sm + (PRESPLIT ? PT * lda : 0);
-  float* g_s = w_s + SLOTS * NC * LDW;      // two buffers of PT x LDG
-  // the tile's pixels' base sampling point (y, x)
-  float2* pix_s = reinterpret_cast<float2*>(g_s + 2 * PT * LDG);
-  // (GATHER) two chunks' corners: [chunk & 1][vector][dot thread]
-  T* c_s = reinterpret_cast<T*>(pix_s + PT);
-
-  const int tid = threadIdx.x;
-  const int lane32 = tid & 31;
-  const int n_pix = ho * wo;
-  const int tiles_img = (n_pix + PT - 1) / PT;
-  const int64_t n_tiles = static_cast<int64_t>(batch) * tiles_img;
-  const int cg = CGT ? CGT : c / g;
-  const int lane_bits = CGT ? (CGT >= 16 ? 2 : 1) : lane_bits_arg;
-  const int gpc = CGT ? NC / CGT : min(g, NC / cg);  // groups per chunk
-  const int cpt = (g + gpc - 1) / gpc;    // chunks per tap
-  const int n_chunks = k_taps * cpt;
-  const int n_ks = cop / KS;              // ring slices per chunk
-  const int n_stages = n_chunks * n_ks;
-
-  if (tid < MMA_THREADS) {
-    // ------------------------------------------------ MMA warps: form G
-    const int warp = tid >> 5;
-    const int wm = warp / WARPS_N;
-    const int wn = warp % WARPS_N;
-    const int gq = lane32 >> 2;
-    const int tq = lane32 & 3;
-    // ldmatrix row address of the lane in grad_out (m16 x 8 words), and
-    // the lane's B word in a slot: (depth tq, G column gq) of an n8 tile
-    const uint32_t a_addr =
-        smem_addr(a_s) +
-        ((wm * MT * 16 + (lane32 & 7) + 8 * ((lane32 >> 3) & 1)) * lda +
-         4 * (lane32 >> 4)) * 4;
-    const int b_off = (wn * NT * 8 + gq) * LDW + tq;
-    int q = 0;  // chunks over the block's tiles
-    for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int b = static_cast<int>(tile / tiles_img);
-      const int p0 = static_cast<int>(tile % tiles_img) * PT;
-      bar_sync(BAR_MMA, MMA_THREADS);  // the last tile's products are done
-
-      // the tile's grad_out rows; zeros past the image's pixels and past Co
-      {
-        const float* src =
-            gout + (static_cast<int64_t>(b) * n_pix + p0) * co;
-        const uint32_t base = smem_addr(a_s);
-        const int nv = cop / 4;
-        for (int i = tid; i < PT * nv; i += MMA_THREADS) {
-          const int r = i / nv;
-          const int qv = 4 * (i % nv);
-          const bool in = p0 + r < n_pix && qv < co;
-          cp_async16(base + (r * lda + qv) * 4,
-                     in ? src + static_cast<int64_t>(r) * co + qv : gout,
-                     in ? 16 : 0);
-        }
-        cp_async_commit();
-      }
-      // ring stage t: slice t % n_ks of chunk t / n_ks, the chunk's rows
-      // of w_kc (rows past its groups and columns past Co zero-filled)
-      auto load_w = [&](int t, int slot) {
-        const int n = t / n_ks;
-        const int o0 = (t % n_ks) * KS;
-        const int g0 = (n % cpt) * gpc;
-        const int rows = min(gpc, g - g0) * cg;
-        const int64_t row0 = static_cast<int64_t>(n / cpt) * c + g0 * cg;
-        const uint32_t base = smem_addr(w_s) + slot * NC * LDW * 4;
-        for (int i = tid; i < NC * (KS / 4); i += MMA_THREADS) {
-          const int r = i / (KS / 4);
-          const int qv = 4 * (i % (KS / 4));
-          const bool in = r < rows && o0 + qv < co;
-          cp_async16(base + (r * LDW + qv) * 4,
-                     in ? wkc + (row0 + r) * co + o0 + qv : wkc, in ? 16 : 0);
-        }
-      };
-#pragma unroll
-      for (int s = 0; s < SLOTS - 1; ++s) {
-        if (s < n_stages) load_w(s, s);
-        cp_async_commit();
-      }
-      if constexpr (PRESPLIT) {
-        cp_async_wait<SLOTS - 1>();  // grad_out's rows landed
-        bar_sync(BAR_MMA, MMA_THREADS);
-        for (int i = tid; i < PT * lda; i += MMA_THREADS) {
-          uint32_t big, small;
-          split_tf32_int(__float_as_uint(a_s[i]), big, small);
-          a_s[i] = __uint_as_float(big);
-          a_sm[i] = __uint_as_float(small);
-        }
-      }
-
-      int t = 0;
-      for (int n = 0; n < n_chunks; ++n, ++q) {
-        const int ng = CGT ? gpc : min(gpc, g - (n % cpt) * gpc);
-        float acc[MT][NT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-        for (int s = 0; s < n_ks; ++s, ++t) {
-          cp_async_wait<SLOTS - 2>();
-          bar_sync(BAR_MMA, MMA_THREADS);  // stage t landed (and grad_out);
-                                           // stage t - 1's products done
-          if (t + SLOTS - 1 < n_stages)
-            load_w(t + SLOTS - 1, (t + SLOTS - 1) % SLOTS);
-          cp_async_commit();
-          if (wn * NT * 8 >= ng * cg) continue;  // columns past the chunk
-          const float* ws = w_s + (t % SLOTS) * NC * LDW + b_off;
-#pragma unroll
-          for (int kk = 0; kk < KS / 8; ++kk) {
-            uint32_t a_big[MT][4], a_small[MT][4];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              const uint32_t at =
-                  a_addr + (mt * 16 * lda + s * KS + kk * 8) * 4;
-              if constexpr (PRESPLIT) {
-                ldmatrix_x4(at, a_big[mt][0], a_big[mt][1], a_big[mt][2],
-                            a_big[mt][3]);
-                ldmatrix_x4(at + PT * lda * 4, a_small[mt][0], a_small[mt][1],
-                            a_small[mt][2], a_small[mt][3]);
-              } else {
-                uint32_t a[4];
-                ldmatrix_x4(at, a[0], a[1], a[2], a[3]);
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  split_tf32_int(a[e], a_big[mt][e], a_small[mt][e]);
-              }
-            }
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const float* wk = ws + nt * 8 * LDW + kk * 8;
-              uint32_t b_big[2], b_small[2];
-              split_tf32_int(__float_as_uint(wk[0]), b_big[0], b_small[0]);
-              split_tf32_int(__float_as_uint(wk[4]), b_big[1], b_small[1]);
-#pragma unroll
-              for (int mt = 0; mt < MT; ++mt) {
-                float sum8[4];
-                mma_tf32_zero(sum8, a_big[mt], b_small[0], b_small[1]);
-                mma_tf32(sum8, a_small[mt], b_big[0], b_big[1]);
-                mma_tf32(sum8, a_big[mt], b_big[0], b_big[1]);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mt][nt][e] += sum8[e];
-              }
-            }
-          }
-        }
-        // G of the chunk into buffer q & 1 once the dot warps are done with
-        // it: accumulator (row gq, cols 2 tq, 2 tq + 1) and (row gq + 8,
-        // the same cols) of each tile
-        const int buf = q & 1;
-        if (q >= 2) bar_sync(BAR_EMPTY + buf, THREADS);
-        float* gb = g_s + buf * PT * LDG;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int row = wm * MT * 16 + mt * 16 + hh * 8 + gq;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-              *reinterpret_cast<float2*>(gb + row * LDG + wn * NT * 8 +
-                                         nt * 8 + 2 * tq) =
-                  make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
-          }
-        bar_arrive(BAR_FULL + buf, THREADS);
-      }
-      cp_async_wait<0>();
-    }
-    // the dot warps' releases of the last two chunks
-    for (int r = q < 2 ? 0 : q - 2; r < q; ++r)
-      bar_sync(BAR_EMPTY + (r & 1), THREADS);
+// The three (bf16: two) TF32 products of one 8-deep step into acc, the
+// first with scale-d `first ? 0 : 1`.
+template <int P>
+__device__ __forceinline__ void step_products(float (&acc)[N / 2],
+                                              const uint32_t (&big)[4],
+                                              const uint32_t (&small)[4],
+                                              uint64_t b_big, uint64_t b_small,
+                                              bool first) {
+  if constexpr (P == 2) {
+    wgmma_tf32_rs_n64(acc, big, b_small, !first);
+    wgmma_tf32_rs_n64(acc, small, b_big, 1);
   } else {
-    // ---------------------------------- dot warps: G into the corner dots
-    const int dt = tid - MMA_THREADS;
-    const int lanes = 1 << lane_bits;
-    const unsigned lane_mask = ((1u << lanes) - 1u)
-                               << (lane32 & ~(lanes - 1));
-    int q = 0;
-    for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int b = static_cast<int>(tile / tiles_img);
-      const int p0 = static_cast<int>(tile % tiles_img) * PT;
-      const int rows = min(PT, n_pix - p0);
-      const int64_t first = (static_cast<int64_t>(b) * n_pix + p0) * gk;
-      // the tile's offsets, masks and their gradients, indexed by the
-      // sample's place in the tile
-      const float* off_in = offset + 2 * first;
-      const float* m_in = mask + first;
-      float* off_out = g_offset == nullptr ? nullptr : g_offset + 2 * first;
-      float* m_out = g_mask == nullptr ? nullptr : g_mask + first;
-      bar_sync(BAR_DOT, DOT_THREADS);  // the last tile's pixels are done
-      for (int pl = dt; pl < rows; pl += DOT_THREADS) {
-        const int p = p0 + pl;
-        pix_s[pl] = make_float2(static_cast<float>((p / wo) * sh - ph),
-                                static_cast<float>((p % wo) * sw - pw));
-      }
-      bar_sync(BAR_DOT, DOT_THREADS);
+    wgmma_tf32_rs_n64(acc, small, b_big, !first);
+  }
+  wgmma_tf32_rs_n64(acc, big, b_big, 1);
+}
 
-      if constexpr (GATHER) {
-        gather_tile<T, CGT, PT>(x, off_in, m_in, off_out, m_out, g_s, pix_s,
-                                c_s, dt, lane_mask, rows, b, h, w, c, g,
-                                k_taps, kw, dh, dw, cpt, n_chunks, q);
-        continue;
-      }
-      for (int n = 0; n < n_chunks; ++n, ++q) {
-        const int k = n / cpt;
-        const int g0 = (n % cpt) * gpc;
-        const int ng = CGT ? gpc : min(gpc, g - g0);
-        const float ky = static_cast<float>((k / kw) * dh);
-        const float kx = static_cast<float>((k % kw) * dw);
-        const int buf = q & 1;
-        const float* gb = g_s + buf * PT * LDG;
-        bar_sync(BAR_FULL + buf, THREADS);
-        // the chunk's (pixel, group) samples: lane fastest, then the group,
-        // then the pixel; a thread carries CU samples at once
-        const int n_tasks = (PT * ng) << lane_bits;
-        for (int e0 = dt; e0 < n_tasks; e0 += CU * DOT_THREADS) {
-          Sample sm[CU];
+// a_map covers grad_out as (Co, B * Ho * Wo, 1), boxes of 32 x 64; b_map
+// w_kc's TF32 parts as (Co, 9C, pieces), boxes of 32 x 64.
+// VEC: cg is a multiple of 4 and x is aligned for 4-channel loads; the
+// LANES lanes of a task then take interleaved 4-channel vectors.
+template <typename T, bool VEC, int LANES>
+__global__ void __launch_bounds__(THREADS, 1)
+mdc_backward_kernel(const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ CUtensorMap b_map,
+                    const T* __restrict__ x, const float* __restrict__ offset,
+                    const float* __restrict__ mask,
+                    float* __restrict__ g_offset, float* __restrict__ g_mask,
+                    float* __restrict__ g_x, const Shape s) {
+  constexpr int P = pieces<T>();
+  constexpr int B_STAGE = P * B_BOX;
+  __shared__ __align__(8) uint64_t full_bar[MAX_STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[MAX_STAGES];
+  __shared__ __align__(8) uint64_t a_full[2], a_empty[2];
+  __shared__ __align__(8) uint64_t g_full[2], g_empty[2];
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t smem0 = smem_addr(smem);
+  const uint32_t a_s = (smem0 + 1023u) & ~1023u;   // A buffers, 1 KB aligned
+  const uint32_t b_s = a_s + s.a_bufs * s.n_ks * A_BOX;   // the ring
+  const uint8_t* a_ptr = smem + (a_s - smem0);
+  float* g_s = reinterpret_cast<float*>(smem + (b_s - smem0) +
+                                        s.stages * B_STAGE);
+  const int n_samples = s.k_taps * s.g;      // samples a pixel
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_pix = s.ho * s.wo;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < s.stages; ++i) {
+      mbar_init(smem_addr(&full_bar[i]), 1);
+      mbar_init(smem_addr(&empty_bar[i]), CONSUMER_WARPS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(smem_addr(&a_full[i]), 1);
+      mbar_init(smem_addr(&a_empty[i]), CONSUMER_WARPS);
+      mbar_init(smem_addr(&g_full[i]), 32 * CONSUMER_WARPS);
+      mbar_init(smem_addr(&g_empty[i]), DOT_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Every role walks the block's units v = blockIdx.x, + gridDim.x, ...:
+  // chunks [c0, c0 + seg_chunks) of tile v / segs.
+  if (warp < CONSUMER_WARPS) {
+    // ------------------------------------------------ warpgroup 0: G
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+    const int g8 = lane >> 2;
+    const int t4 = lane & 3;
+    const int r0 = 16 * warp + g8;   // the thread's rows r0, r0 + 8
+    float acc[N / 2], sum[N / 2];
+    int ti = 0;
+    int64_t step = 0;
+    int q = 0;
+    for (int64_t v = blockIdx.x; v < s.units; v += gridDim.x, ++ti) {
+      const int c0 = static_cast<int>(v % s.segs) * s.seg_chunks;
+      const int ab = ti % s.a_bufs;
+      mbar_wait(smem_addr(&a_full[ab]), (ti / s.a_bufs) & 1);
+      const uint8_t* a_tile = a_ptr + ab * s.n_ks * A_BOX;
+      for (int n = c0; n < c0 + s.seg_chunks; ++n, ++q) {
+        for (int ks = 0; ks < s.n_ks; ++ks, ++step) {
+          const int slot = static_cast<int>(step % s.stages);
+          mbar_wait(smem_addr(&full_bar[slot]),
+                    static_cast<uint32_t>(step / s.stages) & 1);
+#if C2M_DCB_ROLE != 2
+          // the thread's A fragments of the stage's 4 steps: (row r0 or
+          // r0 + 8, depth 8 kk + t4 or + 4) in the 128-byte swizzled box
+          const uint8_t* box = a_tile + ks * A_BOX;
+          uint32_t big[4][4], small[4][4];
 #pragma unroll
-          for (int j = 0; j < CU; ++j) {
-            Sample& sq = sm[j];
-            const int e = e0 + j * DOT_THREADS;
-            const int sample = e >> lane_bits;
-            sq.gl = sample % ng;
-            sq.pl = sample / ng;
-            // a sample's lanes agree on both tests
-            sq.act = e < n_tasks && sq.pl < rows;
-            sq.idx = (sq.pl * g + g0 + sq.gl) * k_taps + k;
-            sq.y = sq.x = sq.m = 0.f;
-            if (sq.act) {
-              const float2 base = pix_s[sq.pl];
-              const float2 o =
-                  *reinterpret_cast<const float2*>(off_in + 2 * sq.idx);
-              sq.y = (base.x + ky) + o.x;
-              sq.x = (base.y + kx) + o.y;
-              sq.m = m_in[sq.idx];
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + 8 * (e & 1);
+              const int chunk16 = (2 * kk + (e >> 1)) ^ (row & 7);
+              const float a = *reinterpret_cast<const float*>(
+                  box + row * TMA_BOX_BYTES + chunk16 * 16 + 4 * t4);
+              split_tf32_int(__float_as_uint(a), big[kk][e], small[kk][e]);
             }
+          const uint32_t slot_addr = b_s + slot * B_STAGE;
+          const uint64_t b_big = sw128_desc(slot_addr);
+          const uint64_t b_small = sw128_desc(slot_addr + (P - 1) * B_BOX);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            step_products<P>(acc, big[kk], small[kk], b_big + 2 * kk,
+                             b_small + 2 * kk, kk == 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(acc);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_operands(big[kk]);
+            fence_operands(small[kk]);
           }
-          corner_dots<T, VEC>(sm, x, gb, off_out, m_out, g_x, b, h, w, c,
-                              cg, g0, lane_bits, lane_mask);
+#endif
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_addr(&empty_bar[slot]));
+#if C2M_DCB_ROLE != 2
+          // one rounded f32 add a stage takes its products into the sum
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i)
+            sum[i] = ks == 0 ? acc[i] : sum[i] + acc[i];
+#endif
         }
-        bar_arrive(BAR_EMPTY + buf, THREADS);
+        // G of the chunk into buffer q & 1 once the dots are done with it:
+        // sum[4j + 2h + e] is row r0 + 8h, column 8j + 2 t4 + e
+        const int gb = q & 1;
+        mbar_wait(smem_addr(&g_empty[gb]), ((q >> 1) & 1) ^ 1);
+#if C2M_DCB_ROLE != 2
+        float* gbuf = g_s + gb * PT * LDG;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(gbuf + (r0 + 8 * hh) * LDG + 8 * j +
+                                       2 * t4) =
+                make_float2(sum[4 * j + 2 * hh], sum[4 * j + 2 * hh + 1]);
+#endif
+        mbar_arrive(smem_addr(&g_full[gb]));
+      }
+      // the tile's A rows are no longer read
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&a_empty[ab]));
+    }
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(OTHER_REGS));
+    if (warp == PRODUCER_WARP) {
+      // -------------------------------------------- warp 4: TMA loads
+      if (lane != 0) return;
+      auto load_a = [&](int64_t tile, int t_index) {
+        const int ab = t_index % s.a_bufs;
+        const uint32_t bar = smem_addr(&a_full[ab]);
+        mbar_wait(smem_addr(&a_empty[ab]), ((t_index / s.a_bufs) & 1) ^ 1);
+        mbar_expect_tx(bar, s.n_ks * A_BOX);
+        const int b = static_cast<int>(tile / s.tiles_img);
+        const int row =
+            b * n_pix + static_cast<int>(tile % s.tiles_img) * PT;
+        for (int ks = 0; ks < s.n_ks; ++ks)
+          tma_load(a_s + (ab * s.n_ks + ks) * A_BOX, &a_map, bar, ks * KS,
+                   row, 0);
+      };
+      int ti = 0;
+      int64_t step = 0;
+      load_a(blockIdx.x / s.segs, 0);
+      for (int64_t v = blockIdx.x; v < s.units; v += gridDim.x, ++ti) {
+        const int c0 = static_cast<int>(v % s.segs) * s.seg_chunks;
+        const int64_t next = v + gridDim.x;
+        const int steps = s.seg_chunks * s.n_ks;
+        // the next unit's rows: into the other buffer once the consumers
+        // have begun this unit (its ring is full), else after this unit
+        const int a_at =
+            s.a_bufs == 2 ? min(s.stages, steps) - 1 : steps - 1;
+        for (int j = 0; j < steps; ++j, ++step) {
+          const int slot = static_cast<int>(step % s.stages);
+          const uint32_t bar = smem_addr(&full_bar[slot]);
+          mbar_wait(smem_addr(&empty_bar[slot]),
+                    (static_cast<uint32_t>(step / s.stages) & 1) ^ 1);
+          mbar_expect_tx(bar, B_STAGE);
+          const int col = (c0 + j / s.n_ks) * s.ne;
+          const int k0 = (j % s.n_ks) * KS;
+#pragma unroll
+          for (int piece = 0; piece < P; ++piece)
+            tma_load(b_s + slot * B_STAGE + piece * B_BOX, &b_map, bar, k0,
+                     col, piece);
+          if (j == a_at && next < s.units) load_a(next / s.segs, ti + 1);
+        }
+      }
+    } else {
+      // ---------------------------------- warps 5-15: the corner dots
+      const int dt = threadIdx.x - 32 * DOT_WARP0;
+      const unsigned lane_mask = ((1u << LANES) - 1u)
+                                 << (lane & ~(LANES - 1));
+      const int n_tasks = PT * s.nsc * LANES;
+      int q = 0;
+      for (int64_t v = blockIdx.x; v < s.units; v += gridDim.x) {
+        const int64_t tile = v / s.segs;
+        const int c0 = static_cast<int>(v % s.segs) * s.seg_chunks;
+        const int b = static_cast<int>(tile / s.tiles_img);
+        const int p0 = static_cast<int>(tile % s.tiles_img) * PT;
+        const int rows = min(PT, n_pix - p0);
+        const int64_t first = static_cast<int64_t>(b) * n_pix + p0;
+        for (int n = c0; n < c0 + s.seg_chunks; ++n, ++q) {
+          const int gb = q & 1;
+          const uint32_t full = smem_addr(&g_full[gb]);
+          const uint32_t parity = (q >> 1) & 1;
+          bool waited = false;
+#if C2M_DCB_ROLE != 1
+          const float* gbuf = g_s + gb * PT * LDG;
+          const int ns = min(s.nsc, n_samples - n * s.nsc);
+          // the next task, decoded and its offsets and mask loaded while
+          // the current task's corners are (two tasks ahead, or the stream
+          // carried across chunks, or L1 asked for the next task's corners:
+          // each measured slower)
+          Task next = decode<LANES>(s, dt, n_tasks, n, ns, p0, rows, first);
+          float2 o_next = make_float2(0.f, 0.f);
+          float m_next = 0.f;
+          if (next.act) {
+            o_next =
+                __ldg(reinterpret_cast<const float2*>(offset + 2 * next.idx));
+            m_next = __ldg(mask + next.idx);
+          }
+          for (int e = dt; e < n_tasks; e += DOT_THREADS) {
+            const Task cur = next;
+            const float2 o = o_next;
+            const float m = m_next;
+            if (e + DOT_THREADS < n_tasks) {
+              next = decode<LANES>(s, e + DOT_THREADS, n_tasks, n, ns, p0,
+                                   rows, first);
+              if (next.act) {
+                o_next = __ldg(
+                    reinterpret_cast<const float2*>(offset + 2 * next.idx));
+                m_next = __ldg(mask + next.idx);
+              }
+            }
+            const Point pt =
+                locate(cur, cur.by + o.x, cur.bx + o.y, b, s.h, s.w, s.c);
+            if (!waited) {
+              mbar_wait(full, parity);
+              waited = true;
+            }
+            corner_dots<T, VEC, LANES>(cur, pt, m, x, gbuf, g_offset, g_mask,
+                                       g_x, s.w, s.c, s.cg, lane_mask);
+          }
+#endif
+          // every thread takes the chunk's phase before it releases the
+          // buffer, so no thread arrives twice in one phase
+          if (!waited) mbar_wait(full, parity);
+          mbar_arrive(smem_addr(&g_empty[gb]));
+        }
       }
     }
   }
 }
 
-template <typename T, bool VEC, int CGT, bool PRESPLIT, int PT, bool GATHER>
-int run(const void* x, const void* offset, const void* mask, const void* gout,
-        const void* wkc, void* g_offset, void* g_mask, void* g_x, int batch,
-        int h, int w, int c, int ho, int wo, int g, int kh, int kw, int sh,
-        int sw, int ph, int pw, int dh, int dw, int co, int lane_bits,
-        cudaStream_t stream) {
-  const auto kernel = mdc_backward_kernel<T, VEC, CGT, PRESPLIT, PT, GATHER>;
-  const size_t smem =
-      smem_bytes(co, PRESPLIT, PT, GATHER ? gather_bytes<T>() : 0);
+// Scratch for the split w_kc comes in stream order from a memory pool of
+// this library's own, one a device, made at the first call there; its
+// release threshold keeps the scratch (2 x 9C x Co f32, 4.7 MB at the
+// relu3 DynAgg) in the pool between calls instead of releasing it at
+// every synchronisation. The device's default pool, which the rest of the
+// process shares, is left as it is; torch's memory statistics do not see
+// this scratch.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t scratch_pool(cudaMemPool_t* pool) {
+  static std::mutex lock;
+  static cudaMemPool_t pools[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  const std::lock_guard<std::mutex> held(lock);
+  if (pools[dev] == nullptr) {
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.handleTypes = cudaMemHandleTypeNone;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = dev;
+    cudaMemPool_t made;
+    err = cudaMemPoolCreate(&made, &props);
+    if (err != cudaSuccess) return err;
+    uint64_t keep = 64ull << 20;
+    err = cudaMemPoolSetAttribute(made, cudaMemPoolAttrReleaseThreshold,
+                                  &keep);
+    if (err != cudaSuccess) {
+      cudaMemPoolDestroy(made);
+      return err;
+    }
+    pools[dev] = made;
+  }
+  *pool = pools[dev];
+  return cudaSuccess;
+}
+
+template <typename T, bool VEC, int LANES>
+cudaError_t run(const CUtensorMap& a_map, const CUtensorMap& b_map,
+                const void* x, const void* offset, const void* mask,
+                void* g_offset, void* g_mask, void* g_x, const Shape& s,
+                size_t smem, cudaStream_t stream) {
+  const auto kernel = mdc_backward_kernel<T, VEC, LANES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // one block a SM walks the tiles (blockIdx.x, + gridDim.x, ...)
-  const int64_t tiles =
-      static_cast<int64_t>(batch) * ((static_cast<int64_t>(ho) * wo + PT - 1) /
-                                     PT);
-  int64_t blocks = static_cast<int64_t>(sm_count()) *
-                   blocks_per_sm(kernel, THREADS, smem);
-  if (blocks > tiles) blocks = tiles;
+  if (err != cudaSuccess) return err;
+  // one block a SM, walking the units in turn
+  int64_t blocks = sm_count();
+  if (blocks > s.units) blocks = s.units;
   if (blocks < 1) blocks = 1;
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(offset),
-      static_cast<const float*>(mask), static_cast<const float*>(gout),
-      static_cast<const float*>(wkc), static_cast<float*>(g_offset),
-      static_cast<float*>(g_mask), static_cast<float*>(g_x), batch, h, w, c,
-      ho, wo, g, kh, kw, sh, sw, ph, pw, dh, dw, co, lane_bits);
-  return static_cast<int>(cudaGetLastError());
+      a_map, b_map, static_cast<const T*>(x),
+      static_cast<const float*>(offset), static_cast<const float*>(mask),
+      static_cast<float*>(g_offset), static_cast<float*>(g_mask),
+      static_cast<float*>(g_x), s);
+  return cudaGetLastError();
 }
-
-// The variants below are chosen by shape; each is measured against its
-// absence by c2matching_tpu_torch/scripts/bench_dcn_backward.py, which
-// builds this file with one of these switches set to 0 (all 1 by default).
-#ifndef C2M_DCB_GATHER
-#define C2M_DCB_GATHER 1
-#endif
-#ifndef C2M_DCB_WIDE
-#define C2M_DCB_WIDE 1
-#endif
-#ifndef C2M_DCB_PRESPLIT
-#define C2M_DCB_PRESPLIT 1
-#endif
-#ifndef C2M_DCB_CGT
-#define C2M_DCB_CGT 1
-#endif
 
 template <typename T>
 int launch(const void* x, const void* offset, const void* mask,
@@ -819,51 +707,109 @@ int launch(const void* x, const void* offset, const void* mask,
            int co, void* stream) {
   const int64_t n_pix = static_cast<int64_t>(ho) * wo;
   if (batch < 1 || h < 1 || w < 1 || ho < 1 || wo < 1 || kh < 1 || kw < 1 ||
-      g < 1 || c % g || c / g > NC || co < 1 || co % 4 || co > MAX_CO ||
-      static_cast<int64_t>(batch) * n_pix > 0x7fffffffLL ||
+      g < 1 || c % g || c / g > MAX_GROUP || co < 1 || co % 4 ||
+      co > MAX_CO || static_cast<int64_t>(batch) * n_pix > 0x7fffffffLL ||
+      static_cast<int64_t>(kh) * kw * c > 0x7fffffffLL ||
       reinterpret_cast<uintptr_t>(gout) % 16 ||
       reinterpret_cast<uintptr_t>(wkc) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int cg = c / g;
-  const bool vec = cg % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
-  // one lane per 4-channel vector of the group, at most 4 (2 bits)
-  const int vectors = vec ? cg / 4 : 1;
-  const int lane_bits = vectors >= 4 ? 2 : (vectors >= 2 ? 1 : 0);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // The training group widths get their own instantiations (CGT). Their
-  // tiles are 128 pixels where 64-pixel tiles would fill fewer than two
-  // waves of the card (one wider wave, no half-empty second one) and the
-  // rows fit; 64-pixel tiles split grad_out once a tile (PRESPLIT: both
-  // parts fit up to MAX_CO), 128-pixel ones at every product. At 8-channel
-  // groups (the corner dots outweigh the products) without grad_x, the
-  // corners are gathered by cp.async where their buffers fit too.
-  const int64_t tiles64 = batch * ((n_pix + 63) / 64);
-  const bool special = C2M_DCB_CGT && vec && g % (NC / cg) == 0 &&
-                       (cg == 8 || cg == 16 || cg == 32);
-  const bool wide = C2M_DCB_WIDE && special &&
-                    tiles64 < 2 * static_cast<int64_t>(sm_count()) &&
-                    smem_bytes(co, false, 128) <= MAX_SMEM;
-  const bool gather = C2M_DCB_GATHER && special && !wide && cg == 8 &&
-                      g_x == nullptr &&
-                      smem_bytes(co, C2M_DCB_PRESPLIT, 64,
-                                 gather_bytes<T>()) <= MAX_SMEM;
-  constexpr bool PS = C2M_DCB_PRESPLIT;
-#define C2M_RUN(VEC_, CGT_, PS_, PT_, GA_)                                   \
-  run<T, VEC_, CGT_, PS_, PT_, GA_>(x, offset, mask, gout, wkc, g_offset,     \
-                                    g_mask, g_x, batch, h, w, c, ho, wo, g,   \
-                                    kh, kw, sh, sw, ph, pw, dh, dw, co,       \
-                                    lane_bits, s)
-#define C2M_TILE(CGT_)                                                       \
-  (wide ? C2M_RUN(true, CGT_, false, 128, false)                             \
-        : C2M_RUN(true, CGT_, PS, 64, false))
-  if (gather) return C2M_RUN(true, 8, PS, 64, true);
-  if (special)
-    return cg == 8 ? C2M_TILE(8) : (cg == 16 ? C2M_TILE(16) : C2M_TILE(32));
-  return vec ? C2M_RUN(true, 0, PS, 64, false)
-             : C2M_RUN(false, 0, PS, 64, false);
-#undef C2M_TILE
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int P = pieces<T>();
+  Shape s;
+  s.h = h;
+  s.w = w;
+  s.c = c;
+  s.ho = ho;
+  s.wo = wo;
+  s.g = g;
+  s.k_taps = kh * kw;
+  s.kw = kw;
+  s.sh = sh;
+  s.sw = sw;
+  s.ph = ph;
+  s.pw = pw;
+  s.dh = dh;
+  s.dw = dw;
+  s.cg = c / g;
+  s.n_ks = (co + KS - 1) / KS;
+  const int kc = s.k_taps * c;
+  s.ne = N / s.cg * s.cg;
+  s.nsc = s.ne / s.cg;
+  s.n_chunks = (kc + s.ne - 1) / s.ne;
+  s.tiles_img = static_cast<int>((n_pix + PT - 1) / PT);
+  s.by_nsc = divider(s.nsc);
+  s.by_g = divider(g);
+  s.by_wo = divider(wo);
+  s.by_kw = divider(kw);
+  // a tile's chunks cut into equal segments (each unit loads its tile's
+  // rows again): the fewest whose waves of units keep the card within
+  // 2.5% as busy as the best cut does
+  const int64_t tiles = static_cast<int64_t>(batch) * s.tiles_img;
+  const int64_t slots = sm_count() > 0 ? sm_count() : 1;
+  auto busy = [&](int segs) {
+    const int64_t units = tiles * segs;
+    return static_cast<double>(units) /
+           (((units + slots - 1) / slots) * slots);
+  };
+  double best = 0.0;
+  for (int segs = 1; segs <= s.n_chunks; ++segs)
+    if (s.n_chunks % segs == 0 && busy(segs) > best) best = busy(segs);
+  s.segs = s.n_chunks;
+  for (int segs = s.n_chunks; segs >= 1; --segs)
+    if (s.n_chunks % segs == 0 && busy(segs) >= best - 0.025) s.segs = segs;
+  s.seg_chunks = s.n_chunks / s.segs;
+  s.units = tiles * s.segs;
+  // the deepest ring that fits, two A buffers before one
+  s.stages = 0;
+  for (int a_bufs = 2; a_bufs >= 1 && !s.stages; --a_bufs)
+    for (int stages = MAX_STAGES; stages >= 2 && !s.stages; --stages)
+      if (smem_bytes(P, stages, a_bufs, s.n_ks) <= MAX_SMEM) {
+        s.stages = stages;
+        s.a_bufs = a_bufs;
+      }
+  if (!s.stages) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(P, s.stages, s.a_bufs, s.n_ks);
+
+  // f32: w_kc's (big, small) TF32 parts in scratch; bf16: w_kc itself
+  cudaError_t err = cudaSuccess;
+  void* parts = nullptr;
+  if (P == 2) {
+    cudaMemPool_t pool;
+    err = scratch_pool(&pool);
+    if (err == cudaSuccess)
+      err = cudaMallocFromPoolAsync(&parts, 2 * sizeof(float) * kc * co,
+                                    pool, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = split(wkc, parts, static_cast<int64_t>(kc) * co, st);
+  }
+  CUtensorMap a_map, b_map;
+  if (err == cudaSuccess &&
+      (!make_map<float>(&a_map, gout, co,
+                        static_cast<int>(batch * n_pix), 1, PT) ||
+       !make_map<float>(&b_map, P == 2 ? parts : wkc, co, kc, P, N)))
+    err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) {
+    const bool vec = s.cg % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+#define C2M_RUN(VEC_, LANES_)                                                 \
+  run<T, VEC_, LANES_>(a_map, b_map, x, offset, mask, g_offset, g_mask, g_x, \
+                       s, smem, st)
+    // Lanes a task: each takes up to 2 (f32) or 4 (bf16) of the group's
+    // 4-channel vectors, or one when grad_x is asked (its atomics then
+    // spread over the lanes). Measured at the training shapes: one lane
+    // for relu1 and 2 for relu2 gave 5% (f32) and 17-24% (bf16) against
+    // a lane a vector, and 1.4-2x slower with grad_x.
+    const int vectors = s.cg / 4;
+    const int per_lane = g_x ? 1 : (P == 2 ? 2 : 4);
+    const int want = vectors / per_lane;
+    err = !vec ? C2M_RUN(false, 1)
+               : (want >= 4 ? C2M_RUN(true, 4)
+                            : (want >= 2 ? C2M_RUN(true, 2)
+                                         : C2M_RUN(true, 1)));
 #undef C2M_RUN
+  }
+  const cudaError_t freed = parts ? cudaFreeAsync(parts, st) : cudaSuccess;
+  return static_cast<int>(err != cudaSuccess ? err : freed);
 }
 
 }  // namespace

@@ -47,7 +47,9 @@
 //   stage is 128 bytes of depth (32 f32 or 64 bf16 values) of the block's
 //   BM = 128 query rows and BN ref rows (of big and small for f32). TMA
 //   zero-fills rows past nq or nr and depth past D. setmaxnreg gives the
-//   producer 40 registers and the consumers 232.
+//   producer 40 registers and the consumers 232. Every mbarrier wait is
+//   bounded (hopper.cuh's mbar_wait): a lost arrival traps, which fails
+//   the launch instead of hanging the card.
 // - Warpgroups 1 and 2 are consumers, 64 query rows each, both reading the
 //   same ref tile. Each issues wgmma on the landed stage, waits for those
 //   products, and releases the stage to the producer ("empty", one arrive
@@ -91,6 +93,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -101,7 +104,6 @@ constexpr int BM = 128;          // query rows per block, 64 a consumer
 constexpr int THREADS = 384;     // producer + 2 consumer warpgroups
 constexpr int ROW_BYTES = 128;   // a stage's depth: one swizzle span
 constexpr int MERGE_THREADS = 256;
-constexpr int SPLIT_THREADS = 256;
 
 template <typename T>
 struct Cfg;
@@ -137,175 +139,6 @@ struct Layout : Cfg<T> {
 
 __device__ __forceinline__ bool better(float v, int j, float best, int best_j) {
   return v > best || (v == best && j < best_j);
-}
-
-// ---------------------------------------------------------------- mbarrier
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed (a fresh barrier
-// is in phase 0, so waiting on parity 1 passes at once).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A (128-byte, rows, 1) box of a 3-D tensor map at (depth c0, row c1,
-// slice c2) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// ------------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (the stride byte
-// offset); the leading byte offset is unused in this layout. A step of
-// depth within the 128-byte row adds its byte offset / 16 to the address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads of an accumulator above the wait
-// that completes it (the wgmma statements name it only as they issue).
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x N, f32, in registers) = A (64 x k, shared) * B (N x k, shared)^T
-// + (scale_d ? D : 0). Accumulator layout, with warp w of the warpgroup,
-// g = lane / 4, t = lane % 4: d[4j + 2h + e] is row 16w + g + 8h, column
-// 8j + 2t + e.
-__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128],
-                                                uint64_t desc_a,
-                                                uint64_t desc_b,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 template <typename T>
@@ -503,28 +336,6 @@ match_argmax_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The f32 operand x (n values, n % 4 == 0) as big = tf32(x) in out[0, n)
-// and small = tf32(x - big) in out[n, 2n), rounded as cvt.rna rounds.
-__global__ void __launch_bounds__(SPLIT_THREADS)
-split_kernel(const float4* __restrict__ x, float4* __restrict__ out,
-             int64_t n4) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * SPLIT_THREADS +
-                   threadIdx.x;
-       i < n4; i += static_cast<int64_t>(gridDim.x) * SPLIT_THREADS) {
-    const float4 v = x[i];
-    uint32_t big[4], small[4];
-    split_tf32(__float_as_uint(v.x), big[0], small[0]);
-    split_tf32(__float_as_uint(v.y), big[1], small[1]);
-    split_tf32(__float_as_uint(v.z), big[2], small[2]);
-    split_tf32(__float_as_uint(v.w), big[3], small[3]);
-    out[i] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
-                         __uint_as_float(big[2]), __uint_as_float(big[3]));
-    out[n4 + i] =
-        make_float4(__uint_as_float(small[0]), __uint_as_float(small[1]),
-                    __uint_as_float(small[2]), __uint_as_float(small[3]));
-  }
-}
-
 // Merges the partitions' (max, argmax) of each query row, (B, P, nq) ->
 // (B, nq), with the tie rule above.
 __global__ void __launch_bounds__(MERGE_THREADS)
@@ -549,54 +360,6 @@ merge_parts_kernel(const float* __restrict__ part_val,
   }
   val[i] = v;
   idx[i] = jv;
-}
-
-// ------------------------------------------------------------------- host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (the library links no libcuda of its own).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A map of (slices, rows, d) values of T, boxes of 128 bytes x box_rows.
-template <typename T>
-bool make_map(CUtensorMap* map, const void* base, int d, int rows,
-              int slices, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(slices)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(d) * sizeof(T),
-      static_cast<cuuint64_t>(rows) * d * sizeof(T)};
-  const cuuint32_t box[3] = {ROW_BYTES / sizeof(T),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map,
-                std::is_same<T, float>::value
-                    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                3, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
@@ -635,17 +398,6 @@ int partitions(int batch, int nq, int nr) {
     }
   }
   return best;
-}
-
-// Splits the f32 operand x (n values) into out (2n values).
-cudaError_t split(const void* x, void* out, int64_t n, cudaStream_t s) {
-  const int64_t n4 = n / 4;
-  const int64_t want = (n4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
-  const int64_t cap = static_cast<int64_t>(c2m::sm_count()) * 16;
-  const int blocks = static_cast<int>(want < cap ? want : cap);
-  split_kernel<<<blocks > 0 ? blocks : 1, SPLIT_THREADS, 0, s>>>(
-      static_cast<const float4*>(x), static_cast<float4*>(out), n4);
-  return cudaGetLastError();
 }
 
 template <typename T>

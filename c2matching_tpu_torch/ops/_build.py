@@ -6,7 +6,9 @@ the checkout. ``<hash>`` covers the source, every ``csrc/*.cuh`` header it
 includes (``#include "..."``, followed into headers), the flags and any
 macros defined for a build (``defines``: a measurement's variant of a
 source), so an edited source or header rebuilds and an unchanged one is
-loaded from the cache. The build
+loaded from the cache. A source of another checkout (``src``: an earlier
+tree's kernel, timed beside this one's) builds into the same directory
+under its own hash. The build
 happens at first use, never at import: the CPU tests import every module
 on hosts without nvcc.
 """
@@ -45,13 +47,14 @@ _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def local_headers(path):
-    """The ``csrc/`` headers that ``path`` includes, directly or through
-    another header, in the order first met."""
+    """The headers beside ``path`` (``csrc/``) that it includes, directly
+    or through another header, in the order first met."""
+    path = Path(path)
     seen = []
     todo = [path]
     while todo:
         for name in _LOCAL_INCLUDE.findall(todo.pop(0).read_bytes()):
-            header = CSRC / name.decode()
+            header = path.parent / name.decode()
             if header not in seen:
                 seen.append(header)
                 todo.append(header)
@@ -62,8 +65,14 @@ def _flags(defines):
     return NVCC_FLAGS + tuple(f'-D{d}' for d in defines)
 
 
-def library_path(name, defines=()):
-    src = CSRC / f'{name}.cu'
+def source(name, src=None):
+    """The path of kernel source ``name``: ``csrc/<name>.cu``, or ``src``
+    where given."""
+    return Path(src) if src else CSRC / f'{name}.cu'
+
+
+def library_path(name, defines=(), src=None):
+    src = source(name, src)
     digest = hashlib.sha256(src.read_bytes())
     for header in local_headers(src):
         digest.update(header.name.encode() + header.read_bytes())
@@ -73,8 +82,10 @@ def library_path(name, defines=()):
 
 def build(names=SOURCES, verbose=False):
     """Compile every named source whose library is missing: one nvcc per
-    source, all started together. ``names`` holds source names or (name,
-    defines) pairs, ``defines`` a tuple of ``'MACRO=value'`` strings.
+    source, all started together. ``names`` holds source names, (name,
+    defines) pairs or (name, defines, src) triples, ``defines`` a tuple of
+    ``'MACRO=value'`` strings and ``src`` the path of another checkout's
+    source of that name.
     Returns ``{name: compiler output}`` for the builds made now (with
     ``verbose``, ptxas reports registers, shared memory and spills). Raises
     with nvcc's output if one fails."""
@@ -82,13 +93,16 @@ def build(names=SOURCES, verbose=False):
     extra = ('-Xptxas', '-v') if verbose else ()
     procs = {}
     for entry in names:
-        name, defs = (entry, ()) if isinstance(entry, str) else entry
-        out = library_path(name, defs)
+        entry = (entry,) if isinstance(entry, str) else tuple(entry)
+        name, defs, src = entry + ((), None)[len(entry) - 1:]
+        out = library_path(name, defs, src)
         if out.exists():
             continue
         tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
         cmd = [nvcc_path(), *_flags(defs), *extra, '-o', str(tmp),
-               str(CSRC / f'{name}.cu')]
+               str(source(name, src))]
+        if src:
+            name = f'{name} of {src}'
         if defs:
             name = f'{name} ({" ".join(defs)})'
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -108,10 +122,10 @@ def build(names=SOURCES, verbose=False):
     return logs
 
 
-def load(name, defines=()):
+def load(name, defines=(), src=None):
     """The ctypes handle of kernel library ``name`` (built with the macros
-    ``defines``), built on first use."""
-    key = (name, tuple(defines))
+    ``defines``, from ``src`` where given), built on first use."""
+    key = (name, tuple(defines), src)
     with _lock:
         lib = _libs.get(key)
         if lib is None:

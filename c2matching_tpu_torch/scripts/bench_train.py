@@ -23,7 +23,9 @@ on the device and the host-to-device copy of the batch, each on its own
 (host clock around work that ends in a synchronise), and, for the pinned
 configuration (stage-3 GAN, bf16 gathers, batch 9 at gt 160), a
 ``decompose gate:`` line of that step against
-``utils/bench_gate.py::PINNED_GAN_STEP_MS`` (10% tolerance).
+``utils/bench_gate.py::PINNED_GAN_STEP_MS`` (10% tolerance), with the
+card's name beside the pin's; only on a CUDA device, since the pin is a
+card's.
 The model runs on the CUDA card unless ``--device`` names another.
 """
 import argparse
@@ -38,7 +40,7 @@ import torch
 
 from ..data.contras_dataset import transformed_coordinate_grid
 from ..models import create_model
-from ..utils.bench_gate import PINNED_GAN_STEP_MS, gate
+from ..utils.bench_gate import PINNED_CARD, PINNED_GAN_STEP_MS, gate
 from ..utils.options import _repo_root, parse
 
 
@@ -139,12 +141,15 @@ def bench(opt, args):
               f'{step_ms:.1f} ms; '
               f'batch transfer ({mb:.1f} MB) '
               f'{statistics.median(xfer_ts) * 1e3:.1f} ms', file=sys.stderr)
-        if (args.stage == 3 and not args.pretrain and not args.f32
-                and b == 9 and gt == 160):
+        # the pin is a card's (utils/bench_gate.py): no gate elsewhere
+        if (device.type == 'cuda' and args.stage == 3 and not args.pretrain
+                and not args.f32 and b == 9 and gt == 160):
             fields = gate(step_ms, PINNED_GAN_STEP_MS,
                           higher_is_better=False, tolerance=0.10)
             print('decompose gate: ' + json.dumps(
-                {'pinned_ms': PINNED_GAN_STEP_MS, **fields}),
+                {'pinned_ms': PINNED_GAN_STEP_MS,
+                 'pinned_card': PINNED_CARD,
+                 'card': torch.cuda.get_device_name(device), **fields}),
                 file=sys.stderr)
 
     if args.stage == 3:

@@ -19,6 +19,7 @@ as long.
 import sys
 
 PINNED_GAN_STEP_MS = 144.1        # ms/iter on the card, lower is better
+PINNED_CARD = 'NVIDIA H100 80GB HBM3, 700 W'   # the card it was taken on
 
 
 def gate(value, pinned, higher_is_better=True, tolerance=0.10):

@@ -83,8 +83,8 @@ Phases:
      atomics); the columns' route it replaced (grad_cols by torch.matmul
      into device memory, then deform_col2im, image by image), kept as its
      yardstick, against the same plain version; the large-offset probe
-     must give exact zeros; batch-2 probes (B3B_ODD) reach every
-     instantiation of the kernel, the widest group and Co it takes. Times the kernel (CUDA
+     must give exact zeros; batch-2 probes (B3B_ODD) reach every path of
+     the kernel, the widest group and Co it takes. Times the kernel (CUDA
      events and torch.profiler), the columns' route (both), the plain
      version and the library route (torch.matmul + F.grid_sample's
      backward), beside the bound.
@@ -1578,6 +1578,25 @@ def _timed_validation():
         SRModel._validation_loop = loop
 
 
+def _eval_tf32(run, path, out_root):
+    """``run(path)`` with cuDNN convolutions and matmuls in TF32 (torch's
+    default for convolutions), after a warm-up; the settings are restored
+    after."""
+    import os
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        os.environ['C2MATCHING_ROOT'] = f'{out_root}_warm'
+        run(path)
+        os.environ['C2MATCHING_ROOT'] = out_root
+        return run(path)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def phase_eval(check, card):
     import os
     import tempfile
@@ -1624,6 +1643,21 @@ def phase_eval(check, card):
                       f'({runner[0]:.1f}-{runner[-1]:.1f}) ms/image (decode, '
                       'bicubic chain, model, metrics, PNG save) '
                       f'({card})', flush=True)
+        # the f32 config under torch's default TF32 settings (cuDNN convs
+        # in TF32), which the runners keep: its metrics within the gates
+        # that hold the card against the CPU
+        results['f32_tf32'] = _eval_tf32(run, f'{root}/f32.yml',
+                                         f'{root}/out_f32_tf32')
+        for name, avgs in results['f32_tf32'].items():
+            off = results['f32'][name]
+            print(f'eval f32 {name}, TF32 on against off: ' + ', '.join(
+                f'{k} {avgs[k]:.6f} vs {off[k]:.6f} ({avgs[k] - off[k]:+.3g})'
+                for k in EVAL_METRICS) + f' ({card})', flush=True)
+            for k in EVAL_METRICS:
+                tol = EVAL_SSIM_TOL if k == 'ssim_y' else EVAL_PSNR_TOL
+                check(abs(avgs[k] - off[k]) <= tol,
+                      f'eval f32 {name}: {k} with TF32 on within {tol:g} of '
+                      'TF32 off')
         # the same runner on the CPU, where the plain versions run
         cpu_path = f'{root}/f32_cpu.yml'
         with open(cpu_path, 'w') as f:
@@ -1697,14 +1731,15 @@ def _b3b_compare(check, inputs, label, needs, keep_plain=False, **conv):
 
 
 # (h, w, C, Co, stride) of batch-2 probes, G = 8, each with and without
-# grad_x, and the kernel's instantiation each reaches beside the training
-# shapes' (Cg 8 with 64-pixel tiles, with and without the corner gather;
-# Cg 16 at 64; Cg 32 at 128): Cg 3, 2 and 6 (the scalar channel loop; Cg 2
-# and 4 are the small training config's), Cg 8 at 128-pixel tiles with Co
-# off the 32-deep ring slices and pixel counts off the tiles, Cg 4 (the
-# generic vector loop) at stride 2, Cg 16 at 128-pixel tiles, Cg 32 at
-# 64-pixel tiles (300 of them: two waves), Cg 64 (the widest group: 4
-# lanes of 4 vectors) and Co 320 (the widest grad_out rows) at Cg 8
+# grad_x, and the kernel's paths each reaches beside the training shapes':
+# Cg 3, 2 and 6 (the scalar channel loop, chunks cut to whole samples; Cg
+# 2 and 4 are the small training config's) with Co 20, 8 and 36 (depth
+# past Co zero-filled by TMA) and stride 2; Cg 8 with pixel counts off the
+# 64-pixel tiles; Cg 4 (one vector a lane) at stride 2 and 9 pixels an
+# image (fewer rows than a TMA box); Cg 16 (1, 2 or 4 lanes a task by
+# dtype and grad_x); Cg 32 with 300 tiles (tiles cut into chunk segments);
+# Cg 64 (the widest group: one sample a chunk) and Co 320 (the widest
+# grad_out rows: one A buffer) at Cg 8
 B3B_ODD = ((7, 9, 24, 20, 1), (13, 5, 16, 8, 1), (11, 10, 48, 36, 2),
            (9, 70, 64, 40, 1), (6, 6, 32, 12, 2), (9, 11, 128, 128, 1),
            (120, 80, 256, 256, 1), (7, 6, 512, 64, 1),

@@ -39,12 +39,36 @@ def test_every_source_of_the_port_finds_its_headers():
                                   'deform_conv_backward'])
 def test_tensor_core_kernels_share_their_helpers(name):
     """B1, B2 and B3's backward take their tensor-core helpers from one
-    header (the 3xTF32 split and shared-memory addresses; B2 and B3's
-    backward also mma.sync, cp.async and ldmatrix), so an edit there
-    rebuilds all three."""
+    header (the 3xTF32 split and shared-memory addresses; B2 also
+    mma.sync, cp.async and ldmatrix), so an edit there rebuilds all
+    three."""
     assert (_build.CSRC / 'mma.cuh') in _build.local_headers(
         _build.CSRC / f'{name}.cu')
     assert _build.library_path(name).name.startswith(f'{name}-')
+
+
+@pytest.mark.parametrize('name', ['patch_match', 'deform_conv_backward'])
+def test_hopper_kernels_share_their_header(name):
+    """B1 and B3's backward feed wgmma from TMA through one header (the
+    mbarrier, TMA, descriptor and wgmma helpers and the tensor-map
+    encoder), so an edit there rebuilds both."""
+    header = _build.CSRC / 'hopper.cuh'
+    assert header in _build.local_headers(_build.CSRC / f'{name}.cu')
+    before = _build.library_path(name)
+    assert before.name.startswith(f'{name}-')
+
+
+def test_an_earlier_trees_source_builds_apart(csrc, tmp_path_factory):
+    """A source of another checkout (``src``) hashes its own headers, so it
+    builds into a library of its own beside this tree's."""
+    other = tmp_path_factory.mktemp('other')
+    (other / 'a.cu').write_text('#include "one.cuh"\nint a;\n')
+    (other / 'one.cuh').write_text('// older\n')
+    here = _build.library_path('a')
+    there = _build.library_path('a', (), other / 'a.cu')
+    assert _build.local_headers(other / 'a.cu') == [other / 'one.cuh']
+    assert there != here and there.parent == here.parent
+    assert there.name.startswith('a-')
 
 
 @pytest.mark.parametrize('edited', ['a.cu', 'one.cuh', 'two.cuh'])
@@ -69,7 +93,7 @@ def test_defines_change_the_library(csrc):
     library of its own, and the plain build keeps its path."""
     plain = _build.library_path('a')
     assert _build.library_path('a', ()) == plain
-    one = _build.library_path('a', ('C2M_DCB_GATHER=0',))
-    other = _build.library_path('a', ('C2M_DCB_WIDE=0',))
+    one = _build.library_path('a', ('C2M_DCB_ROLE=1',))
+    other = _build.library_path('a', ('C2M_DCB_ROLE=2',))
     assert len({plain, one, other}) == 3
     assert one.name.startswith('a-')

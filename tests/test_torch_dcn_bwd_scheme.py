@@ -3,17 +3,22 @@ emulated in torch on the CPU, against ``jax.grad`` of the JAX package's
 deformable conv.
 
 On the card the kernel forms the columns' gradient G = grad_out @ w_kc^T
-inside each block as 3xTF32 on the tensor cores: every f32 value splits
-into big = tf32(v) and small = tf32(v - big), rounded as ``cvt.rna``
-rounds (``split_tf32`` of tests/test_torch_match_f32_scheme.py, by bit
-operations), and for each 8-deep step of Co the three products
-big.small + small.big + big.big sum in a fresh f32 value that one rounded
-f32 add takes into the running sum. The four corner dots of G with x
-follow, as in the plain version. The emulation is held against
-``jax.grad`` with chip_smoke.py's gate for the kernel against its plain
-version: B3B_REL of the largest offset and mask gradient, at the group
-widths of stage-3 training (8, 16 and 32 channels a group, Co = C as in
-the DynAggs). A single TF32 pass, which the kernel does not use, misses it.
+inside each block as 3xTF32 with wgmma: w_kc is split into big =
+tf32(v) and small = tf32(v - big) by a pass before the products, and
+grad_out's values the same way in registers (both here by ``split_tf32``
+of tests/test_torch_match_f32_scheme.py, by bit operations). For each
+32-deep stage of Co, the three products big.small, small.big and big.big
+of each 8-deep step add, in that order, into a fresh accumulator as the
+tensor cores add (``tensor_core_add``: every term cut toward zero at the
+last place of the largest, the sum cut toward zero to f32), and one
+rounded f32 add takes the stage into the running sum. For a bf16 x,
+whose w_kc is bf16-rounded, the kernel drops big.small: w's small part is
+zero. The four corner dots of G with x follow, as in the plain version.
+The emulation is held against ``jax.grad`` with chip_smoke.py's gate for
+the kernel against its plain version: B3B_REL of the largest offset and
+mask gradient, at the group widths of stage-3 training (8, 16 and 32
+channels a group, Co = C as in the DynAggs). A single TF32 pass, which
+the kernel does not use, misses it.
 """
 import importlib
 
@@ -43,20 +48,40 @@ def _few_torch_threads():
     torch.set_num_threads(old)
 
 
-def columns_grad(grad_out, w_kc, passes=3):
-    """G (P, K*C) as the kernel forms it: over Co in steps of 8, the three
-    TF32 products summed in a fresh f32 value, then one rounded f32 add
-    into the running sum. ``passes=1`` is one TF32 product a step."""
+def tensor_core_add(acc, products):
+    """acc (f32) plus one wgmma step's products (float64, each exact), as
+    the tensor cores add them: every term cut toward zero at the unit in
+    the last place an f32 of the largest term has, the terms summed, and
+    the sum cut toward zero to f32. products: (..., 8)."""
+    terms = torch.cat([acc.double().unsqueeze(-1), products], -1)
+    _, e = torch.frexp(terms.abs().amax(-1, keepdim=True))
+    ulp = torch.ldexp(torch.ones_like(terms[..., :1]), e - 24)
+    exact = (torch.trunc(terms / ulp) * ulp).sum(-1)
+    f = exact.float()
+    over = f.double().abs() > exact.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def columns_grad(grad_out, w_kc, passes=3, stage=32, step=8):
+    """G (P, K*C) as the kernel forms it: both operands split by
+    ``split_tf32``, then over Co in stages of ``stage``, the products of
+    each ``step``-deep step (big.small, small.big, big.big) added into a
+    fresh accumulator by ``tensor_core_add``, and one rounded f32 add of
+    the stage into the running sum. ``passes=2`` drops big.small (the
+    kernel's bf16 path); ``passes=1`` is one TF32 product a step."""
+    ab, a_s = split_tf32(grad_out)
+    wb, ws = split_tf32(w_kc)
+    pairs = {3: ((ab, ws), (a_s, wb), (ab, wb)), 2: ((a_s, wb), (ab, wb)),
+             1: ((tf32_rna(grad_out), tf32_rna(w_kc)),)}[passes]
     acc = torch.zeros(grad_out.shape[0], w_kc.shape[0])
-    for o0 in range(0, grad_out.shape[1], 8):
-        a = grad_out[:, o0:o0 + 8]
-        b = w_kc[:, o0:o0 + 8].t()
-        if passes == 3:
-            ab, a_s = split_tf32(a)
-            bb, b_s = split_tf32(b)
-            acc = acc + (ab @ b_s + a_s @ bb + ab @ bb)
-        else:
-            acc = acc + tf32_rna(a) @ tf32_rna(b)
+    for o0 in range(0, w_kc.shape[1], stage):
+        part = torch.zeros_like(acc)
+        for k in range(o0, min(o0 + stage, w_kc.shape[1]), step):
+            o = slice(k, k + step)
+            for a, b in pairs:
+                part = tensor_core_add(
+                    part, a[:, None, o].double() * b[None, :, o].double())
+        acc = acc + part
     return acc
 
 
@@ -92,7 +117,7 @@ def _emulated(x, offset, mask, weight, cot, passes=3):
     goff, gm = [], []
     for i in range(b):
         gcols = columns_grad(torch.from_numpy(cot[i]).reshape(h * w, c),
-                             w_kc, passes)
+                             w_kc, passes=passes)
         _, go, gmi = tdc.deform_im2col_backward_plain(
             torch.from_numpy(x[i]), torch.from_numpy(offset[i]),
             torch.from_numpy(mask[i]), gcols, needs=(False, True, True))
@@ -138,3 +163,36 @@ def test_one_tf32_pass_misses_the_gate():
     three, scale = _worst(_emulated(*args), want)
     one, _ = _worst(_emulated(*args, passes=1), want)
     assert three <= B3B_REL * scale < 10 * B3B_REL * scale < one
+
+
+def test_bf16_path_drops_a_zero_product():
+    """For a bf16 x the kernel loads w's big part alone and drops
+    big.small: on bf16-rounded w_kc, small is zero and G is bit for bit
+    the three-product one."""
+    rng = np.random.RandomState(3)
+    w_kc = torch.from_numpy((rng.randn(9 * 64, 64) / 24).astype(np.float32))
+    w_kc = w_kc.bfloat16().float()
+    grad_out = torch.from_numpy(rng.randn(50, 64).astype(np.float32))
+    three = columns_grad(grad_out, w_kc, passes=3)
+    two = columns_grad(grad_out, w_kc, passes=2)
+    assert torch.equal(three, two)
+
+
+@pytest.mark.parametrize('co', [64, 36, 20])
+def test_weight_split_plain(co):
+    """The pre-split's plain version (``split_tf32``, as the emulation
+    splits w_kc): big and small are TF32 values whose sum is w_kc to
+    within TF32's rounding of the rest; on bf16-rounded w_kc, big is w_kc
+    itself and small is zero, so the bf16 path's dropped product adds
+    zeros."""
+    rng = np.random.RandomState(co)
+    w_kc = torch.from_numpy(rng.randn(9 * 24, co).astype(np.float32))
+    big, small = split_tf32(w_kc)
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1fff).any()
+    assert torch.equal(big, tf32_rna(w_kc))
+    rest = (big.double() + small.double() - w_kc.double()).abs()
+    assert (rest <= 2.0 ** -21 * w_kc.double().abs()).all()
+    bf = w_kc.bfloat16().float()
+    big, small = split_tf32(bf)
+    assert torch.equal(big, bf) and not small.any()

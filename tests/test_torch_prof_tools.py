@@ -136,6 +136,50 @@ def test_bench_train_keys(argv, monkeypatch, capsys):
     assert f"stage-{argv[1]} batch 2 / 64px" in out['metric']
 
 
+class _StubModel:
+    """Stands in for the stage-3 model: ``bench_train`` times its calls,
+    and the test only reads what the script prints."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.log_dict = {}
+
+    def feed_data(self, batch):
+        self.batch = batch
+
+    def optimize_parameters(self, step):
+        self.log_dict = {'l_g_pix': torch.tensor(float(step))}
+
+
+@pytest.mark.parametrize('device', ['cpu', 'cuda'])
+def test_bench_train_gates_only_on_a_card(device, monkeypatch, capsys):
+    """``--decompose`` at the pinned configuration (stage-3 GAN, bf16
+    gathers, batch 9 at gt 160) holds the step against the pin only on a
+    CUDA device, naming the card beside the pin's; on the CPU it prints
+    no gate line. The model is a stub (a CUDA device in name only), so
+    the run stays small."""
+    monkeypatch.setattr(bench_train, 'create_model',
+                        lambda opt, dev: _StubModel(device))
+    monkeypatch.setattr(bench_train, '_sync', lambda dev: None)
+    monkeypatch.setattr(torch.cuda, 'get_device_name',
+                        lambda dev=None: 'a card')
+    bench_train.main(['--stage', '3', '--decompose', '--iters', '2',
+                      '--device', device])
+    out, err = capsys.readouterr()
+    assert json.loads(out)['metric'].startswith('ms/GAN-iter, stage-3 '
+                                                'batch 9 / 160px')
+    gates = [line for line in err.splitlines()
+             if line.startswith('decompose gate: ')]
+    assert any(line.startswith('decompose: ') for line in err.splitlines())
+    if device == 'cpu':
+        assert gates == [] and 'WARNING' not in err
+    else:
+        fields = json.loads(gates[0][len('decompose gate: '):])
+        assert len(gates) == 1 and fields['card'] == 'a card'
+        assert fields['pinned_card'] == bench_train.PINNED_CARD
+        assert fields['pinned_ms'] == bench_train.PINNED_GAN_STEP_MS
+
+
 def test_profile_train_keys(monkeypatch, capsys):
     build = profile_train.build_opt
     monkeypatch.setattr(profile_train, 'build_opt',
