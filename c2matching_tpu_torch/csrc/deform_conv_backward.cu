@@ -108,7 +108,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -638,44 +637,8 @@ mdc_backward_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-// Scratch for the split w_kc comes in stream order from a memory pool of
-// this library's own, one a device, made at the first call there; its
-// release threshold keeps the scratch (2 x 9C x Co f32, 4.7 MB at the
-// relu3 DynAgg) in the pool between calls instead of releasing it at
-// every synchronisation. The device's default pool, which the rest of the
-// process shares, is left as it is; torch's memory statistics do not see
-// this scratch.
-constexpr int MAX_DEVICES = 64;
-
-cudaError_t scratch_pool(cudaMemPool_t* pool) {
-  static std::mutex lock;
-  static cudaMemPool_t pools[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  const std::lock_guard<std::mutex> held(lock);
-  if (pools[dev] == nullptr) {
-    cudaMemPoolProps props = {};
-    props.allocType = cudaMemAllocationTypePinned;
-    props.handleTypes = cudaMemHandleTypeNone;
-    props.location.type = cudaMemLocationTypeDevice;
-    props.location.id = dev;
-    cudaMemPool_t made;
-    err = cudaMemPoolCreate(&made, &props);
-    if (err != cudaSuccess) return err;
-    uint64_t keep = 64ull << 20;
-    err = cudaMemPoolSetAttribute(made, cudaMemPoolAttrReleaseThreshold,
-                                  &keep);
-    if (err != cudaSuccess) {
-      cudaMemPoolDestroy(made);
-      return err;
-    }
-    pools[dev] = made;
-  }
-  *pool = pools[dev];
-  return cudaSuccess;
-}
+// The split w_kc's scratch (2 x 9C x Co f32, 4.7 MB at the relu3 DynAgg)
+// comes from the library's own pool (hopper.cuh, scratch_pool).
 
 template <typename T, bool VEC, int LANES>
 cudaError_t run(const CUtensorMap& a_map, const CUtensorMap& b_map,

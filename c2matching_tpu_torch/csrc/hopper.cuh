@@ -1,15 +1,17 @@
 // Hopper (sm_90a) helpers shared by the kernels that feed wgmma from TMA
-// (B1 patch_match.cu, the B3 backward deform_conv_backward.cu): mbarrier
-// waits and arrivals, TMA tile loads, wgmma descriptors of 128-byte
-// swizzled K-major tiles and the wgmma products themselves, the split of
-// an f32 operand into its TF32 parts, and on the host the tensor-map
-// encoder.
+// (B1 patch_match.cu, B2 dcn_window.cu, the B3 backward
+// deform_conv_backward.cu): mbarrier waits and arrivals, TMA tile loads,
+// wgmma descriptors of 128-byte swizzled K-major tiles and the wgmma
+// products themselves, the split of an f32 operand into its TF32 parts,
+// and on the host the tensor-map encoder and the split operands' scratch
+// pool.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -325,6 +327,44 @@ bool make_map(CUtensorMap* map, const void* base, int d, int rows,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Scratch for a split operand comes in stream order from a memory pool of
+// the library's own, one a device, made at the first call there; its
+// release threshold keeps the scratch in the pool between calls instead of
+// releasing it at every synchronisation. The device's default pool, which
+// the rest of the process shares, is left as it is; torch's memory
+// statistics do not see this scratch.
+constexpr int MAX_DEVICES = 64;
+
+inline cudaError_t scratch_pool(cudaMemPool_t* pool) {
+  static std::mutex lock;
+  static cudaMemPool_t pools[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  const std::lock_guard<std::mutex> held(lock);
+  if (pools[dev] == nullptr) {
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.handleTypes = cudaMemHandleTypeNone;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = dev;
+    cudaMemPool_t made;
+    err = cudaMemPoolCreate(&made, &props);
+    if (err != cudaSuccess) return err;
+    uint64_t keep = 64ull << 20;
+    err = cudaMemPoolSetAttribute(made, cudaMemPoolAttrReleaseThreshold,
+                                  &keep);
+    if (err != cudaSuccess) {
+      cudaMemPoolDestroy(made);
+      return err;
+    }
+    pools[dev] = made;
+  }
+  *pool = pools[dev];
+  return cudaSuccess;
 }
 
 }  // namespace c2m

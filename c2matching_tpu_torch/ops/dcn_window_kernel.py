@@ -122,13 +122,9 @@ def _launch(name, src, origins, ry, rx, mm, weight, blk, win, nby, nbx, c,
             f'win {win}, {nby}x{nbx} blocks')
     src = src.contiguous()
     ry, rx, mm = (t.contiguous() for t in fields)
-    # 16-byte aligned weight rows for the kernel's cp.async copies
+    # the kernel's split pass reads the weight as it is, into (K, Co, C)
+    # TF32 parts laid out for its TMA boxes
     w32 = weight.float().contiguous()
-    ldw = -(-co // 4) * 4
-    if ldw != co or w32.data_ptr() % 16:
-        padded = w32.new_zeros((k, c, ldw))
-        padded[..., :co] = w32
-        w32 = padded
     out = torch.empty((nby * blk, nbx * blk, co), dtype=torch.float32,
                       device=src.device)
     h, w = image_hw
@@ -136,13 +132,13 @@ def _launch(name, src, origins, ry, rx, mm, weight, blk, win, nby, nbx, c,
         err = _kernel(src.dtype)(
             src.data_ptr(), 0 if origins is None else origins.data_ptr(),
             ry.data_ptr(), rx.data_ptr(), mm.data_ptr(), w32.data_ptr(),
-            out.data_ptr(), nb, k, blk, win, c, g, co, ldw, nbx, h, w,
+            out.data_ptr(), nb, k, blk, win, c, g, co, co, nbx, h, w,
             torch.cuda.current_stream().cuda_stream)
     if err:
-        # the launcher refuses what its tiles cannot take (error 1: shared
-        # memory past a block's limit, an image or windows not aligned to
-        # its 4-channel loads, 32-bit cell indices overflowing) before any
-        # launch
+        # the launcher refuses what its tiles cannot take (error 1: C past
+        # 512, a tile's tents past shared memory, an image or windows not
+        # aligned to its 4-channel loads, 32-bit cell indices overflowing)
+        # before any launch
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{err} (C = {c}, G = {g}, Co = {co}, '
                            f'{src.dtype}, {tuple(src.shape)})')

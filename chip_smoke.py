@@ -1074,7 +1074,13 @@ def phase_b2(check, dev, card):
             check(ok, f'b2 {label}: every tap inside its window')
             args = (*args, weight, blk, win, nby, nbx)
             _b2_compare(check, args, label)
-            _b2_time(args, label)
+            ms = _b2_time(args, label)[0]
+            dw = importlib.import_module('c2matching_tpu_torch.ops.'
+                                         'dcn_window')
+            prep_ms = cuda_ms(lambda: dw._window_prep(x[0], offset[0],
+                                                      mask[0], blk, win))
+            print(f'b2 windowed op {label}: prep {prep_ms:.3f} ms, B2 '
+                  f'{ms:.3f} ms ({card})', flush=True)
             del args
             launches, ms, exact_ms = _windowed_vs_exact(
                 check, x, offset, mask, weight, bias, blk, win,
@@ -1152,7 +1158,7 @@ def phase_b2(check, dev, card):
                                  torch.zeros(9, 8, 8, device=dev))),
             ('int64 origins', (x, origins.long(),
                                torch.zeros(9, 8, 8, device=dev))),
-            ('C = 1024, past its shared memory',
+            ('C = 1024, past its 512-channel limit',
              (wide, origins, torch.zeros(9, 1024, 8, device=dev)))):
         try:
             window_conv(*bad[:2], fields, fields, fields, bad[2], 4, 6, 4, 4)

@@ -40,18 +40,18 @@ def test_every_source_of_the_port_finds_its_headers():
 def test_tensor_core_kernels_share_their_helpers(name):
     """B1, B2 and B3's backward take their tensor-core helpers from one
     header (the 3xTF32 split and shared-memory addresses; B2 also
-    mma.sync, cp.async and ldmatrix), so an edit there rebuilds all
-    three."""
+    ldmatrix), so an edit there rebuilds all three."""
     assert (_build.CSRC / 'mma.cuh') in _build.local_headers(
         _build.CSRC / f'{name}.cu')
     assert _build.library_path(name).name.startswith(f'{name}-')
 
 
-@pytest.mark.parametrize('name', ['patch_match', 'deform_conv_backward'])
+@pytest.mark.parametrize('name', ['patch_match', 'deform_conv_backward',
+                                  'dcn_window'])
 def test_hopper_kernels_share_their_header(name):
-    """B1 and B3's backward feed wgmma from TMA through one header (the
-    mbarrier, TMA, descriptor and wgmma helpers and the tensor-map
-    encoder), so an edit there rebuilds both."""
+    """B1, B2 and B3's backward feed wgmma from TMA through one header (the
+    mbarrier, TMA, descriptor and wgmma helpers, the tensor-map encoder and
+    the scratch pool), so an edit there rebuilds all three."""
     header = _build.CSRC / 'hopper.cuh'
     assert header in _build.local_headers(_build.CSRC / f'{name}.cu')
     before = _build.library_path(name)

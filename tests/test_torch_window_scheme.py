@@ -10,8 +10,10 @@ gather followed by the dense contraction. The emulation does what the CUDA
 kernel does: per (pixel, tap, group) at most the 2 x 2 cells with a
 non-zero tent, tents zeroed outside the image (image mode) or zero cells
 read from the gathered windows (rows mode), then the weight as 3xTF32
-split by bit operations, each 8-channel step's three products added to
-the running sum with one rounded f32 add.
+split by bit operations: per tap and 32-channel stage, each 8-channel
+step's three products (one ``wgmma`` each) added into a fresh sum as the
+tensor cores add (``tensor_core_add`` of tests/test_torch_dcn_bwd_scheme.py),
+then one rounded f32 add of the stage into the running sum.
 """
 from importlib import import_module
 
@@ -25,6 +27,7 @@ import jax.numpy as jnp
 from c2matching_tpu.ops.pallas.dcn_window_kernel import window_contract_pallas
 from c2matching_tpu_torch.ops import (window_contract, window_conv,
                                       window_conv_plain)
+from test_torch_dcn_bwd_scheme import tensor_core_add
 from test_torch_dcn_window import _case, _t
 from test_torch_match_f32_scheme import split_tf32, tf32_rna
 
@@ -170,23 +173,31 @@ def sample_columns(x, origins, ry, rx, mm, blk, win, nby, nbx, image=True):
     return cols.permute(2, 1, 0, 3).reshape(p, k, c)
 
 
-def contract(cols, weight, passes=3):
-    """The kernel's products, (P, Co): per tap, 8 channels at a time, the
-    three TF32 products (big.small + small.big + big.big) summed in a fresh
-    f32 value, then one rounded f32 add into the running sum. ``passes=1``
-    is a single TF32 product, the scheme the kernel does not use."""
+def contract(cols, weight, passes=3, stage=32, step=8):
+    """The kernel's products, (P, Co): per tap, in stages of ``stage``
+    channels, the products of each ``step``-channel step (big.small,
+    small.big, big.big: one wgmma each) added into a fresh sum by
+    ``tensor_core_add``, then one rounded f32 add of the stage into the
+    running sum. ``passes=1`` is a single TF32 product a step, the scheme
+    the kernel does not use."""
     p, k, c = cols.shape
     acc = torch.zeros(p, weight.shape[-1])
     for kt in range(k):
-        for c0 in range(0, c, 8):
-            a = cols[:, kt, c0:c0 + 8]
-            b = weight[kt, c0:c0 + 8].float()
-            if passes == 3:
-                ab, a_s = split_tf32(a)
-                bb, b_s = split_tf32(b)
-                acc = acc + (ab @ b_s + a_s @ bb + ab @ bb)
-            else:
-                acc = acc + tf32_rna(a) @ tf32_rna(b)
+        a, b = cols[:, kt], weight[kt].float()
+        if passes == 3:
+            ab, a_s = split_tf32(a)
+            bb, b_s = split_tf32(b)
+            pairs = ((ab, b_s), (a_s, bb), (ab, bb))
+        else:
+            pairs = ((tf32_rna(a), tf32_rna(b)),)
+        for c0 in range(0, c, stage):
+            part = torch.zeros_like(acc)
+            for s0 in range(c0, min(c0 + stage, c), step):
+                ch = slice(s0, min(s0 + step, c))
+                for x, y in pairs:
+                    part = tensor_core_add(
+                        part, x[:, None, ch].double() * y[ch].T[None].double())
+            acc = acc + part
     return acc
 
 
