@@ -28,6 +28,7 @@ from ...ops.deform_conv import modulated_deform_conv
 from ...ops.patch_match import as_dtype
 from ...ops.resize import pixel_shuffle, upscale
 from ...parallel.spatial import allreduce_sum
+from ...utils import trace
 from .arch_util import ResBlockStack, conv, lrelu, scale_valid, valid_mask
 
 
@@ -118,6 +119,8 @@ class ContentExtractor(nn.Module):
 
 _SCALES = (('small', 'relu3_1', 256), ('medium', 'relu2_1', 128),
            ('large', 'relu1_1', 64))
+# each scale's DynAgg span, by its reference layer
+_DYNAGG_SPANS = {scale: f'c2m.dynagg.{key}' for scale, key, _ in _SCALES}
 
 
 class DynamicAggregationRestoration(nn.Module):
@@ -159,8 +162,10 @@ class DynamicAggregationRestoration(nn.Module):
         off = torch.cat([x, ref if band is None else band.take(ref)], dim=-1)
         off = masked(lrelu(getattr(self, f'{scale}_offset_conv1')(off, band)))
         off = masked(lrelu(getattr(self, f'{scale}_offset_conv2')(off, band)))
-        swapped = masked(lrelu(getattr(self, f'{scale}_dyn_agg')(
-            ref, off, pre_offset, band)))
+        with trace.span(_DYNAGG_SPANS[scale]):
+            swapped = getattr(self, f'{scale}_dyn_agg')(
+                ref, off, pre_offset, band)
+        swapped = masked(lrelu(swapped))
         h = torch.cat([x, swapped], dim=-1)
         h = masked(lrelu(getattr(self, f'head_{scale}')[0](h, band)))
         h = getattr(self, f'body_{scale}')(h, mask, band) + x

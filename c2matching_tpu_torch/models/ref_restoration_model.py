@@ -77,7 +77,18 @@ telemetry is the whole image's mean. Where h does not split into bands of
 at least 2 rows every rank computes the whole image (logged). The
 validation loop then walks every image on every rank (the collectives
 need all of them on one image), and rank 0 alone saves and logs each.
+
+Spans (``utils/trace.py``): ``feed_data`` starts an item (a request or a
+step) and each entry point records its phases: ``c2m.feed_data``;
+``c2m.test`` with ``c2m.extractor``, ``c2m.matcher``, ``c2m.generator``
+(and in it each ``c2m.dynagg.<layer>``); ``c2m.cropped_output``;
+``c2m.step`` with ``c2m.match``, ``c2m.g_forward``, ``c2m.d_update``
+(``c2m.d_adam`` in it), ``c2m.g_losses``, ``c2m.g_backward`` and
+``c2m.g_adam``. Where the host blocks on the device a ``c2m.wait.*``
+span opens: ``upload`` (inputs on the host), ``offset_stats`` (the
+offset telemetry's read) and ``gp_alpha`` (the penalty's coefficients).
 """
+import contextlib
 import functools
 import logging
 
@@ -88,7 +99,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import parallel
-from ..utils import metrics, tensor2img
+from ..utils import metrics, tensor2img, trace
 from .archs.vgg_arch import NAMES
 from .base_model import ScheduleCounts, load_state_dict_file, make_adam
 from .losses import PIXEL_LOSSES, PerceptualLoss, gan_loss, \
@@ -97,6 +108,7 @@ from .networks import define_network
 from .sr_model import SRModel
 
 logger = logging.getLogger('base')
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _pad_to(x, mult):
@@ -253,6 +265,11 @@ class RefRestorationModel(SRModel):
         ``val_spatial_shard`` at world size > 1 each input keeps the rank's
         band of its (padded) rows.
         """
+        trace.new_item()
+        with trace.span('c2m.feed_data'):
+            self._feed(batch)
+
+    def _feed(self, batch):
         keys = ('img_in_lq', 'img_ref', 'img_in_up')
         if self.is_train:
             keys += ('img_in',)
@@ -274,7 +291,11 @@ class RefRestorationModel(SRModel):
             arrays = {'img_in_lq': self._band.take(arrays['img_in_lq']),
                       'img_ref': hr.take(arrays['img_ref']),
                       'img_in_up': hr.take(arrays['img_in_up'])}
-        self.batch = {k: v.to(self.device) for k, v in arrays.items()}
+        # a copy from the host waits for the device's queue
+        upload = any(v.device.type != self.device.type
+                     for v in arrays.values())
+        with trace.span('c2m.wait.upload') if upload else _NO_SPAN:
+            self.batch = {k: v.to(self.device) for k, v in arrays.items()}
 
     def _band_of(self, arrays):
         """This rank's LR band of the padded inputs, or None where every
@@ -295,32 +316,39 @@ class RefRestorationModel(SRModel):
         """Match, then restore; ``self.output`` is the padded (B, 4H, 4W, 3)
         result. With a band, each rank computes its band and the output is
         all-gathered: every rank holds the whole image."""
-        vs_lr = self._valid_lr
-        vs_hr = None if vs_lr is None else (4 * vs_lr[0], 4 * vs_lr[1])
-        band = self._band
-        hr = None if band is None else band.scaled(4)
-        feats = self.net_extractor(self.batch['img_in_up'],
-                                   self.batch['img_ref'], vs_hr, hr)
-        pre_offset, ref_feat = self.net_map(feats, self.batch['img_ref'],
-                                            vs_hr, band)
-        self.output = self.net_g(self.batch['img_in_lq'], pre_offset,
-                                 ref_feat, vs_lr, band)
-        if band is not None:
-            self.output = parallel.gather_rows(self.output, hr)
-        self._offset_warn_stats = self.net_g.dyn_agg_restore.offset_stats(
-            reduce=band is not None)
+        with trace.span('c2m.test'):
+            vs_lr = self._valid_lr
+            vs_hr = None if vs_lr is None else (4 * vs_lr[0], 4 * vs_lr[1])
+            band = self._band
+            hr = None if band is None else band.scaled(4)
+            with trace.span('c2m.extractor'):
+                feats = self.net_extractor(self.batch['img_in_up'],
+                                           self.batch['img_ref'], vs_hr, hr)
+            with trace.span('c2m.matcher'):
+                pre_offset, ref_feat = self.net_map(
+                    feats, self.batch['img_ref'], vs_hr, band)
+            with trace.span('c2m.generator'):
+                self.output = self.net_g(self.batch['img_in_lq'], pre_offset,
+                                         ref_feat, vs_lr, band)
+            if band is not None:
+                self.output = parallel.gather_rows(self.output, hr)
+            self._offset_warn_stats = \
+                self.net_g.dyn_agg_restore.offset_stats(
+                    reduce=band is not None)
 
     def cropped_output(self):
         """The last output cropped to the request's own size. Warns when a
         DynAgg's mean |learned offset| exceeds 100, as the reference does;
         reading those values waits for the device, after the output."""
-        for v in self._offset_warn_stats.values():
-            v = float(v)
-            if v > 100:
-                logger.warning(f'Offset mean is {v}, larger than 100.')
-        if self._eval_crop is None:
-            return self.output
-        return self.output[:, :self._eval_crop[0], :self._eval_crop[1]]
+        with trace.span('c2m.cropped_output'):
+            with trace.span('c2m.wait.offset_stats'):
+                stats = [float(v) for v in self._offset_warn_stats.values()]
+            for v in stats:
+                if v > 100:
+                    logger.warning(f'Offset mean is {v}, larger than 100.')
+            if self._eval_crop is None:
+                return self.output
+            return self.output[:, :self._eval_crop[0], :self._eval_crop[1]]
 
     def _compute_val_metrics(self, sr_img, gt_img):
         crop = self.opt['crop_border']
@@ -441,15 +469,17 @@ class RefRestorationModel(SRModel):
         return out
 
     def optimize_parameters(self, step):
-        if step <= self.net_g_pretrain_steps:
-            self._pretrain_iteration()
-            return
-        since = step - self.net_g_pretrain_steps
-        do_g = since % self.net_d_steps == 0 and since > self.net_d_init_steps
-        self._gan_iteration(do_g)
+        with trace.span('c2m.step'):
+            if step <= self.net_g_pretrain_steps:
+                self._pretrain_iteration()
+                return
+            since = step - self.net_g_pretrain_steps
+            do_g = (since % self.net_d_steps == 0
+                    and since > self.net_d_init_steps)
+            self._gan_iteration(do_g)
 
     def _match(self):
-        with torch.no_grad():
+        with trace.span('c2m.match'), torch.no_grad():
             feats = self.net_extractor(self.batch['img_in_up'],
                                        self.batch['img_ref'])
             return self.net_map(feats, self.batch['img_ref'])
@@ -459,12 +489,17 @@ class RefRestorationModel(SRModel):
 
     def _pretrain_iteration(self):
         pre_offset, ref_feat = self._match()
-        self.optimizer_g.zero_grad(set_to_none=True)
-        output = self.net_g(self.batch['img_in_lq'], pre_offset, ref_feat)
-        l_pix = self.cri_pix(output, self.batch['img_in'])
-        l_pix.backward()
-        self.sync_gradients(self.net_g.parameters())
-        self.schedules.step('g')
+        with trace.span('c2m.g_forward'):
+            self.optimizer_g.zero_grad(set_to_none=True)
+            output = self.net_g(self.batch['img_in_lq'], pre_offset,
+                                ref_feat)
+        with trace.span('c2m.g_losses'):
+            l_pix = self.cri_pix(output, self.batch['img_in'])
+        with trace.span('c2m.g_backward'):
+            l_pix.backward()
+            self.sync_gradients(self.net_g.parameters())
+        with trace.span('c2m.g_adam'):
+            self.schedules.step('g')
         self.output = output.detach()
         self.log_dict = self.global_logs({'l_pix': l_pix.detach(),
                                           **self._offset_stats()})
@@ -474,7 +509,7 @@ class RefRestorationModel(SRModel):
         gt = self.batch['img_in']
         args = (self.batch['img_in_lq'], pre_offset, ref_feat)
         saved = remat_saved_ops(self.remat_policy)
-        with torch.set_grad_enabled(do_g):
+        with trace.span('c2m.g_forward'), torch.set_grad_enabled(do_g):
             if do_g and saved is not None:
                 output = checkpoint(
                     self.net_g, *args, use_reentrant=False,
@@ -485,13 +520,17 @@ class RefRestorationModel(SRModel):
         self.output = output.detach()
         logs = self._offset_stats()
         if self.net_d is not None:
-            logs.update(self._d_update(gt, self.output))
+            with trace.span('c2m.d_update'):
+                logs.update(self._d_update(gt, self.output))
         if do_g:
-            self.optimizer_g.zero_grad(set_to_none=True)
-            total, g_logs = self._out_losses(output, gt)
-            total.backward()
-            self.sync_gradients(self.net_g.parameters())
-            self.schedules.step('g')
+            with trace.span('c2m.g_losses'):
+                self.optimizer_g.zero_grad(set_to_none=True)
+                total, g_logs = self._out_losses(output, gt)
+            with trace.span('c2m.g_backward'):
+                total.backward()
+                self.sync_gradients(self.net_g.parameters())
+            with trace.span('c2m.g_adam'):
+                self.schedules.step('g')
             logs.update(g_logs)
         else:
             # a D-only iteration still steps G's schedule
@@ -510,7 +549,9 @@ class RefRestorationModel(SRModel):
             alpha = torch.tensor(np.asarray(alpha), dtype=torch.float32)
         if self.world > 1:
             alpha = alpha[self.rank * b:(self.rank + 1) * b]
-        return alpha.to(self.device)
+        # a copy from pageable host memory: the host waits for the device
+        with trace.span('c2m.wait.gp_alpha'):
+            return alpha.to(self.device)
 
     def _d_update(self, gt, fake):
         """One D update: WGAN real/fake and the gradient penalty."""
@@ -532,7 +573,8 @@ class RefRestorationModel(SRModel):
             logs['l_grad_penalty'] = l_gp.detach()
         total.backward()
         self.sync_gradients(self.net_d.parameters())
-        self.schedules.step('d')
+        with trace.span('c2m.d_adam'):
+            self.schedules.step('d')
         return logs
 
     def _out_losses(self, output, gt):
