@@ -163,6 +163,8 @@ def valid_mask(x, valid_shape, row0=0):
     Multiplying each conv output by it makes the padded computation give
     the exact-shape values on the valid crop: the zero bands then act like
     the implicit same-padding zeros of the exact-shape run at every layer.
+    The VGGs of the extractor and the matcher, and the banded generator,
+    run so; the generator in one process runs on the valid crop instead.
     """
     vh, vw = valid_shape
     h, w = x.shape[1], x.shape[2]

@@ -7,9 +7,10 @@ three nets come from the options' ``network_g`` / ``network_map`` /
 
 Evaluation (``is_train`` false): ``feed_data`` pads a batch to the
 16-LR-pixel bucket, ``test`` runs ContrasExtractorSep ->
-CorrespondenceGenerationArch -> RestorationNet, ``cropped_output`` crops
-the result back and warns on exploding offsets, and ``validation`` scores
-PSNR, PSNR_Y and SSIM_Y over a loader.
+CorrespondenceGenerationArch -> RestorationNet (on the valid crop of an
+off-bucket batch), ``cropped_output`` crops the result back and warns on
+exploding offsets, and ``validation`` scores PSNR, PSNR_Y and SSIM_Y over
+a loader.
 
 Training (``is_train`` true; ``init_training_settings``): net_g trains,
 the extractor and net_map stay frozen and match under ``no_grad``.
@@ -258,9 +259,10 @@ class RefRestorationModel(SRModel):
         'img_in_up' and 'img_ref' (B, 4h, 4w, 3), and in training the ground
         truth 'img_in' (B, 4h, 4w, 3). In evaluation, when (h, w) is off the
         bucket, the three inputs are zero-padded bottom/right and the valid
-        sizes are kept, so the nets mask the pad bands and
-        ``cropped_output`` crops back to (4h, 4w). Training batches are not
-        padded. Other keys, such as the loader's 'padding',
+        sizes are kept, so that the extractor and the matcher mask the pad
+        bands, the generator runs on the valid crop (masked, with a band)
+        and ``cropped_output`` crops back to (4h, 4w). Training batches are
+        not padded. Other keys, such as the loader's 'padding',
         'original_size' and 'lq_path', are not read here. With
         ``val_spatial_shard`` at world size > 1 each input keeps the rank's
         band of its (padded) rows.
@@ -314,7 +316,8 @@ class RefRestorationModel(SRModel):
     @torch.inference_mode()
     def test(self):
         """Match, then restore; ``self.output`` is the padded (B, 4H, 4W, 3)
-        result. With a band, each rank computes its band and the output is
+        result, whose pad bands are no part of it (zero in one process).
+        With a band, each rank computes its band and the output is
         all-gathered: every rank holds the whole image."""
         with trace.span('c2m.test'):
             vs_lr = self._valid_lr

@@ -52,9 +52,10 @@ Phases:
      the main path gave it (B1 at 11844 x 10332 x 2304: the ref rows that
      can win, no ref_bias; its indices mapped to the 126 x 94 grid and
      held against the plain version on all 11844 ref rows with the
-     valid-shape ref_bias; B3 at the padded 128x96, 256x192 and 512x384
-     DynAggs), in both configs; then the windowed op, which no model
-     calls, on the relu1 (blk 4) and relu2 (blk 2) DynAggs' own tensors:
+     valid-shape ref_bias; B3 at the 128x84, 256x168 and 512x336
+     DynAggs of the generator's valid crop), in both configs; then the
+     windowed op, which no model calls, on the relu1 (blk 4) and relu2
+     (blk 2) DynAggs' own tensors:
      the branch it takes, B2 in image mode against its plain version and
      rows mode there, the prep's and B2's times, and the windowed op
      against the exact op. These are the times of the kernels line.
@@ -334,14 +335,15 @@ DCN_SHAPES = (('relu3_1', 128, 84, 256), ('relu2_1', 256, 168, 128),
 # what the main path hands the kernels for REQUESTS[0], padded to the
 # bucket of 16 LR pixels (LR 128x84 -> 128x96): relu3_1 features of
 # 128x96 give 126x94 descriptors; B1 gets the 126 x 82 ref patches inside
-# the valid 128x84 (the 126 x 12 past it cannot win); DynAgg samples at 1x,
-# 2x and 4x
+# the valid 128x84 (the 126 x 12 past it cannot win); the generator runs
+# on the valid crop, so its DynAggs sample at 1x, 2x and 4x of 128x84
 PATH_B1 = (1, 126 * 94, 9 * 256)
 PATH_B1_GRID = (126, 94, 126, 82)   # (hr, wr) of the ref grid, (vh, vw) kept
 PATH_B1_KEPT = (1, 126 * 82, 9 * 256)
-PATH_B3 = ((128, 96, 256), (256, 192, 128), (512, 384, 64))
-# the windowed op's (blk, win) by the padded DynAgg shape it serves; the
-# same shapes, with random DynAgg-structured inputs, in phase b2
+PATH_B3 = tuple((h, w, c) for _, h, w, c in DCN_SHAPES)
+# the windowed op's (blk, win) by the DynAgg shape of an on-bucket HR
+# 512x384 request: phase b2 runs these shapes on random DynAgg-structured
+# inputs, phase path the same layers (by their channels) at PATH_B3
 WINDOWED = {(512, 384, 64): ('relu1_1', 4, 8),
             (256, 192, 128): ('relu2_1', 2, 6)}
 # published peaks of one H100 SXM (dense, at the 700 W limit): device
@@ -1418,11 +1420,12 @@ def _path_windowed(check, dcns, cfg, name, card):
     moved = ops = rows_moved = 0
     rows_ms = 0.0
     served = 0
+    by_channels = {c: v for (_, _, c), v in WINDOWED.items()}
     for x, offset, mask, weight, bias in dcns:
-        if tuple(x.shape) not in WINDOWED:
+        if x.shape[-1] not in by_channels:
             continue
         served += 1
-        layer, blk, win = WINDOWED[tuple(x.shape)]
+        layer, blk, win = by_channels[x.shape[-1]]
         label = 'main path {} {}x{}x{} blk {} win {} {}'.format(
             layer, *x.shape, blk, win, name)
         args, ok, nby, nbx = _b2_window(x, offset, mask, blk, win)

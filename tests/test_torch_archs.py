@@ -116,13 +116,32 @@ def test_vgg_feature_extractor_matches_jax(valid):
                                    rtol=CONV_TOL, atol=CONV_TOL)
 
 
+def _valid_crop(x, pre, feat, valid):
+    """The inputs cut to the valid LR sizes ``valid`` (the relu2 and relu1
+    inputs at twice and four times them)."""
+    vh, vw = valid
+    scale = {'relu3_1': 1, 'relu2_1': 2, 'relu1_1': 4}
+    return (x[:, :vh, :vw],
+            {k: v[:, :, :vh * scale[k], :vw * scale[k]]
+             for k, v in pre.items()},
+            {k: v[:, :vh * scale[k], :vw * scale[k]]
+             for k, v in feat.items()})
+
+
 @pytest.mark.parametrize('valid', [None, (6, 5)])
 def test_restoration_net_matches_jax(valid, restoration):
+    """With ``valid`` the port runs on the valid crop: its crop of the
+    output and its offset means are those of the JAX package's exact-shape
+    run on the cropped inputs, the contract ``valid_mask`` states (the pad
+    bands, and the padded grid's offset mean, are no part of the
+    result)."""
     jnet, params = restoration
     x, pre, feat = _restoration_inputs(8, 1)
-    want, aux = jnet.apply({'params': params}, jnp.asarray(x),
-                           jax.tree.map(jnp.asarray, pre),
-                           jax.tree.map(jnp.asarray, feat), valid,
+    exact = (x, pre, feat) if valid is None else _valid_crop(x, pre, feat,
+                                                             valid)
+    want, aux = jnet.apply({'params': params}, jnp.asarray(exact[0]),
+                           jax.tree.map(jnp.asarray, exact[1]),
+                           jax.tree.map(jnp.asarray, exact[2]), None,
                            mutable=['intermediates'])
     net = archs.RestorationNet(ngf=16, n_blocks=2, groups=8)
     net.load_state_dict(weights.restoration_net_state_dict(params),
@@ -130,6 +149,8 @@ def test_restoration_net_matches_jax(valid, restoration):
     with torch.no_grad():
         got = net(_t(x), {k: _t(v) for k, v in pre.items()},
                   {k: _t(v) for k, v in feat.items()}, valid)
+    assert got.shape == (1, 32, 32, 3)
+    got = got[:, :want.shape[1], :want.shape[2]]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=CONV_TOL)
     stats = net.dyn_agg_restore.offset_stats()

@@ -26,7 +26,8 @@ from c2matching_tpu_torch.models import RefRestorationModel, define_network
 from c2matching_tpu_torch.ops.resize import upscale
 from c2matching_tpu_torch.utils import weights
 
-from test_torch_archs import _images, _np_tree, _restoration_inputs, _t
+from test_torch_archs import (_images, _np_tree, _restoration_inputs, _t,
+                              _valid_crop)
 
 BF16_REL = 2 ** -5   # ~4 bf16 roundings (2^-8 each) of O(1) activations,
                      # compounded over a few conv layers
@@ -78,17 +79,21 @@ def restoration_params():
 @pytest.mark.parametrize('valid', [None, (6, 5)])
 def test_restoration_net_bf16(valid, restoration_params):
     """Held on the restored residual (output minus the f32 bilinear base,
-    which both add last), of O(0.1) at this init."""
+    which both add last), of O(0.1) at this init. With ``valid`` the port
+    runs on the valid crop, so its crop is held against the JAX package's
+    exact-shape run on the cropped inputs."""
     params = restoration_params
     x, pre, feat = _restoration_inputs(8, 1)
-    jx = (jnp.asarray(x), jax.tree.map(jnp.asarray, pre),
-          jax.tree.map(jnp.asarray, feat))
+    exact = (x, pre, feat) if valid is None else _valid_crop(x, pre, feat,
+                                                             valid)
+    jx = (jnp.asarray(exact[0]), jax.tree.map(jnp.asarray, exact[1]),
+          jax.tree.map(jnp.asarray, exact[2]))
     net, jnet = _both(dict(RESTORATION, **BF16))
     jnet_f32 = jax_networks._instantiate(RESTORATION)
-    base = upscale(_t(x), 4, 'bilinear', valid_shape=valid).numpy()
+    base = upscale(_t(exact[0]), 4, 'bilinear').numpy()
 
     def residual(module):
-        fn = jax.jit(lambda p, *a: module.apply({'params': p}, *a, valid))
+        fn = jax.jit(lambda p, *a: module.apply({'params': p}, *a, None))
         return np.asarray(fn(params, *jx)) - base
 
     want, want_f32 = residual(jnet), residual(jnet_f32)
@@ -98,7 +103,8 @@ def test_restoration_net_bf16(valid, restoration_params):
     with torch.no_grad():
         got = net(_t(x), {k: _t(v) for k, v in pre.items()},
                   {k: _t(v) for k, v in feat.items()}, valid)
-    assert got.dtype == torch.float32
+    assert got.dtype == torch.float32 and got.shape == (1, 32, 32, 3)
+    got = got[:, :base.shape[1], :base.shape[2]]
     err = _rel_err(got.numpy() - base, want)
     assert err <= BF16_REL, err
     # f32 blocks agree to ~1e-6 (test_torch_archs.py); bf16 ones do not
