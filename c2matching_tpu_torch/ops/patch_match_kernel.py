@@ -74,7 +74,8 @@ def match_argmax(q, r, ref_bias=None):
     their TF32 split as scratch: two f32 copies of q and of r. The
     kernel may split the ref axis into partitions and merge them in a
     last launch; ``match_argmax.launches`` counts one per call all the
-    same.
+    same. ``match_argmax.scratch_bytes`` holds the largest scratch one
+    call in the process has allocated (``scratch_bytes``).
     """
     if q.dim() == 2:
         idx, val = match_argmax(q[None], r[None], ref_bias)
@@ -84,6 +85,21 @@ def match_argmax(q, r, ref_bias=None):
 
 
 match_argmax.launches = 0
+match_argmax.scratch_bytes = 0
+
+
+def scratch_bytes(batch, nq, nr, d, dtype, parts):
+    """Bytes of device scratch the operator allocates for one launch:
+    for f32 operands their TF32 split, two f32 copies of q and of r; past
+    one partition, each partition's (max, argmax) of every query."""
+    split = 2 * batch * (nq + nr) * d * 4 if dtype == torch.float32 else 0
+    merge = batch * parts * nq * 8 if parts > 1 else 0
+    return split + merge
+
+
+def _count_scratch(nbytes):
+    """Keep the largest scratch of one call on the counter."""
+    match_argmax.scratch_bytes = max(match_argmax.scratch_bytes, nbytes)
 
 
 @torch.library.custom_op('c2matching::match_argmax', mutates_args=())
@@ -134,6 +150,7 @@ def _match_argmax_op(q: torch.Tensor, r: torch.Tensor,
         raise RuntimeError(f'match_argmax kernel launch failed: CUDA error '
                            f'{err}')
     match_argmax.launches += 1
+    _count_scratch(scratch_bytes(b, nq, nr, d, q.dtype, parts))
     return idx, val
 
 
