@@ -14,6 +14,11 @@ one rank's horizontal band of the image (``val_spatial_shard``); each
 conv takes one row from each neighbouring band first, and the valid
 masks are in the image's rows.
 
+A conv's epilogue (``act``: None, 'relu' or 'lrelu'; ``residual``, added
+last) runs as the unfused ops where an autograd graph is recorded, and
+otherwise in place in one pass (``ops.conv_epilogue``) after a
+convolution without a bias, with the same values.
+
 Initializers (``kaiming_scaled_init``, ``srntt_normal_init``) are
 functions ``init(weight, generator)`` that fill an OIHW weight in place:
 the reference's residual-block init (kaiming-normal, fan in, times a
@@ -28,6 +33,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from ... import parallel
+from ...ops.conv_epilogue import ACTS, DTYPES, conv_epilogue
 from ...ops.patch_match import as_dtype
 from ...ops.resize import pixel_shuffle
 from ...parallel.spatial import exchange_halo
@@ -58,18 +64,51 @@ def srntt_normal_init(gain=0.02):
 def conv_nhwc(x, weight, bias, band=None):
     """3x3, stride-1, same-padded convolution of NHWC ``x`` by an OIHW
     ``weight``; with a ``band`` the neighbours' rows (zeros past the image)
-    take the place of the vertical zero padding."""
-    if band is None:
-        return F.conv2d(x.permute(0, 3, 1, 2), weight, bias,
-                        padding=1).permute(0, 2, 3, 1)
-    x = exchange_halo(x, band, 1, 1)
+    take the place of the vertical zero padding. ``x`` is made contiguous
+    first (no copy for an NHWC tensor), so that the conv runs channels-last
+    and its output is contiguous NHWC whatever view ``x`` was."""
+    padding = 1
+    if band is not None:
+        x = exchange_halo(x, band, 1, 1)
+        padding = (0, 1)
+    x = x.contiguous()
+    if 1 in x.shape:
+        # a size-1 dimension may carry any stride, which makes cuDNN and
+        # oneDNN read a contiguous batch of one as NCHW: the canonical ones
+        x = x.view(-1).view(x.shape)
     return F.conv2d(x.permute(0, 3, 1, 2), weight, bias,
-                    padding=(0, 1)).permute(0, 2, 3, 1)
+                    padding=padding).permute(0, 2, 3, 1)
+
+
+def unfused_epilogue(out, act=None, residual=None):
+    """``act(out) [+ residual]`` as separate ops (the epilogue wherever a
+    graph is recorded)."""
+    if act not in ACTS:
+        raise ValueError(f'act {act!r} is none of {list(ACTS)}')
+    if act == 'relu':
+        out = F.relu(out)
+    elif act == 'lrelu':
+        out = lrelu(out)
+    return out if residual is None else residual + out
 
 
 class Conv2d(nn.Conv2d):
     """3x3, stride-1, same-padded convolution on NHWC tensors, computed in
-    ``compute_dtype`` (float32 unless given) from float32 parameters."""
+    ``compute_dtype`` (float32 unless given) from float32 parameters, with
+    its epilogue ``act(conv + bias) [+ residual]``.
+
+    Where autograd would record a graph (grad mode on and x, the weight,
+    the bias or the residual requiring grad), or the compute dtype is one
+    the kernel does not take (float64), the conv adds its bias and the
+    epilogue runs as separate ops; otherwise cuDNN runs the conv without a
+    bias and ``conv_epilogue`` applies bias, activation and residual in
+    place in one pass, with the same values. A residual of another dtype
+    than the compute dtype is added after it, promoting as ``residual +
+    out`` does. ``fused_epilogues`` and ``graph_epilogues`` count, over
+    every instance, the forwards of each path."""
+
+    fused_epilogues = 0
+    graph_epilogues = 0
 
     def __init__(self, in_channels, out_channels, device=None,
                  compute_dtype=None):
@@ -77,9 +116,20 @@ class Conv2d(nn.Conv2d):
                          device=device)
         self.compute_dtype = as_dtype(compute_dtype) or torch.float32
 
-    def forward(self, x, band=None):
+    def forward(self, x, band=None, act=None, residual=None):
         dt = self.compute_dtype
-        return conv_nhwc(x.to(dt), self.weight.to(dt), self.bias.to(dt), band)
+        x, weight, bias = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if dt not in DTYPES or torch.is_grad_enabled() and (
+                x.requires_grad or weight.requires_grad or bias.requires_grad
+                or (residual is not None and residual.requires_grad)):
+            Conv2d.graph_epilogues += 1
+            return unfused_epilogue(conv_nhwc(x, weight, bias, band), act,
+                                    residual)
+        Conv2d.fused_epilogues += 1
+        out = conv_nhwc(x, weight, None, band)
+        if residual is not None and residual.dtype != dt:
+            return residual + conv_epilogue(out, bias, act)
+        return conv_epilogue(out, bias, act, residual)
 
 
 def conv(in_channels, out_channels, generator=None, std=0.02, dtype=None,
@@ -117,7 +167,8 @@ class SpectralNormConv(nn.Module):
     training (``n_power_iterations=0`` reuses the stored pair); eval
     touches neither; sigma takes no gradient. With ``sn_bias`` the bias is
     divided by its exact sigma, ||b||_2 (+1e-12), also without a gradient.
-    Computes in ``dtype`` from float32 parameters."""
+    Computes in ``dtype`` from float32 parameters; its epilogue (``act``,
+    ``residual``) is always the separate ops."""
 
     def __init__(self, in_channels, out_channels, generator=None, init=None,
                  n_power_iterations=1, sn_bias=True, dtype=None):
@@ -136,7 +187,7 @@ class SpectralNormConv(nn.Module):
         self.register_buffer('weight_u', u)
         self.register_buffer('weight_v', v)
 
-    def forward(self, x, band=None):
+    def forward(self, x, band=None, act=None, residual=None):
         w_mat = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
         u, v = self.weight_u, self.weight_v
         if self.training:
@@ -152,7 +203,9 @@ class SpectralNormConv(nn.Module):
         if self.sn_bias:
             bias = bias / (torch.linalg.vector_norm(bias) + 1e-12).detach()
         dt = self.compute_dtype
-        return conv_nhwc(x.to(dt), weight.to(dt), bias.to(dt), band)
+        return unfused_epilogue(
+            conv_nhwc(x.to(dt), weight.to(dt), bias.to(dt), band), act,
+            residual)
 
 
 def valid_mask(x, valid_shape, row0=0):
@@ -202,6 +255,8 @@ def lrelu(x, slope=0.1):
 class ResidualBlockNoBN(nn.Module):
     """Conv-ReLU-Conv residual block without BN, ``x + res_scale * out``;
     each conv output is masked to the valid region when a mask is given.
+    Without a mask and at ``res_scale`` 1 the ReLU and the residual add
+    are the convs' epilogues.
     Weights from ``init`` (kaiming-normal x 0.1 when None, the reference's
     init of a standalone block; RestorationNet's trunks pass the srntt
     init). ``sn``: spectral-normalized convs (``SpectralNormConv``, with
@@ -221,6 +276,9 @@ class ResidualBlockNoBN(nn.Module):
             setattr(self, name, layer)
 
     def forward(self, x, mask=None, band=None):
+        if mask is None and self.res_scale == 1.0:
+            out = self.conv1(x, band, act='relu')
+            return self.conv2(out, band, residual=x)
         out = self.conv1(x, band)
         if mask is not None:
             out = out * mask
@@ -355,7 +413,9 @@ class _PixelShuffle(nn.Module):
 
 class UpsampleShuffle(nn.Module):
     """conv(nf -> 4nf), x2 pixel shuffle, LeakyReLU(0.1): the
-    tail_small / tail_medium stage of RestorationNet. NHWC; weights
+    tail_small / tail_medium stage of RestorationNet (the leaky ReLU is
+    the conv's epilogue, before the shuffle: elementwise, the same
+    values). NHWC; weights
     srntt-initialized unless ``init`` is given."""
 
     def __init__(self, nf, generator=None, dtype=None, init=None):
@@ -364,4 +424,4 @@ class UpsampleShuffle(nn.Module):
                          init=init or srntt_normal_init())
 
     def forward(self, x):
-        return lrelu(pixel_shuffle(self.conv(x), 2))
+        return pixel_shuffle(self.conv(x, act='lrelu'), 2)

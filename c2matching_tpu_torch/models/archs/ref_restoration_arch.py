@@ -129,7 +129,7 @@ class ContentExtractor(nn.Module):
         self.body = ResBlockStack(nf, n_blocks, generator, dtype)
 
     def forward(self, x, mask=None, band=None):
-        feat = lrelu(self.conv_first(x, band))
+        feat = self.conv_first(x, band, act='lrelu')
         if mask is not None:
             feat = feat * mask
         return self.body(feat, mask, band)
@@ -178,23 +178,27 @@ class DynamicAggregationRestoration(nn.Module):
             return t if mask is None else t * mask
 
         off = torch.cat([x, ref if band is None else band.take(ref)], dim=-1)
-        off = masked(lrelu(getattr(self, f'{scale}_offset_conv1')(off, band)))
-        off = masked(lrelu(getattr(self, f'{scale}_offset_conv2')(off, band)))
+        off = masked(getattr(self, f'{scale}_offset_conv1')(off, band,
+                                                            act='lrelu'))
+        off = masked(getattr(self, f'{scale}_offset_conv2')(off, band,
+                                                            act='lrelu'))
         with trace.span(_DYNAGG_SPANS[scale]):
             swapped = getattr(self, f'{scale}_dyn_agg')(
                 ref, off, pre_offset, band, mask)
         swapped = masked(lrelu(swapped))
         h = torch.cat([x, swapped], dim=-1)
-        h = masked(lrelu(getattr(self, f'head_{scale}')[0](h, band)))
+        h = masked(getattr(self, f'head_{scale}')[0](h, band, act='lrelu'))
         h = getattr(self, f'body_{scale}')(h, mask, band) + x
         if scale == 'large':
-            h = masked(lrelu(self.tail_large[0](h, band)))
+            h = masked(self.tail_large[0](h, band, act='lrelu'))
             # the final conv output is left unmasked: the caller crops the
             # pad bands, and they feed nothing else
             return self.tail_large[2](h, band)
-        # masked at the coarse scale = masked after the shuffle
-        h = masked(getattr(self, f'tail_{scale}')[0](h, band))
-        return lrelu(pixel_shuffle(h, 2))
+        # the leaky ReLU before the shuffle and the mask, both of which
+        # commute with it: masked at the coarse scale = masked after the
+        # shuffle
+        h = masked(getattr(self, f'tail_{scale}')[0](h, band, act='lrelu'))
+        return pixel_shuffle(h, 2)
 
     def forward(self, x, pre_offset, img_ref_feat, valid_shape=None,
                 band=None):

@@ -1,7 +1,9 @@
-"""Tensor ops of the port: resize, flow, patch matching and the deformable
-conv (exact and windowed), with the hand-written kernels (patch-match
-argmax, the deformable im2col, the deformable conv's backward, and the
-window contraction) behind their wrappers."""
+"""Tensor ops of the port: resize, flow, patch matching, the deformable
+conv (exact and windowed) and the conv epilogue, with the hand-written
+kernels (patch-match argmax, the deformable im2col, the deformable conv's
+backward, the window contraction and the conv epilogue) behind their
+wrappers."""
+from .conv_epilogue import conv_epilogue, conv_epilogue_plain
 from .dcn_window import (modulated_deform_conv_windowed,
                          modulated_deform_conv_windowed_chunked,
                          window_applicable)
@@ -22,6 +24,7 @@ from .resize import (bilinear_resize, nearest_up, pixel_shuffle,
 
 __all__ = [
     'batched_patch_match', 'batched_pre_offsets', 'bilinear_resize',
+    'conv_epilogue', 'conv_epilogue_plain',
     'deform_col2im', 'deform_conv', 'deform_conv_backward',
     'deform_conv_backward_plain', 'deform_im2col',
     'deform_im2col_backward_plain', 'deform_im2col_plain',

@@ -41,14 +41,24 @@ Phases:
      an output grid smaller than the image, C and Co off the tiles, huge
      coordinates and zero modulation; and shapes or types the kernel
      refuses, which must raise on the card.
-  5. main: RefRestorationModel.feed_data / test at full width (ngf 64,
+  5. epilogue: the conv epilogue kernel (bias, activation and residual
+     add in place after a cuDNN conv) against its plain version, bit for
+     bit, at the restoration net's shapes at batch 16 on the 128 x 84
+     valid crop (relu1 336x512 at C 64 and 3, relu2 168x256 at C 128,
+     relu3 84x128 at C 216 and 256) in f32 and bf16, for each activation
+     with and without a residual, and on operands off 16-byte alignment;
+     then one residual block's two epilogues at relu1 (16 x 336 x 512 x
+     64, f32) timed beside the plain version, the unfused ops they
+     replace (the bias add on the conv's NCHW view, ReLU, the residual
+     add) and the bytes bound. These are the times of the kernels line.
+  6. main: RefRestorationModel.feed_data / test at full width (ngf 64,
      16 blocks, 8 groups; random weights from a seeded generator) in the
      f32 config and the serving config (bf16 gathers and match operands),
      over requests of CUFED5 size, one of them off the bucket; the launch
      counters must rise on this path; a small request must agree with the
      same nets run on the CPU, where the plain versions run. One more
      HR 512x336 request per config records every kernel's inputs.
-  6. path: each kernel against its plain version on exactly the tensors
+  7. path: each kernel against its plain version on exactly the tensors
      the main path gave it (B1 at 11844 x 10332 x 2304: the ref rows that
      can win, no ref_bias; its indices mapped to the 126 x 94 grid and
      held against the plain version on all 11844 ref rows with the
@@ -59,7 +69,7 @@ Phases:
      the branch it takes, B2 in image mode against its plain version and
      rows mode there, the prep's and B2's times, and the windowed op
      against the exact op. These are the times of the kernels line.
-  7. eval: the port's test runner (c2matching_tpu_torch.test.run, what
+  8. eval: the port's test runner (c2matching_tpu_torch.test.run, what
      `python -m c2matching_tpu_torch.test` calls) on the card, through
      options files written from options/test/test_synth_smoke.yml (f32)
      and test_synth_smoke_serving.yml (bf16 gathers and match operands)
@@ -73,7 +83,7 @@ Phases:
      against the same runner on the CPU. Prints PSNR, PSNR_Y, SSIM_Y and
      the median ms per image over the three passes for each config and
      set.
-  8. b3bwd: the deformable conv's backward kernel (deform_conv_backward:
+  9. b3bwd: the deformable conv's backward kernel (deform_conv_backward:
      one launch per DynAgg covers the whole batch, and the columns'
      gradient grad_out @ w_kc^T is formed on the tensor cores inside it)
      against its plain version on random inputs at stage-3 training's
@@ -89,7 +99,7 @@ Phases:
      events and torch.profiler), the columns' route (both), the plain
      version and the library route (torch.matmul + F.grid_sample's
      backward), beside the bound.
-  9. contras: stages 1 and 2 of training (the contrastive correspondence
+ 10. contras: stages 1 and 2 of training (the contrastive correspondence
      network) through `python -m c2matching_tpu_torch.train`'s run() on the
      card with options/train/stage1_teacher_contras_network.yml and
      stage2_student_contras_network.yml as they are but for data roots and
@@ -113,7 +123,7 @@ Phases:
      on the card against the CPU from the same seeded weights: the logs,
      the card's float32 gradients against the CPU's float64 ones, and the
      float64 gradients of both (the model's float64_grads).
- 10. train: `python -m c2matching_tpu_torch.train`'s run() on the card with
+ 11. train: `python -m c2matching_tpu_torch.train`'s run() on the card with
      options/train/stage3_restoration_gan.yml at full width (ngf 64, 16
      blocks, 8 groups, D ndf 32, VGG19 relu5_1 perceptual, WGAN-GP) and its
      batch of 9 at gt 160, on a 10-pair 160-px synth set, from phase
@@ -130,11 +140,11 @@ Phases:
      backward kernel as in phase b3bwd on the tensors one more GAN
      iteration hands it (each DynAgg's whole batch, whose sampled feature
      must need no gradient; these are the times of the kernels line).
- 11. train_cpu: one G-pretrain step and one GAN step of a small config
+ 12. train_cpu: one G-pretrain step and one GAN step of a small config
      (ngf 16, 2 blocks, ndf 4, batch 2 at gt 64) on the card against the
      same steps on the CPU (plain versions) from the same weights: losses
      and G gradients.
- 12. dist: data parallelism over torch.distributed, on the shipped
+ 13. dist: data parallelism over torch.distributed, on the shipped
      stage3_restoration_gan.yml at full width (1 pretrain + 2 GAN
      iterations): (i) `python -m torch.distributed.run --nproc_per_node 1`
      running the train CLI with --launcher pytorch over NCCL (a child that
@@ -156,7 +166,7 @@ Phases:
      card shared) against one process at batch 2 on phase eval's sets:
      the same files within one uint8 step. Each kernel of the training
      path must launch in (i) and (ii).
- 13. spatial: val_spatial_shard, batch-1 evaluation split into one
+ 14. spatial: val_spatial_shard, batch-1 evaluation split into one
      horizontal band of each image a rank. `python -m
      c2matching_tpu_torch.test --launcher pytorch` (under
      torch.distributed.run, TF32 off, cuDNN deterministic) at two ranks
@@ -179,7 +189,7 @@ Phases:
      kernel bit for bit the whole image's columns of those rows, its
      plain version likewise, and the two within B3's f32 tolerance. One
      JSON line of the phase's numbers.
- 14. options: the options the port took last, on a 10-pair 160-px synth
+ 15. options: the options the port took last, on a 10-pair 160-px synth
      set whose refs share their inputs' keys, packed into lmdb databases by
      c2matching_tpu_torch.scripts.create_cufed_lmdb (through the lmdb
      package where installed, else the port's own store of the same
@@ -206,7 +216,7 @@ Phases:
      within 2^-5. bytes: profile_serving --cost at batch 16 (serving
      config): each stage's *_hbm_gb and *_hbm_gb_per_s beside its
      *_gflops. One JSON line of the phase's numbers.
- 15. extras: the off-path pieces. DCNSep (groups 8, a random
+ 16. extras: the off-path pieces. DCNSep (groups 8, a random
      conv_offset_mask) at the DynAgg widths at HR 512x384 (relu1
      512x384x64, relu2 256x192x128, relu3 128x96x256): one B3 launch a
      forward, B3's columns against deform_im2col_plain, the module's
@@ -229,7 +239,7 @@ Phases:
      PerceptualLossMultiInputs, MaskedTVLoss and deform_psroi_pooling at
      batch 9, gt 160, against the CPU, each one's ms. One JSON line of the
      phase's numbers.
- 16. serve: batch serving and the tools. export_serving of the serving
+ 17. serve: batch serving and the tools. export_serving of the serving
      config at batch 2, HR 512x336 (the graph's operator calls, the
      export's seconds and the .pt2's MB); the artifact is loaded and run in
      a fresh process that cannot import c2matching_tpu_torch.models and
@@ -256,7 +266,7 @@ Phases:
      its own process, as the pin of utils/bench_gate.py was taken (torch's
      default TF32 settings): the step with the batch on the card and its
      gate line.
- 17. one JSON line of kernels, the card's line, and last the JSON result.
+ 18. one JSON line of kernels, the card's line, and last the JSON result.
 
 Exits non-zero, printing no result, when a phase fails or no CUDA card
 is present. TF32 is off for convolutions and matmuls throughout.
@@ -1170,6 +1180,88 @@ def phase_b2(check, dev, card):
         check(raised, f'b2 image mode refuses {what} on the card')
 
 
+# ------------------------------------------------------------ conv epilogue
+# (pixels, C) of the restoration net's convs at batch 16 on the 128 x 84
+# valid crop: relu1's blocks and final conv, relu2's offset convs, relu3's
+# offset-mask and offset convs
+EPILOGUE_SHAPES = (((16, 336, 512), 64), ((16, 336, 512), 3),
+                   ((16, 168, 256), 128), ((16, 84, 128), 216),
+                   ((16, 84, 128), 256))
+
+
+def _epilogue_operands(gen, dev, shape, dtype):
+    y = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    bias = torch.randn(shape[-1], generator=gen, device=dev).to(dtype)
+    res = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return y, bias, res
+
+
+def _unaligned_copy(t):
+    """A copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def phase_epilogue(check, dev, report):
+    from c2matching_tpu_torch.ops import conv_epilogue, conv_epilogue_plain
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace('torch.', '')
+        for (pixels, c), copy in [(s, torch.clone) for s in EPILOGUE_SHAPES] \
+                + [(((3, 5, 7), 64), _unaligned_copy)]:
+            y, bias, res = _epilogue_operands(gen, dev, pixels + (c,), dtype)
+            for act in (None, 'relu', 'lrelu'):
+                for r in (None, res):
+                    want = conv_epilogue_plain(y.clone(), bias, act, r)
+                    got = conv_epilogue(copy(y), bias, act, r)
+                    check(torch.equal(got, want),
+                          f'epilogue {"x".join(map(str, pixels))}x{c} {name} '
+                          f'act {act} residual {r is not None}'
+                          f'{" unaligned" if copy is _unaligned_copy else ""}'
+                          ': equal to the plain version')
+                    del want, got
+            del y, bias, res
+        torch.cuda.empty_cache()
+
+    # one residual block's epilogues at relu1: conv1's bias + ReLU, conv2's
+    # bias + the block's input
+    shape = EPILOGUE_SHAPES[0][0] + (EPILOGUE_SHAPES[0][1],)
+    y1, bias, x = _epilogue_operands(gen, dev, shape, torch.float32)
+    y2 = torch.randn(shape, generator=gen, device=dev)
+
+    def kernel():
+        conv_epilogue(y1, bias, 'relu')
+        conv_epilogue(y2, bias, None, x)
+
+    def plain():
+        conv_epilogue_plain(y1, bias, 'relu')
+        conv_epilogue_plain(y2, bias, None, x)
+
+    def library():
+        # what F.conv2d's cuDNN path and the block ran: the bias add on the
+        # conv's NCHW view (channels-last), then F.relu and x + out
+        b4 = bias.view(1, -1, 1, 1)
+        y1.permute(0, 3, 1, 2).add_(b4)
+        F.relu(y1)
+        y2.permute(0, 3, 1, 2).add_(b4)
+        return x + y2
+
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain)
+    library_ms = cuda_ms(library)
+    # conv1's output read and written, conv2's read and written, x read
+    bound_ms, bound_by = bound(5 * nbytes(y1), 4 * y1.numel(), torch.float32)
+    print(f'epilogue relu1 block {"x".join(map(str, shape))} f32: kernel '
+          f'{ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} '
+          f'ms, bound {bound_ms:.3f} ms ({bound_by}; {100 * bound_ms / ms:.1f}'
+          '% of it)', flush=True)
+    report['epilogue_float32'] = {'ms': ms, 'plain_ms': plain_ms,
+                                  'bound_ms': bound_ms, 'bound_by': bound_by,
+                                  'library_ms': library_ms}
+    del y1, y2, x
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- main path
 def _request(gen, dev, hr_h, hr_w):
     """A smooth random HR image, its x4 LR, the LR upsampled back, and a
@@ -1261,7 +1353,9 @@ def _record_kernel_inputs():
 
 def phase_main(check, dev, report, card, recorded):
     from c2matching_tpu_torch.models import RefRestorationModel
-    from c2matching_tpu_torch.ops import deform_im2col, match_argmax
+    from c2matching_tpu_torch.models.archs.arch_util import Conv2d
+    from c2matching_tpu_torch.ops import (conv_epilogue, deform_im2col,
+                                          match_argmax)
     gen = torch.Generator(device=dev).manual_seed(3)
     requests = [_request(gen, dev, *hw) for hw in REQUESTS]
     for cfg, blocks in (('f32', F32_BLOCKS), ('serving', SERVING_BLOCKS)):
@@ -1270,6 +1364,8 @@ def phase_main(check, dev, report, card, recorded):
         _serve(model, requests[0])   # warm-up: cuDNN plans, allocator
         match_argmax.launches = 0
         deform_im2col.launches = 0
+        conv_epilogue.launches = 0
+        fused, graph = Conv2d.fused_epilogues, Conv2d.graph_epilogues
         times = []
         outs = []
         for batch in requests:
@@ -1277,7 +1373,12 @@ def phase_main(check, dev, report, card, recorded):
             outs.append(_serve(model, batch))
             times.append(time.perf_counter() - t0)
         launches = {'match_argmax': match_argmax.launches,
-                    'deform_im2col': deform_im2col.launches}
+                    'deform_im2col': deform_im2col.launches,
+                    'conv_epilogue': conv_epilogue.launches}
+        check(conv_epilogue.launches == Conv2d.fused_epilogues - fused
+              and Conv2d.graph_epilogues == graph,
+              f'main {cfg}: the conv epilogue launched once a conv '
+              f'({conv_epilogue.launches}), no conv on the graph path')
         for (hr_h, hr_w), out, dt in zip(REQUESTS, outs, times):
             check(tuple(out.shape) == (1, hr_h, hr_w, 3)
                   and bool(torch.isfinite(out).all()),
@@ -5035,6 +5136,7 @@ def main():
                 ('b1', lambda: phase_b1(check, dev)),
                 ('b3', lambda: phase_b3(check, dev)),
                 ('b2', lambda: phase_b2(check, dev, card)),
+                ('epilogue', lambda: phase_epilogue(check, dev, report)),
                 ('main', lambda: phase_main(check, dev, report, card,
                                             recorded)),
                 ('path', lambda: phase_path(check, report, recorded, card)),
@@ -5080,7 +5182,10 @@ def main():
              'c2matching_tpu/ops/pallas/dcn_window_kernel.py:125'),
             ('deform_conv_backward', 'b3bwd',
              'c2matching_tpu_torch/csrc/deform_conv_backward.cu',
-             'c2matching_tpu/ops/deform_conv.py:214')):
+             'c2matching_tpu/ops/deform_conv.py:214'),
+            ('conv_epilogue', 'epilogue',
+             'c2matching_tpu_torch/csrc/conv_epilogue.cu',
+             'none: an XLA fusion of the conv output on the TPU')):
         kernels.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': launches[name],
                         **report[f'{key}_float32']})
