@@ -68,8 +68,8 @@
 //   rows past the partition or past nr never win (as
 //   patch_match_kernel.py masks rows past nr).
 //
-// Filling the card: at the main path's 11844 queries, 128-row query tiles
-// give 93 blocks for 132 SMs. So the ref axis is split into partitions of
+// Filling the card: at the main path's 10332 queries, 128-row query tiles
+// give 81 blocks for 132 SMs. So the ref axis is split into partitions of
 // ceil(nr / parts) rows (c2m_match_argmax_parts picks their number from
 // the SM count); each (partition, query tile) block writes a partial
 // (max, argmax) to scratch, and a last launch merges the partials. The
@@ -375,6 +375,19 @@ cudaError_t prepare() {
 // number of tiles: the blocks of one query tile then stay in step, and
 // its q tiles reach L2 once for all of them (blocks of unequal lengths
 // drift apart over the waves, and each reads q from memory again).
+// f32 operands take two partitions or more: with one, every resident block
+// streams its own q tile (two TF32 parts, 2.36 MB at D = 2304) from memory
+// once a ref tile, which the makespan does not count (at batch 16 and
+// 10332 x 10332 one partition took 119 ms, three 70; H100). The floor
+// changes the pick only where the batch's q tiles fill whole waves of the
+// card on their own: on 132 SMs, CUFED5's 10332 x 10332 at batch 8, 13,
+// 16, 21, 24, 26 and 29 (3 partitions, whose makespan is within 1% of
+// one's). Every other f32 launch of the port already takes two or more:
+// batch 1 and its bands (3), the other batches up to 32 (2 to 9) and the
+// training match's 1444 x 1444 at batch 9 (6). bf16 keeps the plain
+// makespan: its q tile is a quarter of f32's bytes against a ref tile
+// twice as wide, and at batch 16 and 11844 x 11844 one partition took
+// 16.4 ms, three 20.9.
 template <typename T>
 int partitions(int batch, int nq, int nr) {
   if (prepare<T>() != cudaSuccess) return -1;
@@ -385,14 +398,15 @@ int partitions(int batch, int nq, int nr) {
   const int64_t q_tiles = static_cast<int64_t>(batch) * ((nq + BM - 1) / BM);
   constexpr int BN = Layout<T>::BN;
   const int n_tiles = (nr + BN - 1) / BN;
-  int best = 1;
+  const int first = (sizeof(T) == 4 && n_tiles > 1) ? 2 : 1;
+  int best = first;
   double best_cost = 0.0;
-  for (int p = 1; p <= n_tiles; ++p) {
+  for (int p = first; p <= n_tiles; ++p) {
     const int64_t waves = (q_tiles * p + slots - 1) / slots;
     const int tiles = ((nr + p - 1) / p + BN - 1) / BN;
     // a quarter tile of fixed cost per block: the ring's fill, the merges
     const double cost = static_cast<double>(waves) * (tiles + 0.25);
-    if (p == 1 || cost < best_cost) {
+    if (p == first || cost < best_cost) {
       best = p;
       best_cost = cost;
     }

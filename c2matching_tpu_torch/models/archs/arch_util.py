@@ -11,8 +11,7 @@ conv casts its input, weight and bias to it (None is float32).
 
 ``band`` (a ``parallel.Band``, None for the whole image): the input holds
 one rank's horizontal band of the image (``val_spatial_shard``); each
-conv takes one row from each neighbouring band first, and the valid
-masks are in the image's rows.
+conv takes one row from each neighbouring band first.
 
 A conv's epilogue (``act``: None, 'relu' or 'lrelu'; ``residual``, added
 last) runs as the unfused ops where an autograd graph is recorded, and
@@ -208,40 +207,6 @@ class SpectralNormConv(nn.Module):
             residual)
 
 
-def valid_mask(x, valid_shape, row0=0):
-    """(1, H, W, 1) {0, 1} mask in x.dtype of the valid (unpadded) region of
-    a bucket-padded NHWC tensor: 1 where row < vh and col < vw. ``row0``:
-    the image row of x's first row (a band's).
-
-    Multiplying each conv output by it makes the padded computation give
-    the exact-shape values on the valid crop: the zero bands then act like
-    the implicit same-padding zeros of the exact-shape run at every layer.
-    The VGGs of the extractor and the matcher, and the banded generator,
-    run so; the generator in one process runs on the valid crop instead.
-    """
-    vh, vw = valid_shape
-    h, w = x.shape[1], x.shape[2]
-    row = torch.arange(row0, row0 + h, device=x.device)[None, :, None, None]
-    col = torch.arange(w, device=x.device)[None, None, :, None]
-    return ((row < int(vh)) & (col < int(vw))).to(x.dtype)
-
-
-def halve_valid(valid_shape):
-    """valid_shape after a stride-2 pooling."""
-    if valid_shape is None:
-        return None
-    vh, vw = valid_shape
-    return vh // 2, vw // 2
-
-
-def scale_valid(valid_shape, factor):
-    """valid_shape after an integer x``factor`` upsample."""
-    if valid_shape is None:
-        return None
-    vh, vw = valid_shape
-    return vh * factor, vw * factor
-
-
 def lrelu(x, slope=0.1):
     """Leaky ReLU whose derivative at exactly 0 is 1, as JAX's
     ``where(x >= 0, x, slope * x)`` gives (torch's ``leaky_relu`` gives
@@ -253,10 +218,9 @@ def lrelu(x, slope=0.1):
 
 
 class ResidualBlockNoBN(nn.Module):
-    """Conv-ReLU-Conv residual block without BN, ``x + res_scale * out``;
-    each conv output is masked to the valid region when a mask is given.
-    Without a mask and at ``res_scale`` 1 the ReLU and the residual add
-    are the convs' epilogues.
+    """Conv-ReLU-Conv residual block without BN, ``x + res_scale * out``.
+    At ``res_scale`` 1 the ReLU and the residual add are the convs'
+    epilogues.
     Weights from ``init`` (kaiming-normal x 0.1 when None, the reference's
     init of a standalone block; RestorationNet's trunks pass the srntt
     init). ``sn``: spectral-normalized convs (``SpectralNormConv``, with
@@ -275,19 +239,12 @@ class ResidualBlockNoBN(nn.Module):
                 layer = conv(nf, nf, generator, dtype=dtype, init=init)
             setattr(self, name, layer)
 
-    def forward(self, x, mask=None, band=None):
-        if mask is None and self.res_scale == 1.0:
+    def forward(self, x, band=None):
+        if self.res_scale == 1.0:
             out = self.conv1(x, band, act='relu')
             return self.conv2(out, band, residual=x)
-        out = self.conv1(x, band)
-        if mask is not None:
-            out = out * mask
-        out = self.conv2(F.relu(out), band)
-        if mask is not None:
-            out = out * mask
-        if self.res_scale != 1.0:
-            out = out * self.res_scale
-        return x + out
+        out = self.conv2(self.conv1(x, band, act='relu'), band)
+        return x + out * self.res_scale
 
 
 class ResBlockStack(nn.ModuleList):
@@ -299,9 +256,9 @@ class ResBlockStack(nn.ModuleList):
                                             init=srntt_normal_init())
                           for _ in range(n_blocks)])
 
-    def forward(self, x, mask=None, band=None):
+    def forward(self, x, band=None):
         for block in self:
-            x = block(x, mask, band)
+            x = block(x, band)
         return x
 
 

@@ -43,16 +43,12 @@ class CorrespondenceGenerationArch(nn.Module):
                                        vgg_type=vgg_type, generator=generator,
                                        dtype=dtype)
 
-    def forward(self, dense_features, img_ref_hr, valid_shape=None,
-                band=None):
+    def forward(self, dense_features, img_ref_hr, band=None):
         """
         Args:
             dense_features: {'dense_features1': (B, H, W, C) input-branch
                 features, 'dense_features2': (B, H, W, C) ref-branch ones}.
             img_ref_hr: (B, 4H, 4W, 3) HR reference image in [0, 1].
-            valid_shape: None, or (vh, vw) valid HR sizes of a bucket-padded
-                batch: the matcher gets the LR-scale (vh // 4, vw // 4), the
-                reference VGG the sizes as they are.
             band: None, or the ``parallel.Band`` (in the features' LR rows)
                 of which the features and img_ref_hr hold the rows.
         Returns:
@@ -61,20 +57,17 @@ class CorrespondenceGenerationArch(nn.Module):
             of them with a band; img_ref_feat maps the VGG layers to
             (B, H_s, W_s, C_s), whole.
         """
-        lr_valid = None
-        if valid_shape is not None:
-            lr_valid = (valid_shape[0] // 4, valid_shape[1] // 4)
         feat_ref = dense_features['dense_features2']
         if band is not None:
             feat_ref = gather_rows(feat_ref, band)
         max_idx, _ = batched_patch_match(
             dense_features['dense_features1'], feat_ref,
             patch_size=self.patch_size, compute_dtype=self.match_dtype,
-            valid_shape=lr_valid, band=band)
+            band=band)
         pre_offset = batched_pre_offsets(max_idx, patch_size=self.patch_size,
-                                         valid_shape=lr_valid, band=band)
+                                         band=band)
         if band is None:
-            return pre_offset, self.vgg(img_ref_hr, valid_shape=valid_shape)
-        img_ref_feat = self.vgg(img_ref_hr, valid_shape, band.scaled(4))
+            return pre_offset, self.vgg(img_ref_hr)
+        img_ref_feat = self.vgg(img_ref_hr, band.scaled(4))
         return pre_offset, {k: gather_rows(v, band)
                             for k, v in img_ref_feat.items()}

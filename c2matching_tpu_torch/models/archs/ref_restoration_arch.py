@@ -12,24 +12,17 @@ drawn from an explicit ``torch.Generator``.
 ``dtype`` (None is float32) is the compute dtype of every conv, as in the
 JAX package; the DCN's offsets and mask stay float32 whatever it is.
 
-``valid_shape`` (the valid LR sizes of a bucket-padded batch): in one
-process ``RestorationNet`` runs on the valid crop of its inputs, as the
-exact-shape net, and zero-pads the result back to the padded grid; with a
-``band`` it runs on the padded rows and re-zeroes every conv output in
-the pad bands (``valid_mask``).
-
 ``band`` (a ``parallel.Band`` in LR rows, ``val_spatial_shard``): the LR
 input, the content features and the pre-offsets are one rank's band of
 the image, the reference features are whole, and the output is the
 band's HR rows. Each DynAgg samples the whole reference feature for the
 band's pixels (its deformable conv at padding ``1 - row0``), and keeps
-the sum and count of its |learned offset| over the band's valid pixels
-for the caller to reduce.
+the sum and count of its |learned offset| over the band's pixels for the
+caller to reduce.
 """
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...ops.deform_conv import modulated_deform_conv
@@ -37,7 +30,7 @@ from ...ops.patch_match import as_dtype
 from ...ops.resize import pixel_shuffle, upscale
 from ...parallel.spatial import allreduce_sum
 from ...utils import trace
-from .arch_util import ResBlockStack, conv, lrelu, scale_valid, valid_mask
+from .arch_util import ResBlockStack, conv, lrelu
 
 
 class DynAgg(nn.Module):
@@ -63,13 +56,12 @@ class DynAgg(nn.Module):
             torch.empty(channels, channels, 3, 3).uniform_(
                 -stdv, stdv, generator=generator))
         self.bias = nn.Parameter(torch.zeros(channels))
-        # the (sum, count) of |learned offset| over the valid pixels of the
-        # last forward (a band's with a band), float64: the reference warns
+        # the (sum, count) of |learned offset| over the pixels of the last
+        # forward (a band's with a band), float64: the reference warns
         # when their mean exceeds 100 (read through offset_stats)
         self.offset_abssum = None
 
-    def forward(self, ref_feat, offset_feat, pre_offset, band=None,
-                valid=None):
+    def forward(self, ref_feat, offset_feat, pre_offset, band=None):
         """
         Args:
             ref_feat:    (B, H, W, C) feature to sample (ref VGG features).
@@ -77,9 +69,6 @@ class DynAgg(nn.Module):
             pre_offset:  (B, 9, H, W, 2) match offsets, last dim (x, y).
             band: None, or the ``parallel.Band`` of offset_feat's and
                 pre_offset's rows (ref_feat whole).
-            valid: None, or the (1, H, W, 1) ``valid_mask`` of offset_feat's
-                rows: the offset statistic sums and counts only the pixels
-                it keeps.
         Returns:
             (B, H, W, C) aggregated feature in ref_feat's dtype (the band's
             rows with a band).
@@ -92,15 +81,9 @@ class DynAgg(nn.Module):
         if not torch.compiler.is_exporting():
             # a module attribute: kept out of an exported graph
             absolute = offset.detach().abs()
-            if valid is None:
-                count = absolute.new_full((), absolute.numel(),
-                                          dtype=torch.float64)
-            else:
-                absolute = absolute * valid[..., None, None]
-                count = valid.sum(dtype=torch.float64) * (
-                    absolute.numel() // (h * w))
             self.offset_abssum = torch.stack([
-                absolute.sum(dtype=torch.float64), count])
+                absolute.sum(dtype=torch.float64),
+                absolute.new_full((), absolute.numel(), dtype=torch.float64)])
         mask = torch.sigmoid(out[..., 2 * g * k:].float()).reshape(
             b, h, w, g, k)
         # (B, 9, H, W, 2[x, y]) -> (B, H, W, 1, 9, 2[y, x]), broadcast over
@@ -128,11 +111,8 @@ class ContentExtractor(nn.Module):
         self.conv_first = conv(3, nf, generator, dtype=dtype)
         self.body = ResBlockStack(nf, n_blocks, generator, dtype)
 
-    def forward(self, x, mask=None, band=None):
-        feat = self.conv_first(x, band, act='lrelu')
-        if mask is not None:
-            feat = feat * mask
-        return self.body(feat, mask, band)
+    def forward(self, x, band=None):
+        return self.body(self.conv_first(x, band, act='lrelu'), band)
 
 
 _SCALES = (('small', 'relu3_1', 256), ('medium', 'relu2_1', 128),
@@ -170,48 +150,28 @@ class DynamicAggregationRestoration(nn.Module):
                                         nn.LeakyReLU(0.1),
                                         conv_(ngf // 2, 3))
 
-    def _scale_stage(self, x, scale, ref, pre_offset, vs, band):
-        mask = None if vs is None else valid_mask(
-            x, vs, 0 if band is None else band.row0)
-
-        def masked(t):
-            return t if mask is None else t * mask
-
+    def _scale_stage(self, x, scale, ref, pre_offset, band):
         off = torch.cat([x, ref if band is None else band.take(ref)], dim=-1)
-        off = masked(getattr(self, f'{scale}_offset_conv1')(off, band,
-                                                            act='lrelu'))
-        off = masked(getattr(self, f'{scale}_offset_conv2')(off, band,
-                                                            act='lrelu'))
+        off = getattr(self, f'{scale}_offset_conv1')(off, band, act='lrelu')
+        off = getattr(self, f'{scale}_offset_conv2')(off, band, act='lrelu')
         with trace.span(_DYNAGG_SPANS[scale]):
-            swapped = getattr(self, f'{scale}_dyn_agg')(
-                ref, off, pre_offset, band, mask)
-        swapped = masked(lrelu(swapped))
-        h = torch.cat([x, swapped], dim=-1)
-        h = masked(getattr(self, f'head_{scale}')[0](h, band, act='lrelu'))
-        h = getattr(self, f'body_{scale}')(h, mask, band) + x
+            swapped = getattr(self, f'{scale}_dyn_agg')(ref, off, pre_offset,
+                                                        band)
+        h = torch.cat([x, lrelu(swapped)], dim=-1)
+        h = getattr(self, f'head_{scale}')[0](h, band, act='lrelu')
+        h = getattr(self, f'body_{scale}')(h, band) + x
         if scale == 'large':
-            h = masked(self.tail_large[0](h, band, act='lrelu'))
-            # the final conv output is left unmasked: the caller crops the
-            # pad bands, and they feed nothing else
+            h = self.tail_large[0](h, band, act='lrelu')
             return self.tail_large[2](h, band)
-        # the leaky ReLU before the shuffle and the mask, both of which
-        # commute with it: masked at the coarse scale = masked after the
-        # shuffle
-        h = masked(getattr(self, f'tail_{scale}')[0](h, band, act='lrelu'))
+        # the leaky ReLU before the shuffle, which commutes with it
+        h = getattr(self, f'tail_{scale}')[0](h, band, act='lrelu')
         return pixel_shuffle(h, 2)
 
-    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None,
-                band=None):
-        """``valid_shape``: valid LR-scale sizes of a bucket-padded batch;
-        every conv output is re-zeroed in the pad bands, so that the valid
-        crop holds the exact-shape values, and the offset statistic counts
-        the valid pixels alone. ``RestorationNet`` takes this path only
-        with a ``band``; None is a no-op. ``band``: the LR band of x and of
-        the relu3 pre-offsets."""
+    def forward(self, x, pre_offset, img_ref_feat, band=None):
+        """``band``: the LR band of x and of the relu3 pre-offsets."""
         for i, (scale, key, _) in enumerate(_SCALES):
             x = self._scale_stage(
                 x, scale, img_ref_feat[key], pre_offset[key],
-                scale_valid(valid_shape, 2 ** i),
                 None if band is None else band.scaled(2 ** i))
         return x
 
@@ -230,14 +190,7 @@ class DynamicAggregationRestoration(nn.Module):
 
 class RestorationNet(nn.Module):
     """Generator: content extractor + dynamic aggregation decoder + a
-    bilinear x4 base.
-
-    ``valid_crops`` and ``masked_forwards`` count, over every instance,
-    the forwards run on the valid crop of a bucket-padded batch and those
-    run with the valid masks (a banded one)."""
-
-    valid_crops = 0
-    masked_forwards = 0
+    bilinear x4 base."""
 
     def __init__(self, ngf=64, n_blocks=16, groups=8, gather_dtype=None,
                  generator=None, dtype=None):
@@ -247,58 +200,19 @@ class RestorationNet(nn.Module):
         self.dyn_agg_restore = DynamicAggregationRestoration(
             ngf, n_blocks, groups, gather_dtype, generator, dtype)
 
-    def forward(self, x, pre_offset, img_ref_feat, valid_shape=None,
-                band=None):
+    def forward(self, x, pre_offset, img_ref_feat, band=None):
         """
         Args:
             x: (B, h, w, 3) LR input.
             pre_offset: relu{1,2,3}_1 -> (B, 9, H_s, W_s, 2) offsets.
             img_ref_feat: relu{1,2,3}_1 -> (B, H_s, W_s, C_s) VGG features
                 of the HR reference.
-            valid_shape: None, or (vh, vw) valid LR sizes of a bucket-padded
-                batch. Without a band the net runs on the valid crop of
-                every input (``x[:, :vh, :vw]``, the relu{1,2,3}_1 inputs
-                cut at 4, 2 and 1 times that): the exact-shape net, which
-                never reads the pad bands. With a band it runs on the padded
-                rows and masks every conv output to the valid region.
             band: None, or the ``parallel.Band`` (LR rows) of which x and
                 the pre-offsets hold the rows; img_ref_feat stays whole.
         Returns:
             (B, 4h, 4w, 3) restored image, or the band's (B, 4 rows, 4w, 3).
-            The pad bands past (4vh, 4vw) are no part of the result: zero
-            after a valid crop, the last conv's output and the base with a
-            band.
         """
-        if valid_shape is not None and band is None:
-            return self._valid_crop(x, pre_offset, img_ref_feat, valid_shape)
-        if valid_shape is not None:
-            RestorationNet.masked_forwards += 1
-        return self._forward(x, pre_offset, img_ref_feat, valid_shape, band)
-
-    def _forward(self, x, pre_offset, img_ref_feat, valid_shape, band):
-        base = upscale(x, 4, 'bilinear', valid_shape=valid_shape, band=band)
-        mask = None if valid_shape is None else valid_mask(
-            x, valid_shape, 0 if band is None else band.row0)
-        content = self.content_extractor(x, mask, band)
+        base = upscale(x, 4, 'bilinear', band=band)
+        content = self.content_extractor(x, band)
         return self.dyn_agg_restore(content, pre_offset, img_ref_feat,
-                                    valid_shape, band) + base
-
-    def _valid_crop(self, x, pre_offset, img_ref_feat, valid_shape):
-        """The exact-shape forward on the valid crop of a bucket-padded
-        batch, zero-padded back to x's grid x4. The pre-offsets and the
-        reference features are cut as views: their first readers (the
-        offset add, the concatenation, the cast to the gather dtype, B3's
-        per-image copy) copy them anyway, and a copy here would hold
-        another ~1.5 GB of a batch of 16 at HR 512x336 through the whole
-        forward."""
-        RestorationNet.valid_crops += 1
-        vh, vw = (int(v) for v in valid_shape)
-        h, w = x.shape[1:3]
-        pre, feat = {}, {}
-        for i, (_, key, _) in enumerate(_SCALES):
-            s = 2 ** i
-            pre[key] = pre_offset[key][:, :, :vh * s, :vw * s]
-            feat[key] = img_ref_feat[key][:, :vh * s, :vw * s]
-        out = self._forward(x[:, :vh, :vw].contiguous(), pre, feat, None,
-                            None)
-        return F.pad(out, (0, 0, 0, 4 * (w - vw), 0, 4 * (h - vh)))
+                                    band) + base

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .arch_util import conv, halve_valid, valid_mask
+from .arch_util import conv
 
 # Layer name sequences per VGG variant.
 NAMES = {
@@ -87,29 +87,21 @@ def _normalize(module, x):
         / module.std.view(1, 1, 1, 3).to(x.dtype)
 
 
-def _run(convs, names, x, valid_shape, wanted=None, band=None,
-         pooling_stride=2):
-    """Run the layer sequence ``names``; each conv output is re-zeroed in
-    the pad bands when ``valid_shape`` is given, which halves at every
-    2x2 pool, as does ``band``. ``pooling_stride``: the stride of the 2x2
-    max pools (None: no pools). Returns the dict of ``wanted``
-    activations, or the last one when ``wanted`` is None."""
-    if pooling_stride != 2 and (valid_shape is not None
-                                or band is not None):
-        # a size-2 pool of another stride shifts the valid region (row
-        # vh - 1 takes the pad row vh), which halving does not model
+def _run(convs, names, x, wanted=None, band=None, pooling_stride=2):
+    """Run the layer sequence ``names``; ``band`` halves at every 2x2 pool.
+    ``pooling_stride``: the stride of the 2x2 max pools (None: no pools).
+    Returns the dict of ``wanted`` activations, or the last one when
+    ``wanted`` is None."""
+    if pooling_stride != 2 and band is not None:
+        # a size-2 pool of another stride does not split at band
+        # boundaries (its windows straddle them)
         raise NotImplementedError(
-            'valid_shape masking is only defined for pooling_stride=2, got '
+            'a band is only defined for pooling_stride=2, got '
             f'{pooling_stride}')
-    row0 = 0 if band is None else band.row0
-    if valid_shape is not None:
-        x = x * valid_mask(x, valid_shape, row0)
     output = {}
     for name in names:
         if name.startswith('conv'):
             x = convs[name](x, band)
-            if valid_shape is not None:
-                x = x * valid_mask(x, valid_shape, row0)
         elif name.startswith('relu'):
             x = F.relu(x)
         elif name.startswith('pool'):
@@ -117,10 +109,8 @@ def _run(convs, names, x, valid_shape, wanted=None, band=None,
                 continue
             x = F.max_pool2d(x.permute(0, 3, 1, 2), 2,
                              stride=pooling_stride).permute(0, 2, 3, 1)
-            valid_shape = halve_valid(valid_shape)
             if band is not None:
                 band = band.scaled(1 / 2)
-                row0 = band.row0
         if wanted is not None and name in wanted:
             output[name] = x
     return x if wanted is None else output
@@ -131,7 +121,7 @@ class VGGFeatureExtractor(nn.Module):
     up to the deepest requested one exist. ``use_input_norm``: inputs are
     ImageNet-normalized (the ``mean`` / ``std`` buffers exist only then,
     as in the reference); ``remove_pooling`` drops the max pools;
-    ``pooling_stride`` is their stride (``valid_shape`` takes only 2)."""
+    ``pooling_stride`` is their stride (a band takes only 2)."""
 
     def __init__(self, layer_name_list, vgg_type='vgg19', use_input_norm=True,
                  remove_pooling=False, pooling_stride=2, generator=None,
@@ -147,15 +137,12 @@ class VGGFeatureExtractor(nn.Module):
         if use_input_norm:
             _imagenet_buffers(self)
 
-    def forward(self, x, valid_shape=None, band=None):
+    def forward(self, x, band=None):
         """x: (B, H, W, 3) RGB in [0, 1]. Returns {layer_name: feature}.
-
-        ``valid_shape`` (vh, vw): re-zero each conv output in the pad bands
-        of a bucket-padded batch. None (exact shapes) is a no-op. ``band``:
-        x is that band of the image, and so is each feature."""
+        ``band``: x is that band of the image, and so is each feature."""
         if self.use_input_norm:
             x = _normalize(self, x)
-        return _run(self.vgg_net, self.names, x, valid_shape,
+        return _run(self.vgg_net, self.names, x,
                     wanted=set(self.layer_name_list), band=band,
                     pooling_stride=self.pooling_stride)
 
@@ -170,9 +157,8 @@ class ContrasExtractorLayer(nn.Module):
         self.model = _vgg_convs(self.names, generator, dtype)
         _imagenet_buffers(self)
 
-    def forward(self, x, valid_shape=None, band=None):
-        return _run(self.model, self.names, _normalize(self, x), valid_shape,
-                    band=band)
+    def forward(self, x, band=None):
+        return _run(self.model, self.names, _normalize(self, x), band=band)
 
 
 class ContrasExtractorSep(nn.Module):
@@ -186,11 +172,9 @@ class ContrasExtractorSep(nn.Module):
         self.feature_extraction_image2 = ContrasExtractorLayer(generator,
                                                                dtype)
 
-    def forward(self, image1, image2, valid_shape=None, band=None):
+    def forward(self, image1, image2, band=None):
         """``band``: both images are that band, and so are the features."""
         return {
-            'dense_features1': self.feature_extraction_image1(
-                image1, valid_shape, band),
-            'dense_features2': self.feature_extraction_image2(
-                image2, valid_shape, band),
+            'dense_features1': self.feature_extraction_image1(image1, band),
+            'dense_features2': self.feature_extraction_image2(image2, band),
         }

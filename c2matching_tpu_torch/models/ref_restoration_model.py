@@ -5,12 +5,13 @@ three nets come from the options' ``network_g`` / ``network_map`` /
 ``network_extractor`` blocks with a random init seeded from
 ``manual_seed``, then the ``path.pretrain_model_*`` weights.
 
-Evaluation (``is_train`` false): ``feed_data`` pads a batch to the
-16-LR-pixel bucket, ``test`` runs ContrasExtractorSep ->
-CorrespondenceGenerationArch -> RestorationNet (on the valid crop of an
-off-bucket batch), ``cropped_output`` crops the result back and warns on
-exploding offsets, and ``validation`` scores PSNR, PSNR_Y and SSIM_Y over
-a loader.
+Evaluation (``is_train`` false): ``feed_data`` moves a batch to the
+device at its own shape, ``test`` runs ContrasExtractorSep ->
+CorrespondenceGenerationArch -> RestorationNet on it, ``cropped_output``
+returns the result and warns on exploding offsets, and ``validation``
+scores PSNR, PSNR_Y and SSIM_Y over a loader. Every op takes any shape,
+so a request is never padded (the JAX package pads to a 16-LR-pixel
+bucket to bound XLA's compiles).
 
 Training (``is_train`` true; ``init_training_settings``): net_g trains,
 the extractor and net_map stay frozen and match under ``no_grad``.
@@ -68,8 +69,8 @@ slice, and ``log_dict`` holds the global batch's values.
 The top-level ``val_spatial_shard`` option is read in evaluation only, as
 in the JAX package (in training it changes nothing). At world size > 1
 each image is then split into horizontal bands, one a rank
-(``parallel.band_for``: rank r owns LR rows ``[r h / world, (r + 1) h /
-world)`` of the bucket-padded LR height h, and 4 times those in HR):
+(``parallel.band_for``: rank r owns LR rows ``[floor(r h / world),
+floor((r + 1) h / world))`` of the LR height h, and 4 times those in HR):
 ``feed_data`` keeps the rank's band of each input, ``test`` runs the nets
 on it, with a halo exchange at every 3x3 conv, the reference's features
 gathered whole, and B1 and B3 on the band's rows, then all-gathers the
@@ -95,7 +96,6 @@ import logging
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -110,12 +110,6 @@ from .sr_model import SRModel
 
 logger = logging.getLogger('base')
 _NO_SPAN = contextlib.nullcontext()
-
-
-def _pad_to(x, mult):
-    """Zero-pad NHWC bottom/right up to a multiple of ``mult``."""
-    h, w = x.shape[1:3]
-    return F.pad(x, (0, 0, 0, (-w) % mult, 0, (-h) % mult))
 
 
 def torchvision_vgg_keys(state, vgg_type, names):
@@ -190,8 +184,6 @@ class RefRestorationModel(SRModel):
             seeded with ``opt['manual_seed']`` (0 when unset).
     """
 
-    EVAL_BUCKET = 16  # LR-space bucket multiple (64 px in HR space)
-
     _VAL_METRIC_LABELS = {'psnr': 'PSNR', 'psnr_y': 'PSNR_Y',
                           'ssim_y': 'SSIM_Y'}
     _VAL_LOG_PER_IMAGE = True
@@ -215,8 +207,6 @@ class RefRestorationModel(SRModel):
         self.net_g.to(self.device)
         self.batch = None
         self.output = None
-        self._eval_crop = None
-        self._valid_lr = None
         self._band = None
         self._offset_warn_stats = {}
         if self.is_train:
@@ -253,19 +243,14 @@ class RefRestorationModel(SRModel):
             self.load_state(self.net_map, state, strict=False)
 
     def feed_data(self, batch):
-        """Move a batch to the device, bucket-padded in evaluation.
+        """Move a batch to the device at its own shape.
 
         ``batch`` holds NHWC float arrays or tensors: 'img_in_lq' (B, h, w, 3),
         'img_in_up' and 'img_ref' (B, 4h, 4w, 3), and in training the ground
-        truth 'img_in' (B, 4h, 4w, 3). In evaluation, when (h, w) is off the
-        bucket, the three inputs are zero-padded bottom/right and the valid
-        sizes are kept, so that the extractor and the matcher mask the pad
-        bands, the generator runs on the valid crop (masked, with a band)
-        and ``cropped_output`` crops back to (4h, 4w). Training batches are
-        not padded. Other keys, such as the loader's 'padding',
-        'original_size' and 'lq_path', are not read here. With
+        truth 'img_in' (B, 4h, 4w, 3). Other keys, such as the loader's
+        'padding', 'original_size' and 'lq_path', are not read here. With
         ``val_spatial_shard`` at world size > 1 each input keeps the rank's
-        band of its (padded) rows.
+        band of its rows.
         """
         trace.new_item()
         with trace.span('c2m.feed_data'):
@@ -277,16 +262,6 @@ class RefRestorationModel(SRModel):
             keys += ('img_in',)
         arrays = {k: torch.as_tensor(batch[k], dtype=torch.float32)
                   for k in keys}
-        self._eval_crop = None
-        self._valid_lr = None
-        bucket = self.EVAL_BUCKET
-        h, w = arrays['img_in_lq'].shape[1:3]
-        if not self.is_train and (h % bucket or w % bucket):
-            arrays['img_in_lq'] = _pad_to(arrays['img_in_lq'], bucket)
-            arrays['img_ref'] = _pad_to(arrays['img_ref'], 4 * bucket)
-            arrays['img_in_up'] = _pad_to(arrays['img_in_up'], 4 * bucket)
-            self._eval_crop = (4 * h, 4 * w)
-            self._valid_lr = (h, w)
         self._band = self._band_of(arrays) if self.spatial else None
         if self._band is not None:
             hr = self._band.scaled(4)
@@ -300,7 +275,7 @@ class RefRestorationModel(SRModel):
             self.batch = {k: v.to(self.device) for k, v in arrays.items()}
 
     def _band_of(self, arrays):
-        """This rank's LR band of the padded inputs, or None where every
+        """This rank's LR band of the inputs, or None where every
         rank computes the whole image: LR rows that do not split into
         bands of 2 or more (``parallel.band_for``, which logs it), or a
         reference whose HR height is not the input's."""
@@ -315,24 +290,21 @@ class RefRestorationModel(SRModel):
 
     @torch.inference_mode()
     def test(self):
-        """Match, then restore; ``self.output`` is the padded (B, 4H, 4W, 3)
-        result, whose pad bands are no part of it (zero in one process).
-        With a band, each rank computes its band and the output is
+        """Match, then restore; ``self.output`` is the (B, 4h, 4w, 3)
+        result. With a band, each rank computes its band and the output is
         all-gathered: every rank holds the whole image."""
         with trace.span('c2m.test'):
-            vs_lr = self._valid_lr
-            vs_hr = None if vs_lr is None else (4 * vs_lr[0], 4 * vs_lr[1])
             band = self._band
             hr = None if band is None else band.scaled(4)
             with trace.span('c2m.extractor'):
                 feats = self.net_extractor(self.batch['img_in_up'],
-                                           self.batch['img_ref'], vs_hr, hr)
+                                           self.batch['img_ref'], hr)
             with trace.span('c2m.matcher'):
                 pre_offset, ref_feat = self.net_map(
-                    feats, self.batch['img_ref'], vs_hr, band)
+                    feats, self.batch['img_ref'], band)
             with trace.span('c2m.generator'):
                 self.output = self.net_g(self.batch['img_in_lq'], pre_offset,
-                                         ref_feat, vs_lr, band)
+                                         ref_feat, band)
             if band is not None:
                 self.output = parallel.gather_rows(self.output, hr)
             self._offset_warn_stats = \
@@ -340,7 +312,7 @@ class RefRestorationModel(SRModel):
                     reduce=band is not None)
 
     def cropped_output(self):
-        """The last output cropped to the request's own size. Warns when a
+        """The last output, at the request's own size. Warns when a
         DynAgg's mean |learned offset| exceeds 100, as the reference does;
         reading those values waits for the device, after the output."""
         with trace.span('c2m.cropped_output'):
@@ -349,9 +321,7 @@ class RefRestorationModel(SRModel):
             for v in stats:
                 if v > 100:
                     logger.warning(f'Offset mean is {v}, larger than 100.')
-            if self._eval_crop is None:
-                return self.output
-            return self.output[:, :self._eval_crop[0], :self._eval_crop[1]]
+            return self.output
 
     def _compute_val_metrics(self, sr_img, gt_img):
         crop = self.opt['crop_border']
@@ -364,9 +334,9 @@ class RefRestorationModel(SRModel):
         }
 
     def _validation_images(self, val_data):
-        """(sr_img, gt_img) of one batch-1 loader item: the bucket crop,
-        then, when the dataset padded input and ref to a common size, both
-        cropped to the input's original size."""
+        """(sr_img, gt_img) of one batch-1 loader item; when the dataset
+        padded input and ref to a common size, both cropped to the input's
+        original size."""
         self.feed_data(val_data)
         self.test()
         sr_img = tensor2img(self.cropped_output())

@@ -62,15 +62,9 @@ def upsample_flow(flow, factor):
     return up * float(factor)
 
 
-def match_to_pre_offsets(max_idx, patch_size=3, valid_shape=None,
-                         band=None):
+def match_to_pre_offsets(max_idx, patch_size=3, band=None):
     """Match indices (..., h-2, w-2) at relu3_1 scale -> the three-scale
     9-candidate pre-offset stacks of the restoration net.
-
-    ``valid_shape``: None, or (vh, vw) valid relu3-scale sizes of
-    bucket-padded features. The exact-shape run zero-pads the flow's last
-    ``pad`` rows/cols at ITS border, which lies inside the padded grid, so
-    the flow is re-zeroed at rows >= vh-pad / cols >= vw-pad.
 
     ``band``: the relu3-scale band of the indices' query rows; each result
     is that band's rows at its scale. The shifted copies reach
@@ -81,16 +75,7 @@ def match_to_pre_offsets(max_idx, patch_size=3, valid_shape=None,
         {'relu3_1': (..., 9, h, w, 2), 'relu2_1': (..., 9, 2h, 2w, 2),
          'relu1_1': (..., 9, 4h, 4w, 2)}; last dim (x, y).
     """
-    pad = patch_size - 1
-    flow3 = index_to_flow(max_idx, pad=pad, band=band)
-    if valid_shape is not None:
-        h, w = flow3.shape[-3:-1]
-        row0 = 0 if band is None else band.row0
-        row = torch.arange(row0, row0 + h, device=flow3.device)[:, None, None]
-        col = torch.arange(w, device=flow3.device)[None, :, None]
-        keep = (row < int(valid_shape[0]) - pad) & \
-            (col < int(valid_shape[1]) - pad)
-        flow3 = flow3 * keep.to(flow3.dtype)
+    flow3 = index_to_flow(max_idx, pad=patch_size - 1, band=band)
     if band is None:
         return {'relu3_1': shifted_offsets(flow3, step=1),
                 'relu2_1': shifted_offsets(upsample_flow(flow3, 2), step=2),
@@ -103,10 +88,9 @@ def match_to_pre_offsets(max_idx, patch_size=3, valid_shape=None,
     return out
 
 
-def batched_pre_offsets(max_idx, patch_size=3, valid_shape=None, band=None):
-    """``match_to_pre_offsets`` over a (B, h-2, w-2) batch; ``valid_shape``
-    is shared by the batch."""
-    return match_to_pre_offsets(max_idx, patch_size, valid_shape, band)
+def batched_pre_offsets(max_idx, patch_size=3, band=None):
+    """``match_to_pre_offsets`` over a (B, h-2, w-2) batch."""
+    return match_to_pre_offsets(max_idx, patch_size, band)
 
 
 def resize_flow(flow, size_type, sizes, method='bilinear'):

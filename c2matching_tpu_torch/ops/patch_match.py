@@ -51,7 +51,7 @@ def unfold_descriptors(feat, patch_size=3):
 
 
 def batched_patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
-                        valid_shape=None, band=None):
+                        band=None):
     """Dense patch matching for a batch of image pairs.
 
     Args:
@@ -61,13 +61,6 @@ def batched_patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
         compute_dtype: None (f32) or e.g. 'bfloat16': the dtype of the
             correlation OPERANDS only. Normalization, accumulation and the
             returned value stay f32.
-        valid_shape: None, or (vh, vw) valid feature sizes (ints, shared by
-            the batch) when the features are bucket-padded: ref patches
-            reaching past the valid region cannot win (the JAX package
-            gives them a -1e30 score bias), so the winners equal the
-            exact-shape run's. Here B1 matches against the patches inside
-            the region alone, and their indices map back to the full grid;
-            where no patch is inside, every score gets the bias.
         band: None, or the ``parallel.Band`` of ``feat_in`` (its rows of
             the image; ``feat_ref`` is whole): the query rows are the
             band's ``[row0, min(row0 + rows, H-p+1))``, whose patches reach
@@ -89,25 +82,6 @@ def batched_patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
     r = unfold_descriptors(normalize_per_pixel(feat_ref), patch_size)
     hr, wr = r.shape[1:3]
     r = r.reshape(b, hr * wr, dim)
-
-    # only ref patches inside the valid region can win: B1 gets those
-    # rows alone (cut out before the rows are normalised, so that the
-    # whole grid is not copied again), and their indices map back to the
-    # full grid after
-    ref_bias = None
-    kept_w = None
-    if valid_shape is not None:
-        vh = min(hr, int(valid_shape[0]) - (patch_size - 1))
-        vw = min(wr, int(valid_shape[1]) - (patch_size - 1))
-        if vh <= 0 or vw <= 0:
-            # none is valid: every score gets the -1e30 bias, as in the
-            # JAX package
-            ref_bias = torch.full((hr * wr,), -1e30, dtype=torch.float32,
-                                  device=r.device)
-        elif (vh, vw) != (hr, wr):
-            r = kept_ref_rows(r, hr, wr, vh, vw)
-            kept_w = vw
-
     r_norm = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True)) + 1e-5
     r = r / r_norm
 
@@ -119,34 +93,16 @@ def batched_patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
         r = r.to(dtype)
 
     if q.shape[1]:
-        max_idx, max_val = match_argmax(q, r, ref_bias)
-    else:   # a band below the last query row
+        max_idx, max_val = match_argmax(q, r)
+    else:   # a band below the last query row, or features under p rows
         max_idx = torch.zeros((b, 0), dtype=torch.int32, device=q.device)
         max_val = torch.zeros((b, 0), dtype=torch.float32, device=q.device)
-    if kept_w is not None:
-        max_idx = full_ref_index(max_idx, wr, kept_w)
     max_val = max_val / q_norm
     return max_idx.reshape(b, hh, ww), max_val.reshape(b, hh, ww)
 
 
-def kept_ref_rows(r, hr, wr, vh, vw):
-    """The ref descriptors (B, hr * wr, D) of an hr x wr grid cut to its
-    top-left vh x vw block, contiguous: (B, vh * vw, D)."""
-    b, _, dim = r.shape
-    block = r.reshape(b, hr, wr, dim)[:, :vh, :vw]
-    return block.reshape(b, vh * vw, dim).contiguous()
-
-
-def full_ref_index(idx, wr, vw):
-    """Flat indices into a vh x vw block of ``kept_ref_rows`` as indices
-    into the whole hr x wr grid. The map is increasing, so the first
-    maximum of the block is the first maximum of the grid."""
-    return (idx // vw) * wr + idx % vw
-
-
-def patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None,
-                valid_shape=None):
+def patch_match(feat_in, feat_ref, patch_size=3, compute_dtype=None):
     """``batched_patch_match`` for one (H, W, C) image pair."""
     idx, val = batched_patch_match(feat_in[None], feat_ref[None], patch_size,
-                                   compute_dtype, valid_shape)
+                                   compute_dtype)
     return idx[0], val[0]

@@ -10,38 +10,26 @@ import torch.nn.functional as F
 from ..parallel.spatial import exchange_halo
 
 
-def _axis_resize(x, axis, out_n, valid_n=None, n=None, out=None, src0=0):
+def _axis_resize(x, axis, out_n, n=None, out=None, src0=0):
     """1-D bilinear resample along ``axis`` with half-pixel centres (torch
     F.interpolate align_corners=False, no antialiasing), as two gathers and
     a lerp.
 
-    ``valid_n``: when ``x`` is bucket-padded along ``axis``, the last REAL
-    sample is valid_n - 1. The source coordinate is clamped there, and the
-    fraction recomputed after the clamp, which reproduces the exact-shape
-    run's border clamp on the valid output range.
-
     A band: ``x`` holds the samples ``src0, src0 + 1, ...`` of an ``n``-
     sample axis, and the result is the outputs ``out`` (a range) of the
     ``out_n`` the whole axis gives; the coordinates are the whole axis's.
-    Outputs past the valid ones whose sources lie outside ``x`` take its
-    nearest sample instead (a band wholly in the padding).
     """
     n = x.shape[axis] if n is None else n
     out = range(out_n) if out is None else out
     scale = n / out_n
     coords = ((torch.arange(out.start, out.stop, dtype=torch.float32,
                             device=x.device) + 0.5) * scale - 0.5)
-    hi_i = n - 1 if valid_n is None else min(int(valid_n), n) - 1
-    coords = coords.clamp(0.0, float(hi_i))
+    coords = coords.clamp(0.0, float(n - 1))
     i0f = torch.floor(coords)
     frac = coords - i0f
     i0 = i0f.to(torch.int64)
-    i1 = (i0 + 1).clamp(0, hi_i)
+    i1 = (i0 + 1).clamp(0, n - 1)
     i0, i1 = i0 - src0, i1 - src0
-    if len(out) != out_n:
-        # a band: where it lies below the last valid sample, its outputs
-        # are padding (cropped later) whose sources lie above its halo
-        i0, i1 = (i.clamp(0, x.shape[axis] - 1) for i in (i0, i1))
     x0 = x.index_select(axis, i0)
     x1 = x.index_select(axis, i1)
     shape = [1] * x.dim()
@@ -50,27 +38,24 @@ def _axis_resize(x, axis, out_n, valid_n=None, n=None, out=None, src0=0):
     return x0 * (1.0 - frac) + x1 * frac
 
 
-def upscale(x, factor=4, method='bilinear', valid_shape=None, band=None):
+def upscale(x, factor=4, method='bilinear', band=None):
     """Upsample NHWC by an integer factor, torch F.interpolate(bilinear,
     align_corners=False) semantics, separable along H then W.
 
-    ``valid_shape`` (vh, vw): bucket-padded input; border-clamp at the last
-    REAL row/col so the valid outputs equal the exact-shape run's.
     ``band``: x is that band of the image (a ``parallel.Band``), and the
     result is its ``factor`` times taller band; the band's sources reach
     one row into each neighbouring band.
     """
     if method != 'bilinear':
         raise NotImplementedError(method)
-    vh, vw = valid_shape if valid_shape is not None else (None, None)
     if band is None:
-        x = _axis_resize(x, 1, x.shape[1] * factor, valid_n=vh)
+        x = _axis_resize(x, 1, x.shape[1] * factor)
     else:
         x = _axis_resize(exchange_halo(x, band, 1, 1), 1,
-                         band.total * factor, valid_n=vh, n=band.total,
+                         band.total * factor, n=band.total,
                          out=range(band.row0 * factor, band.stop * factor),
                          src0=band.row0 - 1)
-    return _axis_resize(x, 2, x.shape[2] * factor, valid_n=vw)
+    return _axis_resize(x, 2, x.shape[2] * factor)
 
 
 def bilinear_resize(x, out_h, out_w):

@@ -5,14 +5,17 @@ Counterpart of the spatial branch of ``c2matching_tpu/parallel/mesh.py``'s
 as ``P(None, 'data')`` and lets XLA insert the halo exchanges and the
 gathers; the port makes them by hand, one rank a band:
 
-- ``Band``: the rows ``[row0, row0 + rows)`` of a ``total``-row axis that
-  rank ``rank`` of ``world`` owns, at one scale; ``scaled(f)`` is the same
-  band at ``f`` times the rows (x2, x4 and HR from LR; 1/2 at a pool).
-- ``band_for(h, rank, world)``: the LR band of a bucket-padded LR height
-  ``h``, or None where every rank computes the whole image (world size 1,
-  ``h`` not divisible by it, or bands under 2 rows, which the match's and
-  the flow's 2-row halos need), logged once a shape, as the JAX package
-  logs its replicate branch.
+- ``Band``: rank ``rank``'s rows ``[row0, stop)`` of an axis that every
+  rank's ``bounds`` split, at one scale; ``scaled(f)`` is the same split at
+  ``f`` times the rows (x2, x4 and HR from LR; 1/2 at a pool).
+- ``band_for(h, rank, world)``: the LR band of an LR height ``h``: rank r
+  owns rows ``[floor(r h / world), floor((r + 1) h / world))``, so the
+  bands differ by a row at most. None where every rank computes the whole
+  image (world size 1, or bands under 2 rows, which the match's and the
+  flow's 2-row halos need), logged once a shape, as the JAX package logs
+  its replicate branch. The JAX package splits its bucket-padded height,
+  which divides by 2, 4, 8 and 16, and replicates at any other world
+  size; the port splits any height.
 - ``exchange_halo(x, band, above, below)``: the band with ``above`` rows of
   the rank above and ``below`` rows of the rank below, zeros at the
   image's top and bottom; one all-gather of every rank's edge rows.
@@ -48,26 +51,43 @@ reset_stats()
 
 @dataclasses.dataclass(frozen=True)
 class Band:
-    """Rows ``[row0, row0 + rows)`` of a ``total``-row axis, rank
-    ``rank``'s share of ``world`` equal bands."""
+    """Rank ``rank``'s rows of an axis split at ``bounds``: rank k owns
+    rows ``[bounds[k], bounds[k + 1])``, and ``bounds[-1]`` is the axis's
+    length."""
     rank: int
-    world: int
-    row0: int
-    rows: int
-    total: int
+    bounds: tuple
+
+    @property
+    def world(self):
+        return len(self.bounds) - 1
+
+    @property
+    def row0(self):
+        return self.bounds[self.rank]
 
     @property
     def stop(self):
-        return self.row0 + self.rows
+        return self.bounds[self.rank + 1]
+
+    @property
+    def rows(self):
+        return self.stop - self.row0
+
+    @property
+    def total(self):
+        return self.bounds[-1]
+
+    def sizes(self):
+        """Every rank's rows, in rank order."""
+        return [b - a for a, b in zip(self.bounds, self.bounds[1:])]
 
     def scaled(self, factor):
         """The band at ``factor`` times the rows; raises where a boundary
         would fall inside a row."""
-        vals = [v * factor for v in (self.row0, self.rows, self.total)]
+        vals = [v * factor for v in self.bounds]
         if any(v != int(v) for v in vals):
             raise ValueError(f'{self} does not scale by {factor}')
-        row0, rows, total = (int(v) for v in vals)
-        return dataclasses.replace(self, row0=row0, rows=rows, total=total)
+        return dataclasses.replace(self, bounds=tuple(int(v) for v in vals))
 
     def take(self, x):
         """The band's rows of a whole NHWC tensor at this scale."""
@@ -78,22 +98,20 @@ _logged_whole = set()
 
 
 def band_for(h, rank, world):
-    """The LR band of rank ``rank`` for a bucket-padded LR height ``h``:
-    rank r owns rows ``[r h / world, (r + 1) h / world)``. None (every
-    rank computes the whole image) at world size 1, or where ``h`` does not
-    divide by the world size or gives bands under 2 rows; that is logged
-    once a shape."""
+    """The LR band of rank ``rank`` for an LR height ``h``: rank r owns
+    rows ``[floor(r h / world), floor((r + 1) h / world))``. None (every
+    rank computes the whole image) at world size 1, or where the bands
+    would be under 2 rows; that is logged once a shape."""
     if world <= 1:
         return None
-    if h % world or h // world < 2:
+    if h // world < 2:
         if (h, world) not in _logged_whole:
             _logged_whole.add((h, world))
             logger.warning(f'val_spatial_shard: LR height {h} does not '
                            f'split into {world} bands of at least 2 rows; '
                            'every rank computes the whole image')
         return None
-    rows = h // world
-    return Band(rank, world, rank * rows, rows, h)
+    return Band(rank, tuple(r * h // world for r in range(world + 1)))
 
 
 def _comm_device(x):
@@ -118,9 +136,9 @@ def exchange_halo(x, band, above, below):
     the last ``above`` rows of the band above it and the first ``below``
     rows of the band below it, zero rows past the image's top and bottom.
     One all-gather of every rank's edge rows."""
-    if above > band.rows or below > band.rows:
+    if max(above, below) > min(band.sizes()):
         raise ValueError(f'a halo of {above} and {below} rows from bands of '
-                         f'{band.rows}')
+                         f'{band.sizes()}')
     edges = torch.cat([x[:, :below], x[:, x.shape[1] - above:]], dim=1)
     parts = _all_gather(edges)
     r, last = band.rank, band.world - 1
@@ -136,12 +154,18 @@ def exchange_halo(x, band, above, below):
 
 
 def gather_rows(x, band):
-    """The whole (B, world * rows, W, C) image of the bands ``x``
-    (B, rows, W, C), all-gathered along H."""
+    """The whole (B, H, W, C) image of the bands ``x`` (B, rows, W, C),
+    all-gathered along H; ``x`` may hold the band at any whole multiple
+    of its rows. Each rank sends its rows padded to the largest band's."""
+    band = band.scaled(x.shape[1] // band.rows)
+    sizes = band.sizes()
+    pad = max(sizes) - band.rows
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
     parts = _all_gather(x)
     stats['gathers'] += 1
     stats['gather_bytes'] += (band.world - 1) * x.numel() * x.element_size()
-    return torch.cat(parts, dim=1)
+    return torch.cat([p[:, :n] for p, n in zip(parts, sizes)], dim=1)
 
 
 def allreduce_sum(t):

@@ -4,8 +4,8 @@ Counterpart of ``scripts/profile_serving.py`` of the JAX package. Times
 each stage of the serving forward as its own call at the serving
 configuration (``match_dtype`` and ``gather_dtype`` bfloat16, full width:
 ContrasExtractorSep, ngf 64, 16 blocks, 8 groups), seeded random weights,
-distinct random inputs per iteration at HR 512x336 (the model pads the
-batch to its 16-LR-pixel bucket, 512x384), and prints one JSON line:
+distinct random inputs per iteration at HR 512x336 (each request at its
+own shape), and prints one JSON line:
 
     python -m c2matching_tpu_torch.scripts.profile_serving \
         [--batch 16] [--iters 4] [--cost] [--device cpu]
@@ -98,17 +98,7 @@ def profile(blocks=SERVING_BLOCKS, batch=16, iters=4, cost=False,
                          'img_ref': mk((batch, gt_h, gt_w, 3)),
                          'img_in_lq': mk((batch, gt_h // 4, gt_w // 4, 3))})
         batches.append(model.batch)
-    vs_lr = model._valid_lr
-    vs_hr = None if vs_lr is None else (4 * vs_lr[0], 4 * vs_lr[1])
-
-    def ext(up, ref):
-        return model.net_extractor(up, ref, vs_hr)
-
-    def cg(feats, ref):
-        return model.net_map(feats, ref, vs_hr)
-
-    def g(lq, po, rf):
-        return model.net_g(lq, po, rf, vs_lr)
+    ext, cg, g = model.net_extractor, model.net_map, model.net_g
 
     out = {'batch': batch}
     with torch.inference_mode():
@@ -139,7 +129,7 @@ def profile(blocks=SERVING_BLOCKS, batch=16, iters=4, cost=False,
                 gb = count_gb(*calls[name])
                 net = max(t - t_fetch, 1e-9)
                 out[f'{name}_gflops'] = round(gf, 3)
-                out[f'{name}_hbm_gb'] = round(gb, 3)
+                out[f'{name}_hbm_gb'] = round(gb, 6)
                 out[f'{name}_tflops_per_s'] = round(gf / net / 1e3, 3)
                 out[f'{name}_hbm_gb_per_s'] = round(gb / net, 3)
     return out

@@ -17,9 +17,8 @@ serving forward (``RefRestorationModel.feed_data`` / ``test`` /
 Items whose (padded LR, original GT) shapes differ land in different
 buckets; a bucket flushes when it holds ``--batch`` items, and the
 partial buckets flush at the end, padded by repeating their last item
-(the padding is dropped after the run). The model bucket-pads each batch
-to 16 LR pixels and shares one valid shape across it, which holds
-because a bucket holds one LR shape. Items are decoded and preprocessed
+(the padding is dropped after the run). The model runs each batch at its
+own LR shape, which a bucket shares. Items are decoded and preprocessed
 (PNG decode, the PIL bicubic chain) on two threads, at most 2 x batch
 ahead, so host work overlaps the card's.
 

@@ -44,7 +44,7 @@ Phases:
   5. epilogue: the conv epilogue kernel (bias, activation and residual
      add in place after a cuDNN conv) against its plain version, bit for
      bit, at the restoration net's shapes at batch 16 on the 128 x 84
-     valid crop (relu1 336x512 at C 64 and 3, relu2 168x256 at C 128,
+     request (relu1 336x512 at C 64 and 3, relu2 168x256 at C 128,
      relu3 84x128 at C 216 and 256) in f32 and bf16, for each activation
      with and without a residual, and on operands off 16-byte alignment;
      then one residual block's two epilogues at relu1 (16 x 336 x 512 x
@@ -54,16 +54,16 @@ Phases:
   6. main: RefRestorationModel.feed_data / test at full width (ngf 64,
      16 blocks, 8 groups; random weights from a seeded generator) in the
      f32 config and the serving config (bf16 gathers and match operands),
-     over requests of CUFED5 size, one of them off the bucket; the launch
+     over requests of CUFED5 size, each at its own shape; the launch
      counters must rise on this path; a small request must agree with the
      same nets run on the CPU, where the plain versions run. One more
-     HR 512x336 request per config records every kernel's inputs.
+     HR 512x336 request per config records every kernel's inputs: B1 must
+     get the request's (vh-2)(vw-2) = 10332 query and ref rows, no
+     ref_bias.
   7. path: each kernel against its plain version on exactly the tensors
-     the main path gave it (B1 at 11844 x 10332 x 2304: the ref rows that
-     can win, no ref_bias; its indices mapped to the 126 x 94 grid and
-     held against the plain version on all 11844 ref rows with the
-     valid-shape ref_bias; B3 at the 128x84, 256x168 and 512x336
-     DynAggs of the generator's valid crop), in both configs; then the
+     the main path gave it (B1 at 10332 x 10332 x 2304: the request's
+     exact descriptor grid, no ref_bias; B3 at the 128x84, 256x168 and
+     512x336 DynAggs of the request), in both configs; then the
      windowed op, which no model calls, on the relu1 (blk 4) and relu2
      (blk 2) DynAggs' own tensors:
      the branch it takes, B2 in image mode against its plain version and
@@ -172,20 +172,22 @@ Phases:
      torch.distributed.run, TF32 off, cuDNN deterministic) at two ranks
      sharing the card over gloo, on phase eval's f32 options at full
      width with val_spatial_shard: true, on phase eval's sets and three
-     HR 512x336 pairs (LR 128x84, bucket 128x96: bands of 64 LR rows),
+     HR 512x336 pairs (LR 128x84: bands of 64 LR rows),
      against the same CLI in one process: every image's output within
      1e-4, the saved PNGs (rank 0 alone saves) within one uint8 step, the
-     averages within 1e-3 dB (SSIM_Y 1e-5) on both ranks; B1 once and B3
-     three times an image on each rank, the last image's B1 and B3
-     operands at the band's arguments held against their plain versions;
-     per rank ms an image, peak memory, halo exchanges and gathers with
-     their bytes (both ranks share the card: not a scaling number). Per
+     averages within 1e-3 dB (SSIM_Y 1e-5) on both ranks; every image
+     split into bands (the CUFED-shaped pair's 85 LR rows into 42 and
+     43); B1 once and B3 three times an image on each rank, the last
+     image's B1 and B3 operands at the band's arguments held against
+     their plain versions; per rank ms an image, peak memory, halo
+     exchanges and gathers with their bytes (both ranks share the card:
+     not a scaling number). Per
      rank the leaf module that rose highest above its entry
      (``ModulePeaks``). The CLI at world size 1 over NCCL with the option
      on and off, every output bit for bit: a guard that the option is a
      no-op there (no band is cut at world size 1; NCCL's band collectives
-     need two cards and are not run). The B3 band probe: the lower half of each padded
-     DynAgg image (Ho = H / 2 at padding (1 - H / 2, 1), the whole x), the
+     need two cards and are not run). The B3 band probe: the lower half of
+     each DynAgg image (Ho = H / 2 at padding (1 - H / 2, 1), the whole x), the
      kernel bit for bit the whole image's columns of those rows, its
      plain version likewise, and the two within B3's f32 tolerance. One
      JSON line of the phase's numbers.
@@ -337,22 +339,18 @@ SERVING_BLOCKS = {
     'network_map': dict(F32_BLOCKS['network_map'], match_dtype='bfloat16'),
     'network_extractor': {'type': 'ContrasExtractorSep'},
 }
-# HR request sizes: the CUFED5 bench shape, a CUFED5 image off the 64-px
-# bucket, and one on it
+# HR request sizes: the CUFED5 bench shape, another CUFED5 image, and one
+# on the JAX package's 64-px bucket
 REQUESTS = ((512, 336), (500, 332), (512, 384))
 DCN_SHAPES = (('relu3_1', 128, 84, 256), ('relu2_1', 256, 168, 128),
               ('relu1_1', 512, 336, 64))
-# what the main path hands the kernels for REQUESTS[0], padded to the
-# bucket of 16 LR pixels (LR 128x84 -> 128x96): relu3_1 features of
-# 128x96 give 126x94 descriptors; B1 gets the 126 x 82 ref patches inside
-# the valid 128x84 (the 126 x 12 past it cannot win); the generator runs
-# on the valid crop, so its DynAggs sample at 1x, 2x and 4x of 128x84
-PATH_B1 = (1, 126 * 94, 9 * 256)
-PATH_B1_GRID = (126, 94, 126, 82)   # (hr, wr) of the ref grid, (vh, vw) kept
-PATH_B1_KEPT = (1, 126 * 82, 9 * 256)
+# what the main path hands the kernels for REQUESTS[0] (LR 128x84, run at
+# its own shape): relu3_1 features of 128x84 give 126 x 82 descriptors,
+# B1's query and ref rows; the DynAggs sample at 1x, 2x and 4x of 128x84
+PATH_B1 = (1, 126 * 82, 9 * 256)
 PATH_B3 = tuple((h, w, c) for _, h, w, c in DCN_SHAPES)
-# the windowed op's (blk, win) by the DynAgg shape of an on-bucket HR
-# 512x384 request: phase b2 runs these shapes on random DynAgg-structured
+# the windowed op's (blk, win) by the DynAgg shape of an HR 512x384
+# request: phase b2 runs these shapes on random DynAgg-structured
 # inputs, phase path the same layers (by their channels) at PATH_B3
 WINDOWED = {(512, 384, 64): ('relu1_1', 4, 8),
             (256, 192, 128): ('relu2_1', 2, 6)}
@@ -507,42 +505,6 @@ def _b1_library_ms(q, r, bias):
     return cuda_ms(call)
 
 
-def _b1_grid_bias(hr, wr, vh, vw, dev):
-    """The ref_bias of an hr x wr ref grid whose top-left vh x vw block is
-    kept: 0 there, -1e30 elsewhere (the JAX package's valid-shape bias)."""
-    row = torch.arange(hr, device=dev)[:, None]
-    col = torch.arange(wr, device=dev)[None, :]
-    return torch.where((row < vh) & (col < vw), 0.0, -1e30).float(
-    ).reshape(-1)
-
-
-def _b1_full_compare(check, q, r_kept, r_full, bias, grid, label):
-    """The kernel on the kept rows, its indices mapped to the whole grid,
-    against the plain version on the whole grid with the bias: the gates of
-    _b1_compare, and no excluded row wins."""
-    from c2matching_tpu_torch.ops import match_argmax, match_argmax_plain
-    pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match')
-    hr, wr, vh, vw = grid
-    idx_k, val_k = match_argmax(q, r_kept)
-    idx_k = pm.full_ref_index(idx_k, wr, vw)
-    idx_p, val_p = match_argmax_plain(q, r_full, bias)
-    scores = torch.matmul(q.float(), r_full.float().mT) + bias
-    top2 = scores.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > B1_GAP_TOL
-    picked = scores.gather(-1, idx_k.long()[..., None])[..., 0]
-    err = (val_k - val_p).abs().max().item()
-    check(bool(((idx_k == idx_p) | ~clear).all())
-          and bool(((picked - val_p).abs() <= B1_GAP_TOL).all())
-          and err <= B1_VAL_TOL and bool((bias[idx_k.long()] == 0).all()),
-          f'b1 {label}: indices mapped to the {hr}x{wr} grid equal the '
-          f'plain version\'s on all {r_full.shape[1]} ref rows with the '
-          f'ref_bias on the {int(clear.sum())} of {clear.numel()} rows with '
-          f'top-2 gap > {B1_GAP_TOL:g} (on all rows: '
-          f'{int((idx_k == idx_p).sum())}), each picked index within '
-          f'{B1_GAP_TOL:g} of the max, max |val diff| {err:.3g} <= '
-          f'{B1_VAL_TOL:g}, no excluded row wins')
-
-
 def _b1_call_peak(q, r, bias=None):
     """Bytes one call adds at its peak above what is allocated before it:
     its outputs, the partitions' partials and, for f32, the split
@@ -563,7 +525,7 @@ def phase_b1(check, dev):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    # the CUFED5 bucket: 126 x 82 descriptors of 9 x 256 channels
+    # the CUFED5 request: 126 x 82 descriptors of 9 x 256 channels
     nq = nr = 126 * 82
     d = 9 * 256
     q = randn(nq, d)
@@ -1182,7 +1144,7 @@ def phase_b2(check, dev, card):
 
 # ------------------------------------------------------------ conv epilogue
 # (pixels, C) of the restoration net's convs at batch 16 on the 128 x 84
-# valid crop: relu1's blocks and final conv, relu2's offset convs, relu3's
+# request: relu1's blocks and final conv, relu2's offset convs, relu3's
 # offset-mask and offset convs
 EPILOGUE_SHAPES = (((16, 336, 512), 64), ((16, 336, 512), 3),
                    ((16, 168, 256), 128), ((16, 84, 128), 216),
@@ -1296,17 +1258,15 @@ def _stage_ms(model, batch):
     """Device time of each net for one request, by CUDA events around the
     calls RefRestorationModel.test makes."""
     model.feed_data(batch)
-    vs_lr = model._valid_lr
-    vs_hr = None if vs_lr is None else (4 * vs_lr[0], 4 * vs_lr[1])
     b = model.batch
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     with torch.inference_mode():
         events[0].record()
-        feats = model.net_extractor(b['img_in_up'], b['img_ref'], vs_hr)
+        feats = model.net_extractor(b['img_in_up'], b['img_ref'])
         events[1].record()
-        pre, ref_feat = model.net_map(feats, b['img_ref'], vs_hr)
+        pre, ref_feat = model.net_map(feats, b['img_ref'])
         events[2].record()
-        model.net_g(b['img_in_lq'], pre, ref_feat, vs_lr)
+        model.net_g(b['img_in_lq'], pre, ref_feat)
         events[3].record()
     torch.cuda.synchronize()
     names = ('extractor', 'match+vgg19', 'restoration')
@@ -1317,38 +1277,28 @@ def _stage_ms(model, batch):
 @contextlib.contextmanager
 def _record_kernel_inputs():
     """Record what the main path hands each kernel: (q, r, ref_bias) of
-    every match, the whole ref grid each match's kept rows were cut from
-    ((r, hr, wr, vh, vw) of ``kept_ref_rows``, its rows not yet
-    normalised), and (x, offset, mask,
-    weight, bias) of every DynAgg's DCN, the whole batch. Wraps the names
-    the callers look up; the kernels and their launch counters stay as
-    they are."""
+    every match and (x, offset, mask, weight, bias) of every DynAgg's DCN,
+    the whole batch. Wraps the names the callers look up; the kernels and
+    their launch counters stay as they are."""
     pm = importlib.import_module('c2matching_tpu_torch.ops.patch_match')
     ra = importlib.import_module(
         'c2matching_tpu_torch.models.archs.ref_restoration_arch')
-    seen = {'b1': [], 'b1_grid': [], 'b3': []}
-    match, kept, mdc = (pm.match_argmax, pm.kept_ref_rows,
-                        ra.modulated_deform_conv)
+    seen = {'b1': [], 'b3': []}
+    match, mdc = pm.match_argmax, ra.modulated_deform_conv
 
     def match_rec(q, r, ref_bias=None):
         seen['b1'].append((q, r, ref_bias))
         return match(q, r, ref_bias)
 
-    def kept_rec(r, hr, wr, vh, vw):
-        seen['b1_grid'].append((r, hr, wr, vh, vw))
-        return kept(r, hr, wr, vh, vw)
-
     def mdc_rec(x, offset, mask, weight, bias=None, **conv):
         seen['b3'].append((x, offset, mask, weight, bias))
         return mdc(x, offset, mask, weight, bias, **conv)
 
-    pm.match_argmax, pm.kept_ref_rows, ra.modulated_deform_conv = (
-        match_rec, kept_rec, mdc_rec)
+    pm.match_argmax, ra.modulated_deform_conv = match_rec, mdc_rec
     try:
         yield seen
     finally:
-        pm.match_argmax, pm.kept_ref_rows, ra.modulated_deform_conv = (
-            match, kept, mdc)
+        pm.match_argmax, ra.modulated_deform_conv = match, mdc
 
 
 def phase_main(check, dev, report, card, recorded):
@@ -1409,6 +1359,14 @@ def phase_main(check, dev, report, card, recorded):
         # one more request, outside the counted run, for phase path
         with _record_kernel_inputs() as seen:
             _serve(model, requests[0])
+        lr_h, lr_w = REQUESTS[0][0] // 4, REQUESTS[0][1] // 4
+        rows = (lr_h - 2) * (lr_w - 2)
+        shapes = [(tuple(q.shape), tuple(r.shape), bias)
+                  for q, r, bias in seen['b1']]
+        check(shapes == [((1, rows, 9 * 256), (1, rows, 9 * 256), None)],
+              f'main {cfg}: B1 gets the LR {lr_h}x{lr_w} request\'s '
+              f'({lr_h} - 2) x ({lr_w} - 2) = {rows} query and ref rows, no '
+              f'ref_bias: {shapes}')
         recorded[cfg] = seen
         del model
         torch.cuda.empty_cache()
@@ -1418,33 +1376,21 @@ def phase_path(check, report, recorded, card):
     """Each kernel against its plain version on the tensors the main path
     gave it for the HR 512x336 request, in both configs; then the windowed
     op on the relu1 and relu2 DynAggs' tensors."""
-    from c2matching_tpu_torch.ops import match_argmax
     for cfg, dtype in (('f32', torch.float32), ('serving', torch.bfloat16)):
         name = str(dtype).replace('torch.', '')
         seen = recorded.pop(cfg)
         # the request's one image
         seen['b3'] = [(x[0], offset[0], mask[0], weight, bias)
                       for x, offset, mask, weight, bias in seen['b3']]
-        check(len(seen['b1']) == 1 and len(seen['b1_grid']) == 1,
-              f'path {cfg}: one match call ({len(seen["b1"])}) on the kept '
-              f'rows of one ref grid ({len(seen["b1_grid"])})')
+        check(len(seen['b1']) == 1,
+              f'path {cfg}: one match call ({len(seen["b1"])})')
         (q, r, bias), = seen['b1']
-        r_full, *grid = seen['b1_grid'][0]
-        check(tuple(q.shape) == PATH_B1 and tuple(r.shape) == PATH_B1_KEPT
-              and tuple(r_full.shape) == PATH_B1
-              and tuple(grid) == PATH_B1_GRID and bias is None
-              and q.dtype == dtype and r.dtype == dtype,
+        check(tuple(q.shape) == PATH_B1 and tuple(r.shape) == PATH_B1
+              and bias is None and q.dtype == dtype and r.dtype == dtype,
               f'path {cfg}: B1 gets q {tuple(q.shape)}, r {tuple(r.shape)} '
-              f'{r.dtype} (the rows of {tuple(grid[2:])} in the ref grid '
-              f'{tuple(grid[:2])}), ref_bias {bias}')
+              f'{r.dtype}, ref_bias {bias}')
         label = f'main path {q.shape[1]}x{r.shape[1]}x{q.shape[2]} {name}'
         _, err = _b1_compare(check, q, r, None, label)
-        full_bias = _b1_grid_bias(*grid, dev=q.device)
-        # the whole grid as the main path treats its kept rows: each row
-        # normalised, then cast to the match's dtype
-        r_full = (r_full / (torch.sqrt(torch.sum(
-            r_full * r_full, dim=-1, keepdim=True)) + 1e-5)).to(dtype)
-        _b1_full_compare(check, q, r, r_full, full_bias, grid, label)
         ms, plain_ms = _b1_time(q, r, None, label)
         scratch = _b1_call_peak(q, r)
         moved, ops = _b1_work(q, r, None)
@@ -1459,21 +1405,16 @@ def phase_path(check, report, recorded, card):
             bound_ms, bound_by = bound(moved, ops, dtype)
             pipe = f'bf16 at {PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s'
         library_ms = _b1_library_ms(q, r, None)
-        full_ms = cuda_ms(lambda: match_argmax(q, r_full, full_bias))
-        full_lib_ms = _b1_library_ms(q, r_full, full_bias)
         print(f'b1 {label}: bound {bound_ms:.3f} ms by {bound_by} ({pipe}), '
-              f'torch.matmul + max {library_ms:.3f} ms on the same rows; on '
-              f'all {r_full.shape[1]} ref rows with the ref_bias: kernel '
-              f'{full_ms:.3f} ms, torch.matmul + max {full_lib_ms:.3f} ms; '
+              f'torch.matmul + max {library_ms:.3f} ms on the same rows; '
               f'the call adds {scratch / 2**30:.3f} GiB (outputs and '
               f'scratch) ({card})', flush=True)
         report[f'b1_{name}'] = {'ms': ms, 'plain_ms': plain_ms,
                                 'max_abs_err': err, 'bound_ms': bound_ms,
                                 'bound_by': bound_by,
                                 'library_ms': library_ms}
-        del q, r, r_full, full_bias
+        del q, r
         seen['b1'].clear()
-        seen['b1_grid'].clear()
         torch.cuda.empty_cache()
 
         shapes = sorted(tuple(d[0].shape) for d in seen['b3'])
@@ -3393,17 +3334,15 @@ def _spatial_pngs(root, name):
 
 
 def _spatial_b3_probe(check, dev):
-    """B3 at a band's arguments: the lower half of each padded DynAgg
-    image of an HR 512x336 request (Ho = H / 2, padding (1 - H / 2, 1), the
+    """B3 at a band's arguments: the lower half of each DynAgg image of an
+    HR 512x336 request (Ho = H / 2, padding (1 - H / 2, 1), the
     whole x), the kernel against the same rows of its whole-image columns
     and against its plain version, which must give those rows of its own
     whole-image columns bit for bit."""
     from c2matching_tpu_torch.ops import deform_im2col, deform_im2col_plain
     gen = torch.Generator(device=dev).manual_seed(13)
     out = {}
-    for layer, h, w, c in (('relu3_1', 128, 96, 256),
-                           ('relu2_1', 256, 192, 128),
-                           ('relu1_1', 512, 384, 64)):
+    for layer, h, w, c in DCN_SHAPES:
         x, offset, mask = _dcn_inputs(gen, dev, h, w, c, torch.float32)
         row0 = h // 2
         pad = (1 - row0, 1)
@@ -4756,11 +4695,10 @@ def _serve_flush_kernels(check, seen, cfg, dtype, card):
                                           match_argmax, match_argmax_plain)
     name = str(dtype).replace('torch.', '')
     q, r, bias = seen['b1'][0]
-    check(tuple(q.shape) == (SERVE_BATCH,) + PATH_B1[1:]
-          and tuple(r.shape) == (SERVE_BATCH,) + PATH_B1_KEPT[1:]
+    check(tuple(q.shape) == tuple(r.shape) == (SERVE_BATCH,) + PATH_B1[1:]
           and q.dtype == dtype and bias is None,
-          f'serve {cfg}: B1 gets q {tuple(q.shape)} {q.dtype}, the kept ref '
-          f'rows {tuple(r.shape)}, ref_bias {bias}')
+          f'serve {cfg}: B1 gets q {tuple(q.shape)} {q.dtype}, the ref rows '
+          f'{tuple(r.shape)}, ref_bias {bias}')
     label = f'batch {q.shape[0]} {q.shape[1]}x{r.shape[1]}x{q.shape[2]} {name}'
     b1 = {'max_abs_err': _b1_batch_compare(check, q, r, bias, label)}
     b1['ms'] = cuda_ms(lambda: match_argmax(q, r, bias))
@@ -4778,7 +4716,6 @@ def _serve_flush_kernels(check, seen, cfg, dtype, card):
           flush=True)
     del q, r, bias
     seen['b1'].clear()
-    seen['b1_grid'].clear()
     torch.cuda.empty_cache()
 
     shapes = sorted(tuple(d[0].shape) for d in seen['b3'])
@@ -4892,7 +4829,7 @@ def _serve_batch(check, dev, report, card):
               f'{launches[1]} (an image and DynAgg each)')
         check(_finite(out.values()), f'serve {cfg}: profile_serving finite')
         print(f'serve {cfg} batch {SERVE_BATCH} HR {SERVE_HR[0]}x'
-              f'{SERVE_HR[1]} (bucket 512x384), profile_serving: '
+              f'{SERVE_HR[1]}, profile_serving: '
               + ', '.join(f'{k} {out[k]}' for k in (
                   'extractor_ms', 'matcher_ms', 'generator_ms',
                   'total_net_ms', 'net_img_per_s', 'fetch_overhead_ms'))

@@ -79,84 +79,127 @@ def _restoration_inputs(h, seed, b=1):
     return x, pre, feat
 
 
+def _zero_padded(img, valid):
+    """``img`` (B, H, W, C) with the rows and columns past ``valid`` zero,
+    as the JAX package's feed_data pads a batch to its bucket."""
+    out = np.zeros_like(img)
+    out[:, :valid[0], :valid[1]] = img[:, :valid[0], :valid[1]]
+    return out
+
+
 @pytest.mark.parametrize('valid', [None, (28, 20)])
 def test_contras_extractor_matches_jax(valid):
+    """With ``valid`` the port runs on the exact 28 x 20 images, the JAX
+    package on the zero-padded 32 x 32 ones with ``valid_shape``, its
+    features cut to the valid 7 x 5."""
     img1, img2 = _images(0, 2, 32, 32, 3), _images(1, 2, 32, 32, 3)
+    vh, vw = (32, 32) if valid is None else valid
     jnet = jax_archs.ContrasExtractorSep()
     variables = jnet.init(jax.random.PRNGKey(0), jnp.asarray(img1),
                           jnp.asarray(img2))
-    want = jnet.apply(variables, jnp.asarray(img1), jnp.asarray(img2), valid)
+    want = jnet.apply(variables, jnp.asarray(_zero_padded(img1, (vh, vw))),
+                      jnp.asarray(_zero_padded(img2, (vh, vw))), valid)
     net = archs.ContrasExtractorSep()
     net.load_state_dict(weights.contras_extractor_state_dict(
         _np_tree(variables)), strict=True)
     with torch.no_grad():
-        got = net(_t(img1), _t(img2), valid)
+        got = net(_t(img1[:, :vh, :vw]), _t(img2[:, :vh, :vw]))
     for key in ('dense_features1', 'dense_features2'):
-        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
-                                   rtol=CONV_TOL, atol=CONV_TOL)
+        np.testing.assert_allclose(
+            got[key].numpy(), np.asarray(want[key])[:, :vh // 4, :vw // 4],
+            rtol=CONV_TOL, atol=CONV_TOL)
 
 
 @pytest.mark.parametrize('valid', [None, (28, 20)])
 def test_vgg_feature_extractor_matches_jax(valid):
+    """As the contrastive extractor: each layer cut to the valid sizes at
+    its scale."""
     img = _images(2, 1, 32, 32, 3)
+    vh, vw = (32, 32) if valid is None else valid
     layers = ['relu1_1', 'relu2_1', 'relu3_1']
     jnet = jax_archs.VGGFeatureExtractor(layer_name_list=layers)
     variables = jnet.init(jax.random.PRNGKey(1), jnp.asarray(img))
-    want = jnet.apply(variables, jnp.asarray(img), valid)
+    want = jnet.apply(variables, jnp.asarray(_zero_padded(img, (vh, vw))),
+                      valid)
     net = archs.VGGFeatureExtractor(layer_name_list=layers)
     state = weights.corres_generation_state_dict(
         {'vgg': _np_tree(variables)['params']})
     net.load_state_dict({k[len('vgg.'):]: v for k, v in state.items()},
                         strict=True)
     with torch.no_grad():
-        got = net(_t(img), valid)
+        got = net(_t(img[:, :vh, :vw]))
     assert set(got) == set(layers)
-    for key in layers:
-        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
-                                   rtol=CONV_TOL, atol=CONV_TOL)
+    for key, f in zip(layers, (1, 2, 4)):
+        np.testing.assert_allclose(
+            got[key].numpy(), np.asarray(want[key])[:, :vh // f, :vw // f],
+            rtol=CONV_TOL, atol=CONV_TOL)
 
 
-def _valid_crop(x, pre, feat, valid):
-    """The inputs cut to the valid LR sizes ``valid`` (the relu2 and relu1
+SCALE = {'relu3_1': 1, 'relu2_1': 2, 'relu1_1': 4}
+
+
+def _crop(x, pre, feat, valid):
+    """The inputs cut to the LR sizes ``valid`` (the relu2 and relu1
     inputs at twice and four times them)."""
     vh, vw = valid
-    scale = {'relu3_1': 1, 'relu2_1': 2, 'relu1_1': 4}
     return (x[:, :vh, :vw],
-            {k: v[:, :, :vh * scale[k], :vw * scale[k]]
+            {k: v[:, :, :vh * SCALE[k], :vw * SCALE[k]]
              for k, v in pre.items()},
-            {k: v[:, :vh * scale[k], :vw * scale[k]]
+            {k: v[:, :vh * SCALE[k], :vw * SCALE[k]]
+             for k, v in feat.items()})
+
+
+def _zero_bands(x, pre, feat, valid):
+    """The inputs with zeros past the LR sizes ``valid`` (the relu2 and
+    relu1 inputs past twice and four times them): a batch as the JAX
+    package pads it to its bucket."""
+    vh, vw = valid
+    return (_zero_padded(x, valid),
+            {k: np.pad(v[:, :, :vh * SCALE[k], :vw * SCALE[k]],
+                       ((0, 0), (0, 0), (0, v.shape[2] - vh * SCALE[k]),
+                        (0, v.shape[3] - vw * SCALE[k]), (0, 0)))
+             for k, v in pre.items()},
+            {k: _zero_padded(v, (vh * SCALE[k], vw * SCALE[k]))
              for k, v in feat.items()})
 
 
 @pytest.mark.parametrize('valid', [None, (6, 5)])
 def test_restoration_net_matches_jax(valid, restoration):
-    """With ``valid`` the port runs on the valid crop: its crop of the
-    output and its offset means are those of the JAX package's exact-shape
-    run on the cropped inputs, the contract ``valid_mask`` states (the pad
-    bands, and the padded grid's offset mean, are no part of the
-    result)."""
+    """With ``valid`` the port runs on the exact 6 x 5 inputs, the JAX
+    package on the zero-padded 8 x 8 ones with ``valid_shape``, cut to the
+    valid 24 x 20; its offset means are those of the padded run's
+    ``conv_offset_mask`` outputs over the valid region (captured: the
+    padded grid's own mean counts the pad bands, which are no part of the
+    exact run)."""
     jnet, params = restoration
     x, pre, feat = _restoration_inputs(8, 1)
-    exact = (x, pre, feat) if valid is None else _valid_crop(x, pre, feat,
-                                                             valid)
-    want, aux = jnet.apply({'params': params}, jnp.asarray(exact[0]),
-                           jax.tree.map(jnp.asarray, exact[1]),
-                           jax.tree.map(jnp.asarray, exact[2]), None,
-                           mutable=['intermediates'])
+    padded = (x, pre, feat) if valid is None else _zero_bands(x, pre, feat,
+                                                              valid)
+    exact = (x, pre, feat) if valid is None else _crop(x, pre, feat, valid)
+    want, aux = jnet.apply({'params': params}, jnp.asarray(padded[0]),
+                           jax.tree.map(jnp.asarray, padded[1]),
+                           jax.tree.map(jnp.asarray, padded[2]), valid,
+                           mutable=['intermediates'],
+                           capture_intermediates=valid is not None)
     net = archs.RestorationNet(ngf=16, n_blocks=2, groups=8)
     net.load_state_dict(weights.restoration_net_state_dict(params),
                         strict=True)
     with torch.no_grad():
-        got = net(_t(x), {k: _t(v) for k, v in pre.items()},
-                  {k: _t(v) for k, v in feat.items()}, valid)
-    assert got.shape == (1, 32, 32, 3)
-    got = got[:, :want.shape[1], :want.shape[2]]
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                               atol=CONV_TOL)
+        got = net(_t(exact[0]), {k: _t(v) for k, v in exact[1].items()},
+                  {k: _t(v) for k, v in exact[2].items()})
+    assert got.shape == (1, 4 * exact[0].shape[1], 4 * exact[0].shape[2], 3)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want)[:, :got.shape[1], :got.shape[2]],
+        rtol=0, atol=CONV_TOL)
     stats = net.dyn_agg_restore.offset_stats()
     sown = aux['intermediates']['dyn_agg_restore']
-    for scale in ('small', 'medium', 'large'):
+    for scale, f in (('small', 1), ('medium', 2), ('large', 4)):
         want_mean = float(sown[f'{scale}_dyn_agg']['offset_absmean'][0])
+        if valid is not None:
+            o = np.asarray(sown[f'{scale}_dyn_agg']['conv_offset_mask'][
+                '__call__'][0], np.float64)
+            want_mean = float(np.abs(o[:, :valid[0] * f, :valid[1] * f,
+                                       :2 * 8 * 9]).mean())
         assert want_mean > 0.1   # the learned offsets really take part
         # a mean of conv outputs that agree to CONV_TOL
         np.testing.assert_allclose(float(stats[f'offset_absmean_{scale}']),

@@ -39,6 +39,7 @@ the JAX variables through ``utils/weights.py``. Held against JAX:
 """
 import contextlib
 import copy
+import logging
 import os
 import os.path as osp
 import re
@@ -277,9 +278,16 @@ def test_validation_means_match_jax(stage_models, synth_root, caplog):
                'dataroot_ref': f'{synth_root}/ref',
                'io_backend': {'type': 'disk'},
                'ann_file': f'{synth_root}/pairs.txt'}
-    with caplog.at_level('INFO', logger='base'):
-        got = port.validation(DataLoader(ContrasValDataset(dict(val_opt))),
-                              0, None)
+    # the 'base' logger stops propagating to caplog's handler once a
+    # runner in the same process has set it up
+    logger = logging.getLogger('base')
+    propagate, logger.propagate = logger.propagate, True
+    try:
+        with caplog.at_level('INFO', logger='base'):
+            got = port.validation(
+                DataLoader(ContrasValDataset(dict(val_opt))), 0, None)
+    finally:
+        logger.propagate = propagate
     line = [r.getMessage() for r in caplog.records
             if r.getMessage().startswith('# Validation val_synth')]
     assert len(line) == 1 and 'positive_distance' in line[0]

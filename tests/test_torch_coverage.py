@@ -46,6 +46,9 @@ JAX_ONLY = {
     'cv2_bicubic_resize': "data/warp.py's resize_cubic",
     'shift_schedule_count': "ScheduleCounts.shift (the optax state's "
                             'count, a plain counter in the port)',
+    **dict.fromkeys(('valid_mask', 'halve_valid', 'scale_valid'),
+                    'the port runs each request at its exact shape; the '
+                    "bucket bounded XLA's compiles"),
 }
 
 

@@ -26,8 +26,8 @@ from c2matching_tpu_torch.models import RefRestorationModel, define_network
 from c2matching_tpu_torch.ops.resize import upscale
 from c2matching_tpu_torch.utils import weights
 
-from test_torch_archs import (_images, _np_tree, _restoration_inputs, _t,
-                              _valid_crop)
+from test_torch_archs import (_crop, _images, _np_tree, _restoration_inputs,
+                              _t, _zero_bands, _zero_padded)
 
 BF16_REL = 2 ** -5   # ~4 bf16 roundings (2^-8 each) of O(1) activations,
                      # compounded over a few conv layers
@@ -80,31 +80,33 @@ def restoration_params():
 def test_restoration_net_bf16(valid, restoration_params):
     """Held on the restored residual (output minus the f32 bilinear base,
     which both add last), of O(0.1) at this init. With ``valid`` the port
-    runs on the valid crop, so its crop is held against the JAX package's
-    exact-shape run on the cropped inputs."""
+    runs on the exact 6 x 5 inputs, held against the JAX package's run on
+    the zero-padded 8 x 8 ones with ``valid_shape``, cut to the valid
+    region."""
     params = restoration_params
     x, pre, feat = _restoration_inputs(8, 1)
-    exact = (x, pre, feat) if valid is None else _valid_crop(x, pre, feat,
-                                                             valid)
-    jx = (jnp.asarray(exact[0]), jax.tree.map(jnp.asarray, exact[1]),
-          jax.tree.map(jnp.asarray, exact[2]))
+    exact = (x, pre, feat) if valid is None else _crop(x, pre, feat, valid)
+    padded = (x, pre, feat) if valid is None else _zero_bands(x, pre, feat,
+                                                              valid)
+    jx = (jnp.asarray(padded[0]), jax.tree.map(jnp.asarray, padded[1]),
+          jax.tree.map(jnp.asarray, padded[2]))
     net, jnet = _both(dict(RESTORATION, **BF16))
     jnet_f32 = jax_networks._instantiate(RESTORATION)
     base = upscale(_t(exact[0]), 4, 'bilinear').numpy()
 
     def residual(module):
-        fn = jax.jit(lambda p, *a: module.apply({'params': p}, *a, None))
-        return np.asarray(fn(params, *jx)) - base
+        fn = jax.jit(lambda p, *a: module.apply({'params': p}, *a, valid))
+        out = np.asarray(fn(params, *jx))
+        return out[:, :base.shape[1], :base.shape[2]] - base
 
     want, want_f32 = residual(jnet), residual(jnet_f32)
     net.load_state_dict(weights.restoration_net_state_dict(params),
                         strict=True)
     assert all(p.dtype == torch.float32 for p in net.parameters())
     with torch.no_grad():
-        got = net(_t(x), {k: _t(v) for k, v in pre.items()},
-                  {k: _t(v) for k, v in feat.items()}, valid)
-    assert got.dtype == torch.float32 and got.shape == (1, 32, 32, 3)
-    got = got[:, :base.shape[1], :base.shape[2]]
+        got = net(_t(exact[0]), {k: _t(v) for k, v in exact[1].items()},
+                  {k: _t(v) for k, v in exact[2].items()})
+    assert got.dtype == torch.float32 and got.shape == base.shape
     err = _rel_err(got.numpy() - base, want)
     assert err <= BF16_REL, err
     # f32 blocks agree to ~1e-6 (test_torch_archs.py); bf16 ones do not
@@ -113,19 +115,25 @@ def test_restoration_net_bf16(valid, restoration_params):
 
 @pytest.mark.parametrize('valid', [None, (28, 20)])
 def test_contras_extractor_bf16(valid):
+    """With ``valid`` the port runs on the exact 28 x 20 images, the JAX
+    package on the zero-padded 32 x 32 ones, cut to the valid 7 x 5."""
     img1, img2 = _images(0, 1, 32, 32, 3), _images(1, 1, 32, 32, 3)
+    vh, vw = (32, 32) if valid is None else valid
     net, jnet = _both({'type': 'ContrasExtractorSep', **BF16})
     variables = jnet.init(jax.random.PRNGKey(0), jnp.asarray(img1),
                           jnp.asarray(img2))
-    want = jnet.apply(variables, jnp.asarray(img1), jnp.asarray(img2), valid)
+    want = jnet.apply(variables, jnp.asarray(_zero_padded(img1, (vh, vw))),
+                      jnp.asarray(_zero_padded(img2, (vh, vw))), valid)
     net.load_state_dict(weights.contras_extractor_state_dict(
         _np_tree(variables)), strict=True)
     with torch.no_grad():
-        got = net(_t(img1), _t(img2), valid)
+        got = net(_t(img1[:, :vh, :vw]), _t(img2[:, :vh, :vw]))
     for key in ('dense_features1', 'dense_features2'):
         assert got[key].dtype == torch.bfloat16
         assert want[key].dtype == jnp.bfloat16
-        err = _rel_err(got[key].float(), want[key])
+        err = _rel_err(got[key].float(),
+                       np.asarray(want[key].astype(jnp.float32))[
+                           :, :vh // 4, :vw // 4])
         assert err <= BF16_REL, (key, err)
 
 

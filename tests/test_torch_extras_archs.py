@@ -19,8 +19,9 @@ the BN running statistics, exact where no arithmetic differs.
   random ``conv_offset_mask`` (zero at init).
 - ``kaiming_scaled_init``'s std against JAX's.
 - ``VGGFeatureExtractor`` with ``use_input_norm=False``,
-  ``remove_pooling=True`` and ``pooling_stride`` 1, and the refusal of
-  ``valid_shape`` with a stride other than 2.
+  ``remove_pooling=True`` and ``pooling_stride`` 1; the port's refusal of
+  a band with a stride other than 2, and the JAX package's of
+  ``valid_shape``.
 - ``CorrespondenceGenerationArch(stride=2)`` equal to stride 1 on both
   sides.
 """
@@ -38,6 +39,7 @@ from c2matching_tpu_torch.models.archs import arch_util as tau
 from c2matching_tpu_torch.models.archs import dcn_arch as tdcn
 from c2matching_tpu_torch.models.archs import vgg_arch as tvgg
 from c2matching_tpu_torch.models.archs import CorrespondenceGenerationArch
+from c2matching_tpu_torch.parallel import Band
 from c2matching_tpu_torch.utils import weights
 
 TOL = 1e-4
@@ -285,7 +287,7 @@ def test_vgg_options(opts):
         _close(got[key], want[key])
     if opts.get('pooling_stride', 2) != 2:
         with pytest.raises(NotImplementedError, match='pooling_stride'):
-            net(_t(img), valid_shape=(16, 16))
+            net(_t(img), band=Band(0, (0, 10, 20)))
         with pytest.raises(NotImplementedError, match='pooling_stride'):
             jnet.apply(variables, jnp.asarray(img), valid_shape=(16, 16))
 

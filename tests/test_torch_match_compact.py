@@ -1,18 +1,17 @@
-"""The port's ``batched_patch_match`` hands kernel B1 only the ref
-patches that can win, against the JAX package's, which scores every patch
-and gives those past the valid region a -1e30 bias.
+"""The port's ``batched_patch_match`` on the exact-shape features against
+the JAX package's on the bucket-padded ones, which scores every patch and
+gives those past the valid region a -1e30 bias.
 
-With a ``valid_shape`` that excludes ref columns or rows, the port matches
-against the kept block of the descriptor grid and maps each index back to
-the full grid (``full_ref_index``); with none kept it takes the bias, as
-the JAX package does. Both run here on the CPU (the port's plain version,
-JAX's XLA matmul) on the same seeded numpy features, in f32 and with bf16
-operands: the indices must be equal and the values within 1e-5 (the same
-f32 formulas; bf16 products are exact in f32, so only the order of the f32
-sums differs). Exact ties between a kept patch and a later kept patch past
-the excluded columns keep the lowest full index, and a banded run at world
-size 2 (``val_spatial_shard``, two gloo processes) gives the whole
-image's rows.
+The port matches a request's exact descriptor grid, so kernel B1 gets
+(vh-2)(vw-2) query and reference rows and no bias; the JAX package's
+contract is that its padded match, cut to the valid query region and its
+indices read on the valid grid, is the exact-shape match. Both run here on
+the CPU (the port's plain version, JAX's XLA matmul) on the same seeded
+numpy features, in f32 and with bf16 operands: the indices must be equal
+and the values within 1e-5 (the same f32 formulas; bf16 products are exact
+in f32, so only the order of the f32 sums differs). Exact ties keep the
+lowest index, and a banded run at world size 2 (``val_spatial_shard``,
+two gloo processes) gives the whole image's rows.
 """
 from importlib import import_module
 
@@ -26,16 +25,15 @@ import torch_dist_child as child
 
 jax_pm = import_module('c2matching_tpu.ops.patch_match')
 patch_match = import_module('c2matching_tpu_torch.ops.patch_match')
-kernel = import_module('c2matching_tpu_torch.ops.patch_match_kernel')
 
 TOL = 1e-5        # |port - JAX| of the values: f32 sums in other orders
 DTYPES = (None, 'bfloat16')
-# valid feature sizes of 12 x 12 features (10 x 10 descriptors): ref
-# columns excluded, rows, both, none (the whole grid, and past it), one
-# descriptor kept, none kept
+# valid feature sizes of 12 x 12 padded features (10 x 10 descriptors):
+# columns off the grid, rows, both, none (the whole grid, and past it),
+# one descriptor, none, and on the bucket (no valid_shape)
 VALID = {'columns': (12, 9), 'rows': (9, 12), 'both': (9, 10),
          'nothing': (12, 12), 'past': (20, 20), 'one': (3, 3),
-         'none_kept': (2, 5), 'no_valid_shape': None}
+         'none_kept': (2, 5), 'on_bucket': None}
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -53,74 +51,63 @@ def _feats(seed, shape=(2, 12, 12, 8)):
             rng.randn(*shape).astype(np.float32))
 
 
+def _exact_hw(feat, valid):
+    h, w = feat.shape[1:3]
+    return (h, w) if valid is None else (min(h, valid[0]), min(w, valid[1]))
+
+
 def _jax(fi, fr, dtype, valid):
+    """The JAX package's padded match, cut to the valid query region, its
+    indices read on the valid (vh-2) x (vw-2) grid."""
     idx, val = jax_pm.batched_patch_match(jnp.asarray(fi), jnp.asarray(fr),
                                           compute_dtype=dtype,
                                           valid_shape=valid)
-    return np.asarray(idx), np.asarray(val)
+    idx, val = np.asarray(idx), np.asarray(val)
+    vh, vw = (v - 2 for v in _exact_hw(fi, valid))
+    vh, vw = max(vh, 0), max(vw, 0)
+    w = idx.shape[2]
+    idx = idx[:, :vh, :vw]
+    return (idx // w) * vw + idx % w, val[:, :vh, :vw]
 
 
 def _port(fi, fr, dtype, valid):
+    """The port's match of the exact-shape features."""
+    h, w = _exact_hw(fi, valid)
     idx, val = patch_match.batched_patch_match(
-        torch.from_numpy(fi), torch.from_numpy(fr), compute_dtype=dtype,
-        valid_shape=valid)
+        torch.from_numpy(fi[:, :h, :w]), torch.from_numpy(fr[:, :h, :w]),
+        compute_dtype=dtype)
     return idx.numpy(), val.numpy()
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('case', VALID)
-def test_compacted_match_equals_jax(case, dtype):
+def test_exact_match_equals_jax_padded(case, dtype):
     valid = VALID[case]
     fi, fr = _feats(11)
     want_i, want_v = _jax(fi, fr, dtype, valid)
     got_i, got_v = _port(fi, fr, dtype, valid)
+    assert got_i.shape == want_i.shape
     np.testing.assert_array_equal(got_i, want_i)
-    # none kept: every value is -1e30 plus a score, over the query's norm,
-    # and rounds at 1e30's scale
-    np.testing.assert_allclose(got_v, want_v, atol=TOL,
-                               rtol=1e-6 if case == 'none_kept' else 0)
-    if valid is not None and case != 'none_kept':
-        vh, vw = valid[0] - 2, valid[1] - 2
-        assert np.all(got_i // 10 < vh) and np.all(got_i % 10 < vw)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize('case', VALID)
-def test_b1_gets_the_kept_rows_alone(case, monkeypatch):
-    """What B1 receives: the kept block and no bias where some patch is
-    kept and some excluded, every row and no bias where none is excluded,
-    every row and the -1e30 bias where none is kept."""
+def test_b1_gets_exactly_the_request_grid(case, monkeypatch):
+    """What B1 receives: (vh-2)(vw-2) query and reference rows and no
+    bias; nothing where the request holds no 3x3 patch."""
     seen = []
     real = patch_match.match_argmax
 
     def record(q, r, ref_bias=None):
-        seen.append((r.shape[1], ref_bias))
+        seen.append((q.shape[1], r.shape[1], ref_bias))
         return real(q, r, ref_bias)
 
     monkeypatch.setattr(patch_match, 'match_argmax', record)
     fi, fr = _feats(12)
     _port(fi, fr, None, VALID[case])
-    (rows, bias), = seen
-    valid = VALID[case]
-    if case == 'none_kept':
-        assert rows == 100 and bool((bias == -1e30).all())
-        return
-    kept = (100 if valid is None else
-            min(10, valid[0] - 2) * min(10, valid[1] - 2))
-    assert rows == kept and bias is None
-
-
-def test_full_ref_index_is_increasing():
-    """The map from the kept block's flat index to the grid's: row-major,
-    strictly increasing, so a first maximum stays first."""
-    idx = torch.arange(6 * 4)
-    full = patch_match.full_ref_index(idx, 7, 4)
-    assert torch.equal(full, (idx // 4) * 7 + idx % 4)
-    assert bool((full[1:] > full[:-1]).all())
-    r = torch.arange(2 * 5 * 7 * 3, dtype=torch.float32).reshape(2, 35, 3)
-    kept = patch_match.kept_ref_rows(r, 5, 7, 3, 4)
-    assert kept.is_contiguous() and kept.shape == (2, 12, 3)
-    assert torch.equal(kept, r[:, patch_match.full_ref_index(
-        torch.arange(12), 7, 4)])
+    vh, vw = _exact_hw(fi, VALID[case])
+    rows = max(vh - 2, 0) * max(vw - 2, 0)
+    assert seen == ([(rows, rows, None)] if rows else [])
 
 
 def _tie_feats(h=10, w=10, c=8):
@@ -134,50 +121,31 @@ def _tie_feats(h=10, w=10, c=8):
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
-def test_exact_ties_across_excluded_columns_keep_the_lowest_index(dtype):
-    """Patch (0, x) ties with (1, x), (2, x) ... beyond the excluded
-    columns of each row: the lowest full index, x, wins, as in JAX; queries
-    whose own column is excluded tie between kept columns, and JAX's pick
-    (the lowest) is the port's."""
+def test_exact_ties_keep_the_lowest_index(dtype):
+    """Patch (0, x) ties with (1, x), (2, x) ... on the exact 6 x 5 grid:
+    the lowest index, x, wins, as in the JAX package's padded run."""
     fi, fr = _tie_feats()
-    valid = (8, 7)            # 8 x 8 descriptors, 6 x 5 kept
+    valid = (8, 7)            # 8 x 8 descriptors padded, 6 x 5 exact
     want_i, want_v = _jax(fi, fr, dtype, valid)
     got_i, got_v = _port(fi, fr, dtype, valid)
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_allclose(got_v, want_v, rtol=0, atol=TOL)
-    cols = np.broadcast_to(np.arange(8), (8, 8))
-    assert np.array_equal(got_i[0][:, :5], cols[:, :5])
-    assert np.all(got_i[0][:, 6:] == 0)   # (6,7,0), (7,0,1): column 0
+    assert np.array_equal(got_i[0], np.broadcast_to(np.arange(5), (6, 5)))
 
 
-def test_plain_kernel_version_on_kept_rows_is_first_maximum():
-    """``match_argmax`` on the kept rows against the whole grid with the
-    bias: the mapped indices and the values agree, ties included."""
-    fi, fr = _tie_feats()
-    q = torch.from_numpy(fi).reshape(1, 100, 8).repeat(1, 1, 9)
-    r = torch.from_numpy(fr).reshape(1, 100, 8).repeat(1, 1, 9)
-    col = torch.arange(100) % 10
-    row = torch.arange(100) // 10
-    bias = torch.where((row < 6) & (col < 5), 0.0, -1e30)
-    want_i, want_v = kernel.match_argmax(q, r, bias)
-    kept = patch_match.kept_ref_rows(r, 10, 10, 6, 5)
-    got_i, got_v = kernel.match_argmax(q, kept)
-    assert torch.equal(patch_match.full_ref_index(got_i, 10, 5), want_i)
-    assert torch.equal(got_v, want_v)
-
-
-def test_banded_compacted_match_equals_jax(tmp_path):
-    """Two ranks, each its band of the query rows against the whole
-    reference with excluded rows and columns, f32 and bf16: the bands'
-    rows together are JAX's whole match."""
+def test_banded_exact_match_equals_jax_padded(tmp_path):
+    """Two ranks, each its band of the exact query rows against the whole
+    exact reference, f32 and bf16: the bands' rows together are the JAX
+    package's padded match (10 exact rows, which split into bands of 5)."""
     fi, fr = _feats(13)
-    valid = (9, 10)
+    valid = (10, 9)
+    h, w = valid
     jobs = []
     for dtype in DTYPES:
         path = tmp_path / f'in_{dtype}.pt'
-        torch.save({'feat_in': torch.from_numpy(fi),
-                    'feat_ref': torch.from_numpy(fr),
-                    'valid_shape': valid, 'compute_dtype': dtype}, path)
+        torch.save({'feat_in': torch.from_numpy(fi[:, :h, :w].copy()),
+                    'feat_ref': torch.from_numpy(fr[:, :h, :w].copy()),
+                    'compute_dtype': dtype}, path)
         jobs.append((['match_band', str(path), str(tmp_path / f'{dtype}')],
                      2))
     results = child.spawn(jobs, timeout=100)
@@ -188,9 +156,9 @@ def test_banded_compacted_match_equals_jax(tmp_path):
         want_i, want_v = _jax(fi, fr, dtype, valid)
         ranks = [torch.load(tmp_path / f'{dtype}.rank{r}', weights_only=False)
                  for r in range(2)]
-        assert [r['band'] for r in ranks] == [(0, 6), (6, 6)]
+        assert [r['band'] for r in ranks] == [(0, 5), (5, 5)]
         got_i = torch.cat([r['idx'] for r in ranks], dim=1).numpy()
         got_v = torch.cat([r['val'] for r in ranks], dim=1).numpy()
-        assert ranks[1]['idx'].shape[1] == 4   # query rows 6-9 of 10
+        assert ranks[1]['idx'].shape[1] == 3   # query rows 5-7 of 8
         np.testing.assert_array_equal(got_i, want_i)
         np.testing.assert_allclose(got_v, want_v, rtol=0, atol=TOL)

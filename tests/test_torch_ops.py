@@ -47,21 +47,16 @@ def _t(a):
 # --------------------------------------------------------------- resize
 @pytest.mark.parametrize('valid', [None, (5, 4)])
 def test_upscale_matches_jax(valid):
+    """The port upsamples the exact ``valid`` rows and columns; the JAX
+    package the whole batch, clamped at the last valid row and column,
+    cut to the valid region."""
     x = np.random.RandomState(0).randn(2, 7, 6, 3).astype(np.float32)
+    vh, vw = x.shape[1:3] if valid is None else valid
     want = np.asarray(jax_resize.upscale(jnp.asarray(x), 4, 'bilinear',
                                          valid_shape=valid))
-    got = resize.upscale(_t(x), 4, 'bilinear', valid_shape=valid).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL)
-
-
-def test_upscale_valid_shape_reproduces_exact_run():
-    """The left/top edge and the clamp at the last real row: the padded
-    run's valid crop equals the exact-shape run (PARITY.md round 3)."""
-    x = np.random.RandomState(1).randn(1, 5, 4, 3).astype(np.float32)
-    padded = np.pad(x, ((0, 0), (0, 3), (0, 4), (0, 0)))
-    exact = resize.upscale(_t(x), 4).numpy()
-    got = resize.upscale(_t(padded), 4, valid_shape=(5, 4)).numpy()
-    np.testing.assert_array_equal(got[:, :20, :16], exact)
+    got = resize.upscale(_t(x[:, :vh, :vw]), 4, 'bilinear').numpy()
+    np.testing.assert_allclose(got, want[:, :4 * vh, :4 * vw], rtol=0,
+                               atol=F32_TOL)
 
 
 def test_pixel_shuffle_channel_order_matches_jax():
@@ -74,13 +69,21 @@ def test_pixel_shuffle_channel_order_matches_jax():
 # ----------------------------------------------------------------- flow
 @pytest.mark.parametrize('valid', [None, (7, 6)])
 def test_pre_offsets_match_jax(valid):
-    idx = np.random.RandomState(3).randint(0, 30, (2, 6, 5)).astype(np.int32)
-    want = jax_flow.batched_pre_offsets(jnp.asarray(idx), valid_shape=valid)
-    got = flow.batched_pre_offsets(_t(idx), valid_shape=valid)
+    """The port's pre-offsets of matches on the exact (vh-2) x (vw-2)
+    grid; the JAX package's of the same matches on the padded 6 x 5 grid
+    with ``valid_shape``, cut to the valid region."""
+    vh, vw = (8, 7) if valid is None else valid
+    rng = np.random.RandomState(3)
+    idx = rng.randint(0, (vh - 2) * (vw - 2), (2, vh - 2, vw - 2))
+    padded = rng.randint(0, 30, (2, 6, 5))
+    padded[:, :vh - 2, :vw - 2] = (idx // (vw - 2)) * 5 + idx % (vw - 2)
+    want = jax_flow.batched_pre_offsets(jnp.asarray(padded.astype(np.int32)),
+                                        valid_shape=valid)
+    got = flow.batched_pre_offsets(_t(idx.astype(np.int32)))
     assert set(got) == set(want)
-    for key in want:
-        np.testing.assert_array_equal(got[key].numpy(),
-                                      np.asarray(want[key]))
+    for key, f in (('relu3_1', 1), ('relu2_1', 2), ('relu1_1', 4)):
+        np.testing.assert_array_equal(
+            got[key].numpy(), np.asarray(want[key])[:, :, :vh * f, :vw * f])
 
 
 # ---------------------------------------------------------- patch match
@@ -98,18 +101,21 @@ def test_patch_match_matches_jax():
                                atol=F32_TOL)
 
 
-def test_batched_patch_match_valid_shape_matches_jax():
+def test_batched_patch_match_exact_shape_matches_jax_padded():
+    """The port's match of the exact 9 x 10 features; the JAX package's of
+    the 12 x 12 ones with ``valid_shape``, cut to the valid query region,
+    its indices read on the valid 7 x 8 grid."""
     fi, fr = _feats(6, (2, 12, 12, 8)), _feats(7, (2, 12, 12, 8))
     vs = (9, 10)
-    want_i, want_v = jax_pm.batched_patch_match(
-        jnp.asarray(fi), jnp.asarray(fr), valid_shape=vs)
-    got_i, got_v = patch_match.batched_patch_match(_t(fi), _t(fr),
-                                                   valid_shape=vs)
-    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
-    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=0,
-                               atol=F32_TOL)
-    assert np.all(got_i.numpy() // 10 < vs[0] - 2)
-    assert np.all(got_i.numpy() % 10 < vs[1] - 2)
+    want_i, want_v = (np.asarray(a)[:, :7, :8] for a in
+                      jax_pm.batched_patch_match(jnp.asarray(fi),
+                                                 jnp.asarray(fr),
+                                                 valid_shape=vs))
+    got_i, got_v = patch_match.batched_patch_match(_t(fi[:, :9, :10]),
+                                                   _t(fr[:, :9, :10]))
+    np.testing.assert_array_equal(got_i.numpy(),
+                                  (want_i // 10) * 8 + want_i % 10)
+    np.testing.assert_allclose(got_v.numpy(), want_v, rtol=0, atol=F32_TOL)
 
 
 def test_patch_match_bf16_operands_match_jax():

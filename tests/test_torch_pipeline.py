@@ -3,8 +3,10 @@
 The port's RefRestorationModel (feed_data / test / cropped_output) runs
 against the JAX chain ContrasExtractorSep -> CorrespondenceGenerationArch ->
 RestorationNet on the same weights (converted by utils.weights) and the
-same numpy images: at an exact bucket shape, at an off-bucket shape that
-the port pads and crops while JAX runs the exact shape, and with the bf16
+same numpy images: on the JAX package's 16-LR-pixel bucket, and off it at
+even and odd sizes, which the port runs at their own shape while the JAX
+chain pads them to the bucket (as its model's feed_data does, passing
+``valid_shape``) and is cut back to the valid region; and with the bf16
 serving knobs on both sides. The match indices are held equal first.
 """
 from importlib import import_module
@@ -24,6 +26,7 @@ from c2matching_tpu_torch.utils import weights
 jax_pm = import_module('c2matching_tpu.ops.patch_match')
 
 NGF, N_BLOCKS = 16, 2
+BUCKET = 16     # the JAX package's LR bucket
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -85,20 +88,38 @@ def _request(seed, h, w):
             'img_ref': ref[None]}
 
 
+def _to_bucket(x, mult):
+    """Zero-pad NHWC bottom/right up to a multiple of ``mult``."""
+    h, w = x.shape[1:3]
+    return np.pad(x, ((0, 0), (0, (-h) % mult), (0, (-w) % mult), (0, 0)))
+
+
 def _jax_chain(p, batch, match_dtype=None, gather_dtype=None):
+    """The JAX chain on the batch padded to the bucket with its valid
+    sizes, as the JAX model's feed_data and test run it: the match indices
+    on the valid (h-2) x (w-2) query grid, read on that grid, and the
+    output cut to (4h, 4w)."""
     ext = jax_archs.ContrasExtractorSep()
     cg = jax_archs.CorrespondenceGenerationArch(match_dtype=match_dtype)
     g = jax_archs.RestorationNet(ngf=NGF, n_blocks=N_BLOCKS, groups=8,
                                  gather_dtype=gather_dtype)
-    up, ref = jnp.asarray(batch['img_in_up']), jnp.asarray(batch['img_ref'])
-    feats = ext.apply(p['ext'], up, ref)
+    h, w = batch['img_in_lq'].shape[1:3]
+    vs_lr = None if not (h % BUCKET or w % BUCKET) else (h, w)
+    vs_hr = None if vs_lr is None else (4 * h, 4 * w)
+    up = jnp.asarray(_to_bucket(batch['img_in_up'], 4 * BUCKET))
+    ref = jnp.asarray(_to_bucket(batch['img_ref'], 4 * BUCKET))
+    lq = jnp.asarray(_to_bucket(batch['img_in_lq'], BUCKET))
+    feats = ext.apply(p['ext'], up, ref, vs_hr)
     idx, _ = jax_pm.batched_patch_match(
         feats['dense_features1'], feats['dense_features2'],
-        compute_dtype=match_dtype)
-    pre, rf = cg.apply(p['cg'], feats, ref)
-    out = g.apply({'params': p['g']}, jnp.asarray(batch['img_in_lq']), pre,
-                  rf)
-    return np.asarray(idx), np.asarray(out)
+        compute_dtype=match_dtype, valid_shape=vs_lr)
+    pre, rf = cg.apply(p['cg'], feats, ref, vs_hr)
+    out = g.apply({'params': p['g']}, lq, pre, rf, vs_lr)
+    idx = np.asarray(idx)
+    width = idx.shape[2]
+    idx = idx[:, :h - 2, :w - 2]
+    return ((idx // width) * (w - 2) + idx % width,
+            np.asarray(out)[:, :4 * h, :4 * w])
 
 
 def _port(p, batch, match_dtype=None, gather_dtype=None):
@@ -122,37 +143,30 @@ def _port(p, batch, match_dtype=None, gather_dtype=None):
     model.feed_data(batch)
     model.test()
     out = model.cropped_output().numpy()
-    # the match indices of the padded run, on the valid query region
-    vs_lr = model._valid_lr
-    vs_hr = None if vs_lr is None else (4 * vs_lr[0], 4 * vs_lr[1])
     with torch.no_grad():
         feats = model.net_extractor(model.batch['img_in_up'],
-                                    model.batch['img_ref'], vs_hr)
+                                    model.batch['img_ref'])
         idx, _ = batched_patch_match(
             feats['dense_features1'], feats['dense_features2'],
-            compute_dtype=match_dtype, valid_shape=vs_lr)
+            compute_dtype=match_dtype)
     return model, idx.numpy(), out
 
 
-def _rows_cols(idx, width):
-    return np.stack([idx // width, idx % width])
-
-
-@pytest.mark.parametrize('lr_shape', [(16, 16), (14, 11)],
-                         ids=['on_bucket', 'off_bucket'])
+@pytest.mark.parametrize('lr_shape', [(16, 16), (14, 11), (13, 9), (17, 15)],
+                         ids=['on_bucket', 'off_bucket', 'odd_13x9',
+                              'odd_17x15'])
 def test_main_path_matches_jax(params, lr_shape):
-    """f32 config. Off the bucket the port pads LR 14x11 to 16x16 and crops;
-    JAX runs the exact shape. f32 convs in XLA:CPU and torch sum in other
-    orders, so outputs agree to 1e-4 (values of O(1))."""
+    """f32 config. The port runs LR 14x11, 13x9 and 17x15 at their own
+    shape, JAX padded to 16x16 (32x32) and cut back. f32 convs in XLA:CPU
+    and torch sum in other orders, so outputs agree to 1e-4 (values of
+    O(1))."""
     h, w = lr_shape
     batch = _request(0, h, w)
     want_idx, want = _jax_chain(params, batch)
     model, idx, got = _port(params, batch)
-    assert (model._valid_lr is None) == (lr_shape == (16, 16))
-    hh, ww = want_idx.shape[1:]
-    np.testing.assert_array_equal(
-        _rows_cols(idx, idx.shape[2])[:, :, :hh, :ww],
-        _rows_cols(want_idx, ww))
+    assert tuple(model.batch['img_in_lq'].shape) == (1, h, w, 3)
+    assert idx.shape == want_idx.shape == (1, h - 2, w - 2)
+    np.testing.assert_array_equal(idx, want_idx)
     assert got.shape == want.shape == (1, 4 * h, 4 * w, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 

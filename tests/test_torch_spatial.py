@@ -6,20 +6,20 @@ package's ``model.test()`` on its 8 CPU devices.
 - The tiny eval model of ``tests/test_parallel.py`` (ngf 8, 1 block,
   groups 8; the VGGs as shipped) on the JAX model's weights, carried by
   ``utils/weights.py``, its DynAggs' offset convs made non-zero: at world
-  2 and 4 every rank's gathered output is within 1e-5 of one process's
-  and within 1e-4 of the JAX package's with and without
+  2, 3 and 4 every rank's gathered output is within 1e-5 of one
+  process's and within 1e-4 of the JAX package's with and without
   ``val_spatial_shard`` (the tolerance of ``tests/test_parallel.py:140``),
-  on an on-bucket HR 64x64 request and an off-bucket HR 56x60 one; the
-  offset statistics are the whole image's. At world 8, an HR 52x60
-  request (13 LR rows padded to 16): the last band lies wholly below the
-  valid rows, and the output is one process's and the JAX package's all
-  the same; the bilinear x4 of such bands alone, in one process. At
-  world 3 the 16 LR rows do not split: every rank computes the whole
-  image, and logs it.
+  on an on-bucket HR 64x64 request, an off-bucket HR 56x60 one and an
+  HR 20x32 one, which the port runs at their own 16, 14 and 5 LR rows
+  and the JAX package pads to 16 and cuts back. The port splits any
+  height into bands that differ by a row at most (14 rows at world 4:
+  3, 4, 3, 4); the offset statistics are the whole image's. Where the
+  bands would be under 2 rows (5 rows at world 3 and 4) every rank
+  computes the whole image, and logs it.
 - The banded ops, 2 ranks against one process on the same inputs:
-  ``exchange_halo``, a Conv2d + residual stack with valid masks,
-  ``upscale``, ``batched_patch_match`` with ``batched_pre_offsets`` (bands
-  of 4 rows, and of 2, where the last band holds no query row), the
+  ``exchange_halo``, a Conv2d + residual stack, ``upscale``,
+  ``batched_patch_match`` with ``batched_pre_offsets`` (bands of 4 rows,
+  of 2, where the last band holds no query row, and of 3 and 4), the
   deformable im2col and conv at padding ``1 - row0``, bit for bit on the
   plain version; ``torch.library.opcheck`` of the im2col operator there.
 - ``validation`` at 2 ranks with the option on a 3-image synth set: the
@@ -44,7 +44,6 @@ from c2matching_tpu.models import create_model as jax_create_model
 from c2matching_tpu.utils import dict_to_nonedict as jax_nonedict
 from c2matching_tpu_torch import data, parallel
 from c2matching_tpu_torch.models import create_model
-from c2matching_tpu_torch.ops import resize
 from c2matching_tpu_torch.parallel import spatial
 from c2matching_tpu_torch.scripts import make_synth_dataset as synth
 from c2matching_tpu_torch.test import run as run_runner
@@ -52,11 +51,9 @@ from c2matching_tpu_torch.utils import dict_to_nonedict, png, weights
 
 REPO = child.REPO
 SMOKE = osp.join(REPO, 'options', 'test', 'test_synth_smoke.yml')
-REQUESTS = {'on_bucket': (64, 64), 'off_bucket': (56, 60)}
-WORLDS = (2, 4)
-# at 8 ranks, HR 52 rows: 13 LR rows padded to 16, bands of 2; the last
-# band (rows 14-15) lies wholly below the valid rows
-PAD_WORLD, PAD_REQUEST = 8, {'pad_band': (52, 60)}
+REQUESTS = {'on_bucket': (64, 64), 'off_bucket': (56, 60),
+            'few_rows': (20, 32)}
+WORLDS = (2, 3, 4)
 PORT_TOL = 1e-5      # banded vs one process of the port
 JAX_TOL = 1e-4       # the port vs the JAX package (f32 convs in XLA:CPU and
                      # torch sum in other orders; values of O(1))
@@ -149,13 +146,10 @@ def runs(tmp_path_factory):
                  _np_tree(model_r.vars_map))}
     torch.save(state, tmp / 'weights.pt')
     requests = {}
-    for i, (name, (h, w)) in enumerate({**REQUESTS, **PAD_REQUEST}.items()):
+    for i, (name, (h, w)) in enumerate(REQUESTS.items()):
         for k, v in _request(i, h, w).items():
             requests[f'{name}/{k}'] = v
-    for path, names in (('requests.npz', REQUESTS),
-                        ('requests_pad.npz', PAD_REQUEST)):
-        np.savez(tmp / path, **{k: v for k, v in requests.items()
-                                if k.split('/')[0] in names})
+    np.savez(tmp / 'requests.npz', **requests)
 
     root = str(tmp / 'synth')
     synth.write_dataset(root, n=N_VAL, size=(VAL_SIZE,))
@@ -177,12 +171,10 @@ def runs(tmp_path_factory):
             os.environ['C2MATCHING_ROOT'] = old_root
     wait = child.start(
         [(['spatial'] + spatial_args + [str(tmp / f'world{n}')], n)
-         for n in WORLDS + (3,)]
+         for n in WORLDS]
         + [(['spatial_units', str(tmp / 'units')], 2),
            (['validate_spatial', str(tmp / 'val.json'),
-             str(tmp / 'val_means')], 2),
-           (['spatial', str(tmp / 'requests_pad.npz'), str(tmp / 'weights.pt'),
-             str(tmp / f'world{PAD_WORLD}')], PAD_WORLD)])
+             str(tmp / 'val_means')], 2)])
     try:
         old = torch.get_num_threads()
         torch.set_num_threads(2)
@@ -191,7 +183,7 @@ def runs(tmp_path_factory):
             for spatial_opt in (False, True):
                 # feed_data reads the option at each call
                 model_r.opt['val_spatial_shard'] = spatial_opt
-                for name in {**REQUESTS, **PAD_REQUEST}:
+                for name in REQUESTS:
                     model_r.feed_data({k.split('/')[1]: v
                                        for k, v in requests.items()
                                        if k.startswith(f'{name}/')})
@@ -200,7 +192,7 @@ def runs(tmp_path_factory):
                             s.data.shape[1] == 2 for s in
                             model_r.batch['img_in_lq'].addressable_shards)
                     model_r.test()
-                    h, w = {**REQUESTS, **PAD_REQUEST}[name]
+                    h, w = REQUESTS[name]
                     jax_out[name, spatial_opt] = np.asarray(
                         jax.device_get(model_r.output))[:, :h, :w]
             one = child.spatial_outputs(child.spatial_model(state),
@@ -227,9 +219,9 @@ def runs(tmp_path_factory):
         for rc, text in out:
             assert rc == 0, text[-4000:]
     ranks = {n: [torch.load(f'{tmp}/world{n}.rank{r}', weights_only=False)
-                 for r in range(n)] for n in WORLDS + (3, PAD_WORLD)}
+                 for r in range(n)] for n in WORLDS}
     return {'tmp': tmp, 'jax': jax_out, 'one': one, 'ranks': ranks,
-            'texts': dict(zip(WORLDS + (3,), results[:3])),
+            'texts': dict(zip(WORLDS, results[:3])),
             'units_one': units,
             'units': [torch.load(f'{tmp}/units.rank{r}', weights_only=False)
                       for r in range(2)],
@@ -245,19 +237,30 @@ def _one_process_validation(root, out):
     return model.validation(loader, 0, None)
 
 
+def _split(lr, world):
+    """The LR band bounds of ``lr`` rows over ``world`` ranks, or None
+    where the bands would be under 2 rows."""
+    if lr // world < 2:
+        return None
+    return tuple(k * lr // world for k in range(world + 1))
+
+
 @pytest.mark.parametrize('world', WORLDS)
 @pytest.mark.parametrize('name', list(REQUESTS))
 def test_banded_test_equals_one_process(runs, world, name):
-    """Each rank computed its band (LR rows r*16/world on) and holds the
-    whole gathered output."""
+    """Each rank computed its band of the request's own LR rows (rows
+    floor(r h / world) on), and holds the whole gathered output; only the
+    5-row request at world 3 and 4 is computed whole."""
     want = runs['one'][name]['out']
     assert runs['one'][name]['band'] is None
     h, w = REQUESTS[name]
     assert want.shape == (1, h, w, 3)
+    bounds = _split(h // 4, world)
+    assert (bounds is None) == (name == 'few_rows' and world > 2)
     for rank, got in enumerate(runs['ranks'][world]):
         band = got[name]['band']
-        assert band == parallel.Band(rank, world, rank * 16 // world,
-                                     16 // world, 16)
+        assert band == (None if bounds is None
+                        else parallel.Band(rank, bounds))
         assert got[name]['out'].shape == want.shape
         np.testing.assert_allclose(got[name]['out'], want, rtol=0,
                                    atol=PORT_TOL)
@@ -285,76 +288,43 @@ def test_offset_stats_are_the_whole_images(runs, world):
             for k, v in want.items():
                 assert v > 0
                 assert abs(got[name]['stats'][k] - v) <= 1e-6 * v, (k, v)
-        stats = got['collectives']
-        assert stats['halo_exchanges'] > 0 and stats['halo_bytes'] > 0
-        # a request: the reference's features (contrastive, VGG19 x 3) and
-        # the output
-        assert stats['gathers'] == 2 * 5
-        assert stats['allreduces'] == 2      # offset statistics
-
-
-@pytest.mark.parametrize('spatial_opt', (True, False),
-                         ids=('jax_spatial', 'jax_replicated'))
-def test_band_wholly_in_the_padding(runs, spatial_opt):
-    """8 ranks on HR 52 rows (13 LR rows padded to 16): the last band's
-    rows all lie below the valid ones, and each rank's gathered output
-    and offset statistics are one process's, and the output the JAX
-    package's."""
-    name, = PAD_REQUEST
-    want = runs['one'][name]
-    for rank, got in enumerate(runs['ranks'][PAD_WORLD]):
-        assert got[name]['band'] == parallel.Band(rank, PAD_WORLD, 2 * rank,
-                                                  2, 16)
-        np.testing.assert_allclose(got[name]['out'], want['out'], rtol=0,
-                                   atol=PORT_TOL)
-        np.testing.assert_allclose(got[name]['out'],
-                                   runs['jax'][name, spatial_opt], rtol=0,
-                                   atol=JAX_TOL)
-        for k, v in want['stats'].items():
-            assert abs(got[name]['stats'][k] - v) <= 1e-6 * v, (k, v)
-
-
-def test_band_resize_below_the_valid_rows():
-    """The bilinear x4 of 8 bands of 2 rows of a 16-row axis whose 7
-    first rows are valid, each from its rows and one more each way: the
-    whole axis's valid outputs; a band below them gives padding and does
-    not raise."""
-    x = torch.from_numpy(np.random.RandomState(0).rand(1, 16, 3, 2).astype(
-        np.float32))
-    want = resize._axis_resize(x, 1, 64, valid_n=7)
-    padded = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))
-    for rank in range(8):
-        band = parallel.Band(rank, 8, 2 * rank, 2, 16)
-        got = resize._axis_resize(
-            padded[:, band.row0:band.stop + 2], 1, 64, valid_n=7, n=16,
-            out=range(4 * band.row0, 4 * band.stop), src0=band.row0 - 1)
-        assert got.shape == (1, 8, 3, 2)
-        valid = min(8, max(0, 28 - 4 * band.row0))
-        assert torch.equal(got[:, :valid],
-                           want[:, 4 * band.row0:4 * band.row0 + valid])
+            if got[name]['band'] is None:
+                continue
+            stats = got[name]['collectives']
+            assert stats['halo_exchanges'] > 0 and stats['halo_bytes'] > 0
+            # the reference's features (contrastive, VGG19 x 3) and the
+            # output
+            assert stats['gathers'] == 5
+            assert stats['allreduces'] == 1      # offset statistics
 
 
 def test_whole_image_where_rows_do_not_split(runs):
-    """16 LR rows over 3 ranks: every rank computes the whole image (the
-    JAX package's replicate branch), with the same output, and logs it
-    once a shape."""
-    for rank, got in enumerate(runs['ranks'][3]):
-        for name in REQUESTS:
-            assert got[name]['band'] is None
-            np.testing.assert_allclose(got[name]['out'],
-                                       runs['one'][name]['out'], rtol=0,
-                                       atol=PORT_TOL)
-        assert got['collectives']['halo_exchanges'] == 0
-        text = runs['texts'][3][rank][1]
-        assert text.count('LR height 16 does not split into 3 bands') == 1
+    """5 LR rows over 3 and 4 ranks: every rank computes the whole image
+    (the JAX package's replicate branch), with the same output, without a
+    collective, and logs it once a shape."""
+    for world in (3, 4):
+        for rank, got in enumerate(runs['ranks'][world]):
+            got = got['few_rows']
+            assert got['band'] is None
+            np.testing.assert_allclose(got['out'],
+                                       runs['one']['few_rows']['out'],
+                                       rtol=0, atol=PORT_TOL)
+            assert not any(got['collectives'].values())
+            text = runs['texts'][world][rank][1]
+            assert text.count(f'LR height 5 does not split into {world} '
+                              'bands') == 1
 
 
 def test_band_for(caplog):
     assert parallel.band_for(16, 0, 1) is None
-    assert parallel.band_for(16, 3, 4) == parallel.Band(3, 4, 12, 4, 16)
+    assert parallel.band_for(16, 3, 4) == parallel.Band(3, (0, 4, 8, 12, 16))
+    band = parallel.band_for(14, 1, 4)
+    assert (band.row0, band.rows, band.total, band.world) == (3, 4, 14, 4)
+    assert band.sizes() == [3, 4, 3, 4]
     assert parallel.band_for(32, 1, 2).scaled(4) == parallel.Band(
-        1, 2, 64, 64, 128)
+        1, (0, 64, 128))
     assert parallel.band_for(32, 1, 2).scaled(4).scaled(1 / 2).row0 == 32
+    assert parallel.band_for(85, 1, 2).scaled(4).stop == 340
     with pytest.raises(ValueError, match='does not scale'):
         parallel.band_for(16, 1, 8).scaled(1 / 4)
     logger = logging.getLogger('base')
@@ -364,12 +334,13 @@ def test_band_for(caplog):
         with caplog.at_level(logging.WARNING, logger='base'):
             assert parallel.band_for(16, 0, 16) is None    # bands of 1 row
             assert parallel.band_for(16, 0, 16) is None
-            assert parallel.band_for(48, 2, 5) is None     # indivisible
+            assert parallel.band_for(48, 1, 5).rows == 10  # 9 or 10 rows
+            assert parallel.band_for(9, 2, 5) is None      # 1 or 2 rows
     finally:
         logger.propagate = propagate
     lines = [r.getMessage() for r in caplog.records]
     assert len(lines) == 2, lines
-    assert 'LR height 16' in lines[0] and 'LR height 48' in lines[1]
+    assert 'LR height 16' in lines[0] and 'LR height 9' in lines[1]
 
 
 def _whole_rows(runs, h, name, rank, scale=1):
@@ -392,8 +363,7 @@ def test_exchange_halo(runs, h):
 @pytest.mark.parametrize('h', child.UNIT_HEIGHTS)
 @pytest.mark.parametrize('name,scale', (('convs', 1), ('upscale', 4)))
 def test_banded_convs_and_upscale(runs, h, name, scale):
-    """A Conv2d and two residual blocks with valid masks (rows >= 7
-    masked), and the bilinear x4 with its clamp at the 7th row: the band's
+    """A Conv2d and two residual blocks, and the bilinear x4: the band's
     rows of the whole image's result."""
     for rank in range(2):
         _, want = _whole_rows(runs, h, name, rank, scale)

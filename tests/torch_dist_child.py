@@ -19,14 +19,14 @@ bounded time for each process. Its modes:
   count of saved images.
 - ``spatial <requests .npz> <weights .pt> <out>``: the tiny eval model
   (``SPATIAL_NETS``, ``val_spatial_shard: true``) on the given weights:
-  ``feed_data`` / ``test`` on each request; each rank writes its cropped
-  outputs, offset statistics, band and collective counts.
+  ``feed_data`` / ``test`` on each request; each rank writes each
+  request's cropped output, offset statistics, band and collective
+  counts.
 - ``spatial_units <out>``: the banded ops on ``unit_inputs()``; each rank
   writes its results.
 - ``match_band <inputs .pt> <out>``: ``batched_patch_match`` on the rank's
   band of the inputs' ``feat_in`` against the whole ``feat_ref``, with
-  their ``valid_shape`` and ``compute_dtype``; each rank writes its
-  indices and values.
+  their ``compute_dtype``; each rank writes its indices and values.
 
 ``start(jobs)`` starts the jobs and returns the wait of ``spawn``.
 """
@@ -191,18 +191,22 @@ def spatial_model(weights, spatial=True):
 
 
 def spatial_outputs(model, requests):
-    """{request: {'out', 'stats', 'band'}} of the model's ``feed_data`` /
-    ``test`` / ``cropped_output`` on each request of ``requests`` (an .npz's
-    arrays named '<request>/<key>')."""
+    """{request: {'out', 'stats', 'band', 'collectives'}} of the model's
+    ``feed_data`` / ``test`` / ``cropped_output`` on each request of
+    ``requests`` (an .npz's arrays named '<request>/<key>'); 'collectives'
+    are the request's own ``spatial.stats``."""
+    from c2matching_tpu_torch.parallel import spatial
     out = {}
     for name in sorted({k.split('/')[0] for k in requests}):
+        spatial.reset_stats()
         model.feed_data({k.split('/')[1]: requests[k] for k in requests
                          if k.startswith(f'{name}/')})
         model.test()
         out[name] = {'out': model.cropped_output().numpy(),
                      'stats': {k: float(v) for k, v in
                                model._offset_warn_stats.items()},
-                     'band': model._band}
+                     'band': model._band,
+                     'collectives': dict(spatial.stats)}
     return out
 
 
@@ -211,14 +215,13 @@ def _spatial(requests_path, weights_path, out_path):
     import numpy as np
     import torch
     import torch.distributed as dist
-    from c2matching_tpu_torch.parallel import init_distributed, spatial
+    from c2matching_tpu_torch.parallel import init_distributed
     logging.basicConfig(level=logging.INFO, format='%(message)s')
     torch.set_num_threads(1)
     rank, _, _ = init_distributed({}, 'pytorch', 'cpu')
     try:
         model = spatial_model(torch.load(weights_path, weights_only=True))
         out = spatial_outputs(model, dict(np.load(requests_path)))
-        out['collectives'] = dict(spatial.stats)
         torch.save(out, f'{out_path}.rank{rank}')
     finally:
         dist.destroy_process_group()
@@ -243,9 +246,9 @@ def unit_inputs(h):
             'weight': t(9, 16, 8, scale=0.1), 'bias': t(8)}
 
 
-UNIT_VALID = (7, 5)     # the valid (unpadded) rows and columns of the units
-UNIT_HEIGHTS = (8, 4)   # the images' rows: bands of 4, and of 2 (at world
-                        # 2 the last band then holds no query row)
+UNIT_HEIGHTS = (8, 4, 7)    # the images' rows: bands of 4, of 2 (at world
+                            # 2 the last band then holds no query row), and
+                            # of 3 and 4
 
 
 def unit_nets():
@@ -262,7 +265,6 @@ def unit_ops(inputs, band=None):
     band's rows of the per-pixel inputs, the reference features and the
     deformable conv's x whole): {name: result}."""
     import torch
-    from c2matching_tpu_torch.models.archs.arch_util import valid_mask
     from c2matching_tpu_torch.ops.deform_conv import (deform_im2col,
                                                       modulated_deform_conv)
     from c2matching_tpu_torch.ops.flow import batched_pre_offsets
@@ -275,18 +277,13 @@ def unit_ops(inputs, band=None):
     if band is not None:
         out['halo'] = exchange_halo(take(inputs['image']), band, 2, 1)
     first, stack = unit_nets()
-    x = take(inputs['conv'])
-    mask = valid_mask(x, UNIT_VALID, row0)
     with torch.no_grad():
-        y = first(x, band) * mask
-        out['convs'] = stack(y, mask, band)
-    out['upscale'] = upscale(take(inputs['lr']), 4, valid_shape=UNIT_VALID,
-                             band=band)
+        out['convs'] = stack(first(take(inputs['conv']), band), band)
+    out['upscale'] = upscale(take(inputs['lr']), 4, band=band)
     idx, val = batched_patch_match(take(inputs['feat_in']),
-                                   inputs['feat_ref'],
-                                   valid_shape=UNIT_VALID, band=band)
+                                   inputs['feat_ref'], band=band)
     out['match_idx'], out['match_val'] = idx, val
-    pre = batched_pre_offsets(idx, valid_shape=UNIT_VALID, band=band)
+    pre = batched_pre_offsets(idx, band=band)
     out.update({f'pre_{k}': v for k, v in pre.items()})
     padding = (1 - row0, 1)
     offset, mask = take(inputs['offset']), take(inputs['mask'])
@@ -326,8 +323,7 @@ def _match_band(in_path, out_path):
         band = band_for(feat_in.shape[1], rank, world)
         idx, val = batched_patch_match(
             band.take(feat_in), inputs['feat_ref'],
-            compute_dtype=inputs['compute_dtype'],
-            valid_shape=inputs['valid_shape'], band=band)
+            compute_dtype=inputs['compute_dtype'], band=band)
         torch.save({'band': (band.row0, band.rows), 'idx': idx, 'val': val},
                    f'{out_path}.rank{rank}')
     finally:
