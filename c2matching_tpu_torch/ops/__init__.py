@@ -10,10 +10,12 @@ from .dcn_window import (modulated_deform_conv_windowed,
 from .dcn_window_kernel import (window_contract, window_contract_plain,
                                 window_conv, window_conv_plain)
 from .deform_conv import (deform_col2im, deform_conv, deform_conv_backward,
-                          deform_conv_backward_plain, deform_im2col,
+                          deform_conv_backward_plain, deform_conv_fused,
+                          deform_conv_fused_plain, deform_im2col,
                           deform_im2col_backward_plain, deform_im2col_plain,
-                          deform_psroi_pooling, modulated_deform_conv,
-                          split_backward, torch_weight_to_kco)
+                          deform_psroi_pooling, fused_applicable,
+                          modulated_deform_conv, split_backward,
+                          torch_weight_to_kco)
 from .flow import (batched_pre_offsets, flow_warp, index_to_flow,
                    match_to_pre_offsets, resize_flow, shifted_offsets,
                    tensor_shift, upsample_flow)
@@ -26,9 +28,11 @@ __all__ = [
     'batched_patch_match', 'batched_pre_offsets', 'bilinear_resize',
     'conv_epilogue', 'conv_epilogue_plain',
     'deform_col2im', 'deform_conv', 'deform_conv_backward',
-    'deform_conv_backward_plain', 'deform_im2col',
+    'deform_conv_backward_plain', 'deform_conv_fused',
+    'deform_conv_fused_plain', 'deform_im2col',
     'deform_im2col_backward_plain', 'deform_im2col_plain',
-    'deform_psroi_pooling', 'flow_warp', 'index_to_flow', 'match_argmax',
+    'deform_psroi_pooling', 'flow_warp', 'fused_applicable',
+    'index_to_flow', 'match_argmax',
     'match_argmax_plain', 'match_to_pre_offsets', 'modulated_deform_conv',
     'modulated_deform_conv_windowed',
     'modulated_deform_conv_windowed_chunked', 'nearest_up', 'patch_match',

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 SOURCES = ('patch_match', 'deform_conv', 'deform_conv_backward',
-           'dcn_window', 'conv_epilogue')
+           'deform_conv_fused', 'dcn_window', 'conv_epilogue')
 
 _libs = {}
 _lock = threading.Lock()

@@ -12,6 +12,16 @@ contraction with the weight is one ``torch.matmul``. On a CPU tensor
 package's ``_mdc_reference_single``; on a CUDA tensor it launches the
 kernel or raises.
 
+Where no graph is recorded (serving, the test runner, validation,
+``torch.export``) and the shape is one the fused kernel takes
+(``fused_applicable``: 3x3 taps, stride 1, dilation 1, any padding, a
+group width of whole 16-byte vectors), the forward is one launch over the
+batch of ``deform_conv_fused`` (``csrc/deform_conv_fused.cu``), which
+samples into shared memory and contracts there on the tensor cores: no
+columns in device memory, no upcast, no ``torch.matmul``, no per-image
+loop. Every other shape, and every forward under autograd, takes the
+columns.
+
 The gradient is the ``torch.autograd.Function`` ``_ModulatedDeformConv``
 over the whole op of a batch. Its backward computes the offset and mask
 gradients, and grad_x when autograd asks for it, for every image in one
@@ -41,7 +51,7 @@ f32 when x is bf16; the columns are stored in x's dtype, and the
 contraction takes bf16 columns and weights with f32 accumulation.
 """
 import ctypes
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +69,10 @@ _BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
                       + [ctypes.c_void_p])
 _BACKWARD_ENTRY = {torch.float32: 'c2m_mdc_backward_f32',
                    torch.bfloat16: 'c2m_mdc_backward_bf16'}
+_FUSED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
+                   + [ctypes.c_void_p])
+_FUSED_ENTRY = {torch.float32: 'c2m_mdc_fused_f32',
+                torch.bfloat16: 'c2m_mdc_fused_bf16'}
 # the backward kernel takes groups of at most this many channels, and
 # grad_out rows of at most this many (its tile of them in shared memory)
 BACKWARD_MAX_GROUP = 64
@@ -573,15 +587,17 @@ def split_backward(launch, x, offset, mask, grad_out, w_kc, conv,
     return grad_x, grad_offset, grad_mask
 
 
-def _mdc_forward(x, offset, mask, w_kc, bias, conv, kept=None):
-    """B3's columns per image times w_kc (``torch.matmul``), plus the bias:
-    (B, Ho, Wo, Co) f32. Each image's f32 columns are appended to ``kept``
-    when it is a list, and otherwise freed before the next image's."""
+def _mdc_forward(x, offset, mask, w_kc, bias, conv, kept=None,
+                 im2col=deform_im2col):
+    """B3's columns per image (``im2col``) times w_kc (``torch.matmul``),
+    plus the bias: (B, Ho, Wo, Co) f32. Each image's f32 columns are
+    appended to ``kept`` when it is a list, and otherwise freed before the
+    next image's."""
     b = x.shape[0]
     _, ho, wo, _, _, _ = offset.shape
     outs = []
     for i in range(b):
-        col = deform_im2col(x[i], offset[i], mask[i], *conv).float()
+        col = im2col(x[i], offset[i], mask[i], *conv).float()
         outs.append(torch.matmul(col, w_kc))
         if kept is not None:
             kept.append(col)
@@ -590,6 +606,158 @@ def _mdc_forward(x, offset, mask, w_kc, bias, conv, kept=None):
     if bias is not None:
         out = out + bias
     return out
+
+
+def fused_applicable(x, offset, kernel_size=(3, 3), stride=(1, 1),
+                     dilation=(1, 1)):
+    """Whether ``deform_conv_fused`` takes this shape: 3x3 taps, stride 1,
+    dilation 1 (any padding, a band's negative top padding included), x
+    float32 or bfloat16 with a group width of whole 16-byte vectors (4 f32
+    or 8 bf16 channels). Decided from shapes alone, before any launch."""
+    if x.dtype not in _FUSED_ENTRY:
+        return False
+    if (list(_pair(kernel_size)) != [3, 3] or list(_pair(stride)) != [1, 1]
+            or list(_pair(dilation)) != [1, 1]):
+        return False
+    c, g = x.shape[-1], offset.shape[3]
+    vector = 16 // x.element_size()
+    return c % g == 0 and (c // g) % vector == 0
+
+
+def deform_conv_fused_plain(x, offset, mask, w_kc, bias=None,
+                            kernel_size=(3, 3), stride=(1, 1),
+                            padding=(1, 1), dilation=(1, 1)):
+    """Plain version of ``deform_conv_fused``: the columns path's
+    arithmetic with ``deform_im2col_plain`` for B3 (the columns per image
+    in x's dtype, taken to f32, times w_kc by ``torch.matmul``, stacked,
+    plus the bias)."""
+    return _mdc_forward(x, offset, mask, w_kc, bias,
+                        (kernel_size, stride, padding, dilation),
+                        im2col=deform_im2col_plain)
+
+
+def deform_conv_fused(x, offset, mask, w_kc, bias=None, kernel_size=(3, 3),
+                      stride=(1, 1), padding=(1, 1), dilation=(1, 1)):
+    """The forward of the batched deformable conv without a graph:
+    ``out[b, p] = cols_b[p] @ w_kc + bias``, (B, Ho, Wo, Co) f32.
+
+    Args:
+        x: (B, H, W, C) float32 or bfloat16, NHWC.
+        offset: (B, Ho, Wo, G, K, 2) float32; mask: (B, Ho, Wo, G, K)
+            float32.
+        w_kc: (K*C, Co) float32, rounded to x's dtype where x is bf16.
+        bias: (Co,) float32 or None.
+
+    Calls the registered operator ``torch.ops.c2matching.deform_conv_fused``:
+    on a CPU tensor the plain version, on a CUDA tensor one launch of the
+    fused kernel over the batch (or a refusal, for a shape outside
+    ``fused_applicable``); ``deform_conv_fused.launches`` counts them.
+    """
+    _device(x, 'deform_conv_fused')
+    return torch.ops.c2matching.deform_conv_fused(
+        x, offset, mask, w_kc, bias, _pair(kernel_size), _pair(stride),
+        _pair(padding), _pair(dilation))
+
+
+deform_conv_fused.launches = 0
+
+
+@torch.library.custom_op('c2matching::deform_conv_fused', mutates_args=())
+def _deform_conv_fused_op(x: torch.Tensor, offset: torch.Tensor,
+                          mask: torch.Tensor, w_kc: torch.Tensor,
+                          bias: Optional[torch.Tensor],
+                          kernel_size: List[int], stride: List[int],
+                          padding: List[int],
+                          dilation: List[int]) -> torch.Tensor:
+    """The operator behind ``deform_conv_fused``."""
+    if _device(x, 'deform_conv_fused') == 'cpu':
+        _fused_check(x, offset, mask, w_kc, bias, kernel_size, stride,
+                     dilation, kernel=False)
+        return deform_conv_fused_plain(x, offset, mask, w_kc, bias,
+                                       kernel_size, stride, padding,
+                                       dilation)
+    _fused_check(x, offset, mask, w_kc, bias, kernel_size, stride, dilation)
+    b, h, w, c = x.shape
+    _, ho, wo, g, _, _ = offset.shape
+    co = w_kc.shape[1]
+    # the kernel reads x in 16-byte vectors and the offsets in pairs: a view
+    # that starts off those boundaries is copied to storage of its own
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    offset = offset.contiguous()
+    if offset.data_ptr() % 8:
+        offset = offset.clone()
+    mask = mask.contiguous()
+    w_kc = w_kc.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    out = torch.empty((b, ho, wo, co), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernel('deform_conv_fused', _FUSED_ENTRY[x.dtype],
+                      _FUSED_ARGTYPES)(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            w_kc.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), b, h, w, c, ho, wo, g, *kernel_size, *stride,
+            *padding, *dilation, co, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f'deform_conv_fused kernel launch failed: CUDA '
+                           f'error {err}')
+    deform_conv_fused.launches += 1
+    return out
+
+
+@_deform_conv_fused_op.register_fake
+def _(x, offset, mask, w_kc, bias, kernel_size, stride, padding, dilation):
+    _fused_check(x, offset, mask, w_kc, bias, kernel_size, stride, dilation,
+                 kernel=x.device.type == 'cuda')
+    b, ho, wo = offset.shape[:3]
+    return x.new_empty((b, ho, wo, w_kc.shape[1]), dtype=torch.float32)
+
+
+def _fused_check(x, offset, mask, w_kc, bias, kernel_size, stride, dilation,
+                 kernel=True):
+    """Refuse what the operator does not take (``kernel``: what the kernel
+    does not take too)."""
+    if x.dim() != 4 or offset.dim() != 6 or mask.dim() != 5:
+        raise ValueError('deform_conv_fused takes a batch: x (B, H, W, C), '
+                         'offset (B, Ho, Wo, G, K, 2), mask (B, Ho, Wo, G, '
+                         'K)')
+    b, _, _, c = x.shape
+    _, _, _, g, k, _ = offset.shape
+    if (offset.shape[0] != b or offset.shape[:5] != mask.shape
+            or offset.shape[-1] != 2):
+        raise ValueError(f'x {tuple(x.shape)}, offset {tuple(offset.shape)} '
+                         f'and mask {tuple(mask.shape)} do not pair')
+    if w_kc.dim() != 2 or w_kc.shape[0] != k * c:
+        raise ValueError(f'w_kc {tuple(w_kc.shape)} is not (K*C, Co) with '
+                         f'K*C = {k * c}')
+    if bias is not None and tuple(bias.shape) != (w_kc.shape[1],):
+        raise ValueError(f'bias {tuple(bias.shape)} is not '
+                         f'({w_kc.shape[1]},)')
+    if c % g:
+        raise ValueError('channels must divide into the deformable groups')
+    kh, kw = kernel_size
+    if kh * kw != k:
+        raise ValueError(f'kernel_size {kh}x{kw} does not give {k} taps')
+    if not kernel:
+        return
+    if x.dtype not in _FUSED_ENTRY:
+        raise TypeError(f'deform_conv_fused: x must be float32 or bfloat16, '
+                        f'got {x.dtype}')
+    if any(t is not None and t.dtype != torch.float32
+           for t in (offset, mask, w_kc, bias)):
+        raise TypeError('deform_conv_fused: offset, mask, w_kc and bias '
+                        'must be float32')
+    if any(t is not None and t.device != x.device
+           for t in (offset, mask, w_kc, bias)):
+        raise ValueError('deform_conv_fused: tensors lie on different '
+                         'devices')
+    if not fused_applicable(x, offset, kernel_size, stride, dilation):
+        raise ValueError(f'deform_conv_fused: the kernel takes 3x3 taps at '
+                         f'stride 1 and dilation 1 with groups of whole '
+                         f'16-byte vectors, got kernel {list(kernel_size)}, '
+                         f'stride {list(stride)}, dilation {list(dilation)}, '
+                         f'{c // g} channels a group of {x.dtype}')
 
 
 class _ModulatedDeformConv(torch.autograd.Function):
@@ -645,25 +813,29 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None,
         bias:   (Cout,) or None.
 
     Returns:
-        (B, Ho, Wo, Cout) float32. The columns are formed one image at a
-        time. With grad enabled, differentiable in every argument through
-        ``_ModulatedDeformConv``: one launch of B3's backward kernel gives
-        the x, offset and mask gradients of the whole batch. Under
-        ``no_grad`` / ``inference_mode`` the forward runs alone.
+        (B, Ho, Wo, Cout) float32. With grad enabled, differentiable in
+        every argument through ``_ModulatedDeformConv``, whose forward
+        forms the columns one image at a time: one launch of B3's backward
+        kernel gives the x, offset and mask gradients of the whole batch.
+        Under ``no_grad`` / ``inference_mode`` the forward runs alone: one
+        ``deform_conv_fused`` over the batch where ``fused_applicable``
+        holds, else the columns.
     """
     _, _, _, c = x.shape
     _, _, _, _, k, _ = offset.shape
     co = weight.shape[-1]
     # bf16 columns meet bf16-rounded weights; products accumulate in f32
     w_kc = weight.reshape(k * c, co).to(x.dtype).float()
-    args = (x, offset.float(), mask.float(), w_kc,
-            None if bias is None else bias.float(),
-            (kernel_size, stride, padding, dilation))
+    offset, mask = offset.float(), mask.float()
+    bias = None if bias is None else bias.float()
+    conv = (kernel_size, stride, padding, dilation)
     if not torch.is_grad_enabled():
         # no graph to record: the forward alone, which torch.export traces
         # as the operators it calls
-        return _mdc_forward(*args)
-    return _ModulatedDeformConv.apply(*args)
+        if fused_applicable(x, offset, kernel_size, stride, dilation):
+            return deform_conv_fused(x, offset, mask, w_kc, bias, *conv)
+        return _mdc_forward(x, offset, mask, w_kc, bias, conv)
+    return _ModulatedDeformConv.apply(x, offset, mask, w_kc, bias, conv)
 
 
 def deform_conv(x, offset, weight, bias=None, kernel_size=(3, 3),

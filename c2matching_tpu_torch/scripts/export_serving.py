@@ -19,8 +19,8 @@ Inputs of the exported program, all float32 NHWC in [0, 1]:
 
 Output: (B, H, W, 3), the x4 restoration. The two kernels of the path
 are the registered operators ``c2matching::match_argmax`` (B1) and
-``c2matching::deform_im2col`` (B3), so loading needs the package's ops
-module and no model code:
+``c2matching::deform_conv_fused`` (the DynAggs' fused forward), so loading
+needs the package's ops module and no model code:
 
     import torch, c2matching_tpu_torch.ops   # registers the operators
     program = torch.export.load(path)

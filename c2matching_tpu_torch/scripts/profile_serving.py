@@ -13,8 +13,9 @@ own shape), and prints one JSON line:
 Timing (``utils/prof.py``): on the card, CUDA events around each call;
 ``fetch_overhead_ms`` is the same protocol's time for a one-element op,
 and ``*_ms_net`` subtracts it. ``--cost`` counts each stage's FLOPs with
-``torch.utils.flop_counter.FlopCounterMode`` (B1 as 2 B Nq Nr D; B3's
-im2col as 0, its contraction being the ``torch.matmul`` that follows) and
+``torch.utils.flop_counter.FlopCounterMode`` (B1 as 2 B Nq Nr D; the
+fused deformable conv as 2 B Ho Wo K C Co, its contraction; B3's im2col as
+0, its contraction being the ``torch.matmul`` that follows) and
 adds ``<stage>_gflops`` and ``<stage>_tflops_per_s``, and counts each
 stage's bytes with ``utils/prof.py::ByteCounter`` for ``<stage>_hbm_gb``
 and ``<stage>_hbm_gb_per_s`` (the JAX version's names). The count is the
@@ -51,6 +52,11 @@ def _b3_flops(*args, out_shape=None, **kwargs):
     return 0
 
 
+def _b3f_flops(x, offset, mask, w_kc, *args, out_shape=None, **kwargs):
+    b, ho, wo = offset[:3]
+    return 2 * b * ho * wo * w_kc[0] * w_kc[1]
+
+
 class _TotalOnly:
     """FlopCounterMode's module tracker reduced to the total: the tracker's
     hooks on module inputs break ``torch.autograd.grad`` through a module
@@ -66,12 +72,14 @@ class _TotalOnly:
 
 def count_gflops(fn, *args):
     """GFLOPs of ``fn(*args)`` by ``FlopCounterMode``, with the two
-    operators' formulas: B1 2 B Nq Nr D, B3's im2col 0 (its contraction is
-    the ``torch.matmul`` that follows)."""
+    operators' formulas: B1 2 B Nq Nr D, the fused deformable conv
+    2 B Ho Wo K C Co, B3's im2col 0 (its contraction is the
+    ``torch.matmul`` that follows)."""
     from torch.utils.flop_counter import FlopCounterMode
     counter = FlopCounterMode(display=False, custom_mapping={
         torch.ops.c2matching.match_argmax: _b1_flops,
-        torch.ops.c2matching.deform_im2col: _b3_flops})
+        torch.ops.c2matching.deform_im2col: _b3_flops,
+        torch.ops.c2matching.deform_conv_fused: _b3f_flops})
     counter.mod_tracker = _TotalOnly()
     with counter:
         fn(*args)

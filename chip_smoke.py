@@ -26,6 +26,18 @@ Phases:
      pass 2^31 elements (64-bit index math; its first and last rows
      against the plain version) and the large-offset probe, which must
      give exact zeros.
+  3b. b3f: the fused forward (deform_conv_fused: sampling and contraction in
+     one launch over the batch) at the three DynAgg shapes at batch 1 and 16,
+     f32 and bf16, against the columns route on the card (B3, torch.matmul,
+     stack, bias; within 2e-5 of the output's largest) and the plain version,
+     timed beside both (library_ms: the columns route) and its bound; at batch
+     16 both against an f64 contraction of the same columns; a band's padding
+     (its rows bit for bit the whole image's), odd shapes (a ragged last tile,
+     C off the stage depth, Co odd and past 128, one vector a group), x and the
+     offsets as views off the 16-byte boundary, the large-offset probe (the
+     output equals the bias), shapes outside fused_applicable (the columns, no
+     fused launch, the operator refuses them) and a bf16 image past 2^31 values
+     (64-bit indices). The kernels line's entry is batch 16.
   4. b2: the window-contraction kernel of the windowed deformable conv in
      image mode (window_conv: it reads x at each window's origin) against
      its plain version and, bit for bit, against rows mode (window_contract
@@ -55,7 +67,8 @@ Phases:
      16 blocks, 8 groups; random weights from a seeded generator) in the
      f32 config and the serving config (bf16 gathers and match operands),
      over requests of CUFED5 size, each at its own shape; the launch
-     counters must rise on this path; a small request must agree with the
+     counters must rise on this path (the DynAggs: 3 fused launches a
+     request, no B3 launch); a small request must agree with the
      same nets run on the CPU, where the plain versions run. One more
      HR 512x336 request per config records every kernel's inputs: B1 must
      get the request's (vh-2)(vw-2) = 10332 query and ref rows, no
@@ -63,7 +76,8 @@ Phases:
   7. path: each kernel against its plain version on exactly the tensors
      the main path gave it (B1 at 10332 x 10332 x 2304: the request's
      exact descriptor grid, no ref_bias; B3 at the 128x84, 256x168 and
-     512x336 DynAggs of the request), in both configs; then the
+     512x336 DynAggs of the request, and the fused forward on the
+     DynAggs' arguments), in both configs; then the
      windowed op, which no model calls, on the relu1 (blk 4) and relu2
      (blk 2) DynAggs' own tensors:
      the branch it takes, B2 in image mode against its plain version and
@@ -133,7 +147,8 @@ Phases:
      stages in a chain: 2 G-pretrain and 3 GAN iterations, the
      launch counters at 0 before the run. Checks the losses are finite,
      every LR group and D moved, B3's forward and backward launched (the
-     backward once per DynAgg and iteration: 3); prints
+     backward once per DynAgg and iteration: 3; the fused forward never
+     in an iteration); prints
      ms per pretrain and GAN iteration (host clock around a synchronised
      optimize_parameters), peak memory and launches per iteration, then a
      torch.profiler breakdown of one more GAN iteration by kernel, and the
@@ -177,8 +192,9 @@ Phases:
      1e-4, the saved PNGs (rank 0 alone saves) within one uint8 step, the
      averages within 1e-3 dB (SSIM_Y 1e-5) on both ranks; every image
      split into bands (the CUFED-shaped pair's 85 LR rows into 42 and
-     43); B1 once and B3 three times an image on each rank, the last
-     image's B1 and B3 operands at the band's arguments held against
+     43); B1 once and the fused forward three times an image on each
+     rank, the last image's B1, B3 and fused operands at the band's
+     arguments held against
      their plain versions; per rank ms an image, peak memory, halo
      exchanges and gathers with their bytes (both ranks share the card:
      not a scaling number). Per
@@ -220,8 +236,9 @@ Phases:
      *_gflops. One JSON line of the phase's numbers.
  16. extras: the off-path pieces. DCNSep (groups 8, a random
      conv_offset_mask) at the DynAgg widths at HR 512x384 (relu1
-     512x384x64, relu2 256x192x128, relu3 128x96x256): one B3 launch a
-     forward, B3's columns against deform_im2col_plain, the module's
+     512x384x64, relu2 256x192x128, relu3 128x96x256): one fused launch
+     a forward and no B3 launch, B3's columns on the module's offsets
+     against deform_im2col_plain, the module's
      output against the same module on the CPU; module, B3, plain and
      grid_sample times beside B3's bound. DCNSep forward and backward at
      batch 9 at the training shapes (160x160x64, 80x80x128, 40x40x256):
@@ -236,7 +253,8 @@ Phases:
      (model_type SRModel) on a net of the ported blocks at nf 64 (conv,
      two spectral-norm residual blocks, a DCN, two BN residual blocks in
      eval, Upsample(4)): test_x8 at LR 120x80, batch 2, against the CPU,
-     8 x batch B3 launches; one optimize_parameters step against the CPU
+     8 fused launches (one a transform) and no B3 launch; one
+     optimize_parameters step against the CPU
      (logs and gradients). TextureLoss (use_weights), MapLoss,
      PerceptualLossMultiInputs, MaskedTVLoss and deform_psroi_pooling at
      batch 9, gt 160, against the CPU, each one's ms. One JSON line of the
@@ -255,8 +273,10 @@ Phases:
      torch.profiler (end-to-end images/s, the device's busy share); batch
      16 at HR 512x336, full width, in the serving and f32 configs:
      profile_serving's stage times, net images/s, peak memory and the
-     launch counts; one serving forward at batch 16 whose B1 launch (the
-     whole batch) and B3 launches (48, one flush) are held against their
+     launch counts (3 fused launches a forward, no B3); one serving
+     forward at batch 16 whose B1 launch (the whole batch), whose fused
+     DynAgg launches (against the columns route) and B3 on its arguments
+     (48, one flush) are held against their
      plain versions (B1 image by image) and timed beside their library
      calls and bounds; a torch.profiler trace of it in the serving config
      (top kernels, busy share); the host's cost of a call through
@@ -819,6 +839,313 @@ def phase_b3(check, dev):
               f'b3 large-offset probe {name}: output equals the bias')
 
 
+# ------------------------------------------------------------- B3 fused
+B3F_REL = 2e-5       # |kernel - columns path| of the output, of its largest
+                     # magnitude: the same columns (bit for bit in bf16, the
+                     # kernel's arithmetic is B3's), contracted in another
+                     # order, as 3xTF32 in f32 (~2^-22 a product, ~1e-6 of
+                     # the output over 2304-deep sums)
+B3F_BATCHES = (1, 16)  # a request alone, and the serving batch
+
+
+def _fused_inputs(gen, dev, batch, h, w, c, dtype, co=None):
+    """x (B, H, W, C), DynAgg-structured offsets and mask, w_kc (9C, Co)
+    rounded to x's dtype as modulated_deform_conv rounds it, and a bias."""
+    co = c if co is None else co
+    x, offset, mask = zip(*(_dcn_inputs(gen, dev, h, w, c, dtype)
+                            for _ in range(batch)))
+    weight = torch.empty(9 * c, co, device=dev).uniform_(
+        -1, 1, generator=gen) / math.sqrt(9 * c)
+    bias = torch.randn(co, generator=gen, device=dev)
+    return (torch.stack(x), torch.stack(offset), torch.stack(mask),
+            weight.to(dtype).float(), bias)
+
+
+def _fused_route(x, offset, mask, w_kc, bias, **conv):
+    """The columns route on the card (what the no-grad path ran before the
+    fused kernel): B3 per image, its columns to f32, torch.matmul, the
+    stack and the bias add."""
+    dc = importlib.import_module('c2matching_tpu_torch.ops.deform_conv')
+    conv = tuple(conv.get(k, d) for k, d in (
+        ('kernel_size', (3, 3)), ('stride', (1, 1)), ('padding', (1, 1)),
+        ('dilation', (1, 1))))
+    return dc._mdc_forward(x, offset, mask, w_kc, bias, conv)
+
+
+def _fused_compare(check, x, offset, mask, w_kc, bias, label, plain=True,
+                   **conv):
+    """The fused kernel against the columns route on the card (within
+    B3F_REL of its largest magnitude) and, with ``plain``, against the
+    plain version (f32: the same gate; bf16: B3's columns against the
+    plain columns differ by a bf16 rounding where the f32 value lies
+    within an ulp of a tie, so the gate adds one bf16 ulp of the largest
+    column times the largest weight a flipped column can move an output
+    by, 2^-8 x 2 x that). Returns the largest difference from the route,
+    of its largest magnitude."""
+    from c2matching_tpu_torch.ops import (deform_conv_fused,
+                                          deform_conv_fused_plain)
+    launches = deform_conv_fused.launches
+    got = deform_conv_fused(x, offset, mask, w_kc, bias, **conv)
+    torch.cuda.synchronize()
+    check(deform_conv_fused.launches == launches + 1,
+          f'b3f {label}: one launch for the batch')
+    want = _fused_route(x, offset, mask, w_kc, bias, **conv)
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / max(scale, 1e-30)
+    check(rel <= B3F_REL and bool(torch.isfinite(got).all()),
+          f'b3f {label}: kernel vs the columns route {rel:.3g} <= '
+          f'{B3F_REL:g} of the output\'s largest {scale:.3g}')
+    del want
+    if plain:
+        want = deform_conv_fused_plain(x, offset, mask, w_kc, bias, **conv)
+        err = (got - want).abs().max().item()
+        tol = B3F_REL * want.abs().max().item()
+        if x.dtype == torch.bfloat16:
+            tol += 2 * 2 ** -8 * x.float().abs().max().item() * \
+                w_kc.abs().max().item()
+        check(err <= tol, f'b3f {label}: kernel vs plain max |diff| '
+              f'{err:.3g} <= {tol:.3g}')
+        del want
+    del got
+    torch.cuda.empty_cache()
+    return rel
+
+
+def _fused_bound(x, offset, mask, w_kc, bias):
+    """(ms, what bounds it) of one fused call: the largest of x, the
+    offsets, the mask, the weight and bias read once and the output written
+    once; the contraction on the tensor cores in bf16, or as three TF32
+    products for an f32 x; B3's sampling, B3_OPS_PER_COL a column value, on
+    the SIMT f32 pipes."""
+    b, ho, wo = offset.shape[:3]
+    co = w_kc.shape[1]
+    moved = (nbytes(x, offset, mask, w_kc) + co * 4 * (bias is not None)
+             + b * ho * wo * co * 4)
+    cols = b * ho * wo * w_kc.shape[0]
+    ops = 2 * cols * co
+    ms, by = (bound(moved, B1_TF32_PRODUCTS * ops, 'tf32')
+              if x.dtype == torch.float32 else bound(moved, ops, x.dtype))
+    simt_ms = 1e3 * B3_OPS_PER_COL * cols / PEAK_FLOPS[torch.float32]
+    return (simt_ms, 'SIMT operations') if simt_ms > ms else (ms, by)
+
+
+def _fused_measure(x, offset, mask, w_kc, bias, plain=True):
+    """(kernel ms, plain ms or None, columns route ms) of one call."""
+    from c2matching_tpu_torch.ops import (deform_conv_fused,
+                                          deform_conv_fused_plain)
+    ms = cuda_ms(lambda: deform_conv_fused(x, offset, mask, w_kc, bias))
+    plain_ms = (cuda_ms(lambda: deform_conv_fused_plain(
+        x, offset, mask, w_kc, bias), min_ms=1.0) if plain else None)
+    route_ms = cuda_ms(lambda: _fused_route(x, offset, mask, w_kc, bias))
+    torch.cuda.empty_cache()
+    return ms, plain_ms, route_ms
+
+
+def _fused_f64(check, x, offset, mask, w_kc, bias, label, card):
+    """The kernel's and the columns route's error against the same columns
+    (B3's, bit for bit the kernel's samples) contracted in f64, of the
+    reference's largest magnitude: in f32 the route is IEEE f32
+    (torch.matmul without TF32), so a kernel error at the route's level
+    shows 3xTF32 as an f32 contraction. Returns (kernel, route)."""
+    from c2matching_tpu_torch.ops import deform_conv_fused, deform_im2col
+    got = deform_conv_fused(x, offset, mask, w_kc, bias)
+    route = _fused_route(x, offset, mask, w_kc, bias)
+    w64 = w_kc.double()
+    k_err = r_err = scale = 0.0
+    for i in range(x.shape[0]):
+        ref = deform_im2col(x[i], offset[i], mask[i]).double() @ w64
+        if bias is not None:
+            ref += bias.double()
+        ref = ref.reshape(got.shape[1:])
+        scale = max(scale, ref.abs().max().item())
+        k_err = max(k_err, (got[i].double() - ref).abs().max().item())
+        r_err = max(r_err, (route[i].double() - ref).abs().max().item())
+        del ref
+    k_rel, r_rel = k_err / max(scale, 1e-30), r_err / max(scale, 1e-30)
+    print(f'b3f {label}: against an f64 contraction of the same columns, '
+          f'kernel {k_rel:.3g}, columns route (torch.matmul, TF32 off) '
+          f'{r_rel:.3g} of its largest {scale:.3g} ({card})', flush=True)
+    check(k_rel <= B3F_REL, f'b3f {label}: kernel vs f64 {k_rel:.3g} <= '
+          f'{B3F_REL:g}')
+    del got, route
+    torch.cuda.empty_cache()
+    return k_rel, r_rel
+
+
+def _fused_band_probe(check, gen, dev, dtype):
+    """A band's arguments (the lower half of each DynAgg image: Ho = H / 2
+    at padding (1 - H / 2, 1), the whole x): the kernel's output rows bit
+    for bit those of the whole image's output."""
+    from c2matching_tpu_torch.ops import deform_conv_fused
+    name = str(dtype).replace('torch.', '')
+    for layer, h, w, c in DCN_SHAPES:
+        x, offset, mask, w_kc, bias = _fused_inputs(gen, dev, 2, h, w, c,
+                                                    dtype)
+        row0 = h // 2
+        pad = (1 - row0, 1)
+        whole = deform_conv_fused(x, offset, mask, w_kc, bias)[:, row0:]
+        band = deform_conv_fused(x, offset[:, row0:].contiguous(),
+                                 mask[:, row0:].contiguous(), w_kc, bias,
+                                 padding=pad)
+        check(torch.equal(band, whole), f'b3f band probe {layer} {h}x{w}x{c} '
+              f'{name}, rows {row0}-{h - 1} at padding {pad}: bit for bit '
+              'the whole image\'s rows')
+        _fused_compare(check, x, offset[:, row0:].contiguous(),
+                       mask[:, row0:].contiguous(), w_kc, bias,
+                       f'band {layer} {name} padding {pad}', padding=pad)
+        del x, offset, mask, whole, band
+        torch.cuda.empty_cache()
+
+
+def phase_b3f(check, dev, report, card):
+    """The fused forward (deform_conv_fused) at the three DynAgg shapes at
+    batch 1 and 16, f32 and bf16: against the columns route and the plain
+    version, timed beside them and its bound; at batch 16 it and the route
+    against an f64 contraction of the same columns; a band's padding; odd
+    shapes (a ragged last tile, C off the stage depth, Co off the tiles and
+    odd, a group of one vector); views off the 16-byte boundary; the
+    large-offset probe; an image past 2^31 values (the 64-bit
+    instantiation); shapes outside fused_applicable,
+    which modulated_deform_conv sends to the columns without a fused
+    launch and the operator refuses on the card."""
+    from c2matching_tpu_torch.ops import (deform_conv_fused, deform_im2col,
+                                          fused_applicable,
+                                          modulated_deform_conv)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace('torch.', '')
+        entry, f64 = {}, {}
+        for batch in B3F_BATCHES:
+            tot = dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms'),
+                                0.0)
+            worst, bound_by = 0.0, set()
+            for layer, h, w, c in DCN_SHAPES:
+                args = _fused_inputs(gen, dev, batch, h, w, c, dtype)
+                label = f'{layer} batch {batch} {h}x{w}x{c} {name}'
+                worst = max(worst, _fused_compare(check, *args, label))
+                ms, plain_ms, route_ms = _fused_measure(*args)
+                b_ms, b_by = _fused_bound(*args)
+                print(f'b3f {label}: kernel {ms:.3f} ms, plain '
+                      f'{plain_ms:.3f} ms, columns route (B3 + torch.matmul)'
+                      f' {route_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} '
+                      f'({card})', flush=True)
+                if batch == SERVE_BATCH:
+                    f64[layer] = _fused_f64(check, *args, label, card)
+                tot['ms'] += ms
+                tot['plain_ms'] += plain_ms
+                tot['library_ms'] += route_ms
+                tot['bound_ms'] += b_ms
+                bound_by.add(b_by)
+                del args
+                torch.cuda.empty_cache()
+            b_ms, b_by = tot['bound_ms'], ' and '.join(sorted(bound_by))
+            print(f'b3f batch {batch} {name}: the three DynAggs {tot["ms"]:.3f}'
+                  f' ms against the columns route {tot["library_ms"]:.3f} ms, '
+                  f'bound {b_ms:.3f} ms by {b_by} ({100 * b_ms / tot["ms"]:.1f}'
+                  f'% of it) ({card})', flush=True)
+            entry[batch] = {'ms': tot['ms'], 'plain_ms': tot['plain_ms'],
+                            'library_ms': tot['library_ms'],
+                            'bound_ms': b_ms, 'bound_by': b_by,
+                            'max_rel_err': worst}
+        # the kernels line: the serving batch, every time measured there
+        report[f'b3f_{name}'] = dict(entry[SERVE_BATCH], batch1=entry[1],
+                                     f64_rel=f64)
+
+        _fused_band_probe(check, gen, dev, dtype)
+        vector = 16 // torch.tensor([], dtype=dtype).element_size()
+        # odd shapes: a ragged last tile (3 x 37 x 29 pixels), C off the
+        # stage depth, Co odd and off the 64-wide tiles, Co past 128, one
+        # vector a group
+        for b, h, w, c, g, co in ((3, 37, 29, 8 * vector, 8, 33),
+                                  (2, 20, 24, 5 * vector, 1, 200),
+                                  (1, 9, 70, 24 * vector, 8, 64)):
+            x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+            offset = (4 * torch.randn(b, h, w, g, 9, 2, generator=gen,
+                                      device=dev)).contiguous()
+            mask = torch.rand(b, h, w, g, 9, generator=gen, device=dev)
+            w_kc = (torch.randn(9 * c, co, generator=gen, device=dev)
+                    / math.sqrt(9 * c)).to(dtype).float()
+            bias = torch.randn(co, generator=gen, device=dev)
+            _fused_compare(check, x, offset, mask, w_kc, bias,
+                           f'odd B {b} {h}x{w}x{c} G {g} Co {co} {name}')
+            _fused_compare(check, x, offset, mask, w_kc, None,
+                           f'odd B {b} {h}x{w}x{c} G {g} Co {co} {name} no '
+                           'bias', padding=(2, 0))
+
+        # x and the offsets one element into their storage: the operator
+        # copies them to aligned storage, the output bit for bit
+        x, offset, mask, w_kc, bias = _fused_inputs(gen, dev, 2, 40, 36, 64,
+                                                    dtype)
+        xs = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:]
+        xs = xs.view(x.shape).copy_(x)
+        offs = torch.empty(offset.numel() + 1, device=dev)[1:]
+        offs = offs.view(offset.shape).copy_(offset)
+        check(bool(xs.data_ptr() % 16 and offs.data_ptr() % 8)
+              and torch.equal(deform_conv_fused(xs, offs, mask, w_kc, bias),
+                              deform_conv_fused(x, offset, mask, w_kc, bias)),
+              f'b3f unaligned views {name}: bit for bit the aligned call')
+        del x, offset, mask, xs, offs
+
+        # large offsets: every tap out of the image -> the output is the bias
+        layer, h, w, c = DCN_SHAPES[0]
+        x, offset, mask, w_kc, bias = _fused_inputs(gen, dev, 2, h, w, c,
+                                                    dtype)
+        big = torch.tensor([1e4, -1e4, 1e6, -3e7, float('nan')], device=dev)
+        offset = big[torch.randint(0, 5, offset.shape, generator=gen,
+                                   device=dev)]
+        out = deform_conv_fused(x, offset, mask, w_kc, bias)
+        check(torch.equal(out, bias.expand_as(out)),
+              f'b3f large-offset probe {name}: output equals the bias')
+        del x, offset, mask, out
+
+        # outside fused_applicable: the columns, no fused launch; the
+        # operator refuses them on the card
+        x = torch.randn(1, 16, 16, 8 * vector, generator=gen,
+                        device=dev).to(dtype)
+        for k, stride, g, what in ((5, 1, 8, '5x5 taps'),
+                                   (3, 2, 8, 'stride 2'),
+                                   (3, 1, 16, 'a group of half a vector')):
+            ho = (16 + 2 - k) // stride + 1
+            offset = torch.randn(1, ho, ho, g, k * k, 2, generator=gen,
+                                 device=dev)
+            mask = torch.rand(1, ho, ho, g, k * k, generator=gen, device=dev)
+            weight = torch.randn(k * k, x.shape[-1], 16, generator=gen,
+                                 device=dev)
+            conv = {'kernel_size': (k, k), 'stride': (stride, stride)}
+            before = (deform_conv_fused.launches, deform_im2col.launches)
+            with torch.no_grad():
+                out = modulated_deform_conv(x, offset, mask, weight, **conv)
+            check(not fused_applicable(x, offset, **conv)
+                  and deform_conv_fused.launches == before[0]
+                  and deform_im2col.launches == before[1] + 1,
+                  f'b3f {what} {name}: the columns, no fused launch')
+            try:
+                deform_conv_fused(x, offset, mask, weight.reshape(-1, 16)
+                                  .to(dtype).float(), None, **conv)
+                refused = False
+            except ValueError:
+                refused = True
+            check(refused, f'b3f {what} {name}: the operator refuses it')
+            del offset, mask, weight, out
+        torch.cuda.empty_cache()
+
+    # 64-bit indices: x past 2^31 values, a few output pixels sampling its
+    # far rows; against the columns route (B3 takes 64-bit there too)
+    h, w, c = 1 << 14, 1 << 14, 8
+    x = torch.randn(1, h, w, c, generator=gen, device=dev).to(torch.bfloat16)
+    offset = torch.rand(1, 16, 16, 1, 9, 2, generator=gen, device=dev)
+    offset[..., 0] *= h - 40
+    offset[..., 1] *= w - 40
+    mask = torch.rand(1, 16, 16, 1, 9, generator=gen, device=dev)
+    w_kc = (torch.randn(9 * c, 64, generator=gen, device=dev)
+            / 8).to(torch.bfloat16).float()
+    _fused_compare(check, x, offset, mask, w_kc, None,
+                   f'wide {h}x{w}x{c} bfloat16 ({x.numel() / 2 ** 31:.2f} x '
+                   '2^31 values)', plain=False)
+    del x
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------- B2
 def _b2_window(x, offset, mask, blk, win):
     """The windowed op's own prep for one image: the image-mode arguments
@@ -1304,8 +1631,8 @@ def _record_kernel_inputs():
 def phase_main(check, dev, report, card, recorded):
     from c2matching_tpu_torch.models import RefRestorationModel
     from c2matching_tpu_torch.models.archs.arch_util import Conv2d
-    from c2matching_tpu_torch.ops import (conv_epilogue, deform_im2col,
-                                          match_argmax)
+    from c2matching_tpu_torch.ops import (conv_epilogue, deform_conv_fused,
+                                          deform_im2col, match_argmax)
     gen = torch.Generator(device=dev).manual_seed(3)
     requests = [_request(gen, dev, *hw) for hw in REQUESTS]
     for cfg, blocks in (('f32', F32_BLOCKS), ('serving', SERVING_BLOCKS)):
@@ -1313,7 +1640,7 @@ def phase_main(check, dev, report, card, recorded):
                                     torch.Generator().manual_seed(0))
         _serve(model, requests[0])   # warm-up: cuDNN plans, allocator
         match_argmax.launches = 0
-        deform_im2col.launches = 0
+        deform_im2col.launches = deform_conv_fused.launches = 0
         conv_epilogue.launches = 0
         fused, graph = Conv2d.fused_epilogues, Conv2d.graph_epilogues
         times = []
@@ -1324,7 +1651,16 @@ def phase_main(check, dev, report, card, recorded):
             times.append(time.perf_counter() - t0)
         launches = {'match_argmax': match_argmax.launches,
                     'deform_im2col': deform_im2col.launches,
+                    'deform_conv_fused': deform_conv_fused.launches,
                     'conv_epilogue': conv_epilogue.launches}
+        # the DynAggs of a request without a graph: one fused launch each,
+        # no columns
+        check(launches['deform_conv_fused'] == 3 * len(requests)
+              and launches['deform_im2col'] == 0,
+              f'main {cfg}: deform_conv_fused launched '
+              f'{launches["deform_conv_fused"]} times (3 a request over '
+              f'{len(requests)}), deform_im2col {launches["deform_im2col"]} '
+              '(none)')
         check(conv_epilogue.launches == Conv2d.fused_epilogues - fused
               and Conv2d.graph_epilogues == graph,
               f'main {cfg}: the conv epilogue launched once a conv '
@@ -1338,8 +1674,9 @@ def phase_main(check, dev, report, card, recorded):
                   f'({card})', flush=True)
         print(f'main {cfg}: {len(times) / sum(times):.3f} images/s over '
               f'{len(times)} requests at batch 1 ({card})', flush=True)
-        for name, n in launches.items():
-            check(n > 0, f'main {cfg}: {name} launched {n} times')
+        for name in ('match_argmax', 'conv_epilogue'):
+            check(launches[name] > 0,
+                  f'main {cfg}: {name} launched {launches[name]} times')
         stages = _stage_ms(model, requests[0])
         print(f'main {cfg} HR {REQUESTS[0][0]}x{REQUESTS[0][1]} device ms by '
               'net: ' + ', '.join(f'{k} {v:.2f}' for k, v in stages.items())
@@ -1379,6 +1716,8 @@ def phase_path(check, report, recorded, card):
     for cfg, dtype in (('f32', torch.float32), ('serving', torch.bfloat16)):
         name = str(dtype).replace('torch.', '')
         seen = recorded.pop(cfg)
+        report[f'path_b3f_{name}'] = _path_fused(check, seen['b3'], name,
+                                                 card)
         # the request's one image
         seen['b3'] = [(x[0], offset[0], mask[0], weight, bias)
                       for x, offset, mask, weight, bias in seen['b3']]
@@ -1449,6 +1788,30 @@ def phase_path(check, report, recorded, card):
                                               card)
         del seen
         torch.cuda.empty_cache()
+
+
+def _path_fused(check, dcns, name, card, where='main path', plain=True):
+    """The fused kernel on the very arguments the main path's DynAggs
+    handed modulated_deform_conv, as it rounds and reshapes them: against
+    the columns route and (with ``plain``) the plain version, and timed."""
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    worst = 0.0
+    for x, offset, mask, weight, bias in dcns:
+        k, c, co = weight.shape
+        w_kc = weight.reshape(k * c, co).to(x.dtype).float()
+        args = (x, offset.float().contiguous(), mask.float().contiguous(),
+                w_kc, None if bias is None else bias.float())
+        label = '{} {}x{}x{}x{} {}'.format(where, *x.shape, name)
+        worst = max(worst, _fused_compare(check, *args, label, plain=plain))
+        ms, plain_ms, route_ms = _fused_measure(*args, plain=plain)
+        print(f'b3f {label}: kernel {ms:.3f} ms, plain '
+              + (f'{plain_ms:.3f} ms' if plain else 'not timed')
+              + f', columns route {route_ms:.3f} ms ({card})', flush=True)
+        total['ms'] += ms
+        total['plain_ms'] += plain_ms or 0.0
+        total['library_ms'] += route_ms
+    return dict(total, plain_ms=total['plain_ms'] if plain else None,
+                max_rel_err=worst)
 
 
 def _path_windowed(check, dcns, cfg, name, card):
@@ -1651,7 +2014,7 @@ def _eval_tf32(run, path, out_root):
 def phase_eval(check, card):
     import os
     import tempfile
-    from c2matching_tpu_torch.ops import deform_im2col, match_argmax
+    from c2matching_tpu_torch.ops import deform_conv_fused, match_argmax
     from c2matching_tpu_torch.test import run
     with tempfile.TemporaryDirectory(prefix='chip_smoke_eval_') as root:
         _eval_data(root)
@@ -1665,7 +2028,7 @@ def phase_eval(check, card):
             os.environ['C2MATCHING_ROOT'] = f'{root}/out_{cfg}_warm'
             run(path)                      # warm-up: cuDNN plans, allocator
             match_argmax.launches = 0
-            deform_im2col.launches = 0
+            deform_conv_fused.launches = 0
             with _timed_validation() as times:
                 for i in range(EVAL_PASSES):
                     # a results tree of its own per pass: the runner archives
@@ -1673,7 +2036,7 @@ def phase_eval(check, card):
                     os.environ['C2MATCHING_ROOT'] = f'{root}/out_{cfg}_{i}'
                     results[cfg] = run(path)
             launches = {'match_argmax': match_argmax.launches,
-                        'deform_im2col': deform_im2col.launches}
+                        'deform_conv_fused': deform_conv_fused.launches}
             for name, count in launches.items():
                 check(count > 0, f'eval {cfg}: {name} launched {count} times '
                       'by the test runner')
@@ -2451,8 +2814,10 @@ def _timed_iterations():
     from c2matching_tpu_torch.models.ref_restoration_model import \
         RefRestorationModel
     from c2matching_tpu_torch.ops import (deform_conv_backward,
-                                          deform_im2col, match_argmax)
-    counters = (deform_im2col, deform_conv_backward, match_argmax)
+                                          deform_conv_fused, deform_im2col,
+                                          match_argmax)
+    counters = (deform_im2col, deform_conv_backward, match_argmax,
+                deform_conv_fused)
     rec = {'iters': [], 'first': None}
     real = RefRestorationModel.optimize_parameters
 
@@ -2529,11 +2894,15 @@ def phase_train(check, dev, report, card, chain_root):
               and all(math.isfinite(v) for v in logs.values()),
               f'train iteration {it["step"]} ({kind}): finite losses '
               + ', '.join(f'{k} {logs[k]:.5g}' for k in keys if k in logs))
-        n_im2col, n_bwd, n_match = it['launches']
+        n_im2col, n_bwd, n_match, n_fused = it['launches']
         print(f'train iteration {it["step"]} ({kind}): {1e3 * it["s"]:.1f} ms'
               f' (host clock, synchronised), launches: deform_im2col '
               f'{n_im2col}, deform_conv_backward {n_bwd}, match_argmax '
-              f'{n_match} ({card})', flush=True)
+              f'{n_match}, deform_conv_fused {n_fused} ({card})', flush=True)
+        # a training step's DynAggs record a graph: the columns, never the
+        # fused forward
+        check(n_fused == 0, f'train iteration {it["step"]}: '
+              f'deform_conv_fused launched {n_fused} times (none)')
         # one backward launch per DynAgg covers the batch of 9
         check(n_bwd == len(TRAIN_B3), f'train iteration {it["step"]}: '
               f'deform_conv_backward launched {n_bwd} times (one per '
@@ -3224,7 +3593,7 @@ def match_rec(q, r, ref_bias=None):
     return match(q, r, ref_bias)
 
 def mdc_rec(x, offset, mask, weight, bias=None, **conv):
-    last.setdefault('b3', []).append((x, offset, mask, conv))
+    last.setdefault('b3', []).append((x, offset, mask, weight, bias, conv))
     return mdc(x, offset, mask, weight, bias, **conv)
 
 RefRestorationModel._validation_images = timed
@@ -3233,7 +3602,7 @@ pm.match_argmax, ra.modulated_deform_conv = match_rec, mdc_rec
 spatial.reset_stats()
 results = test.main(sys.argv[1:])
 launches = {k: getattr(ops, k).launches
-            for k in ('match_argmax', 'deform_im2col')}
+            for k in ('match_argmax', 'deform_conv_fused')}
 stats = dict(spatial.stats)
 rank = int(os.environ.get('RANK', 0))
 check = cs.Checks()
@@ -3242,11 +3611,14 @@ with torch.inference_mode():
         q, r, bias = last['b1']
         cs._b1_compare(check, q, r, bias, f'spatial rank {rank} band '
                        f'{tuple(q.shape)} x {tuple(r.shape)}')
-    for x, offset, mask, conv in last.get('b3', []):
-        cs._b3_compare(check, x[0], offset[0], mask[0], f'spatial rank '
-                       f'{rank} band {tuple(offset.shape[1:3])} of '
-                       f'{tuple(x.shape[1:])} padding {conv["padding"]}',
-                       **conv)
+    for x, offset, mask, weight, bias, conv in last.get('b3', []):
+        label = (f'spatial rank {rank} band {tuple(offset.shape[1:3])} of '
+                 f'{tuple(x.shape[1:])} padding {conv["padding"]}')
+        cs._b3_compare(check, x[0], offset[0], mask[0], label, **conv)
+        k, c, co = weight.shape
+        cs._fused_compare(check, x, offset, mask,
+                          weight.reshape(k * c, co).to(x.dtype).float(),
+                          bias, label, **conv)
 torch.save(outputs, os.environ['CHIP_SMOKE_OUT'] + f'/outputs.rank{rank}.pt')
 print(json.dumps({
     'rank': rank, 'world': int(os.environ.get('WORLD_SIZE', 1)),
@@ -3377,8 +3749,8 @@ def _spatial_line(what, r, card):
                       for k, v in sorted(r['ms'].items()))
     print(f'{what}, rank {r["rank"]}: ms an image (median of the set; host '
           f'clock, synchronised) {times}; peak {r["peak_gib"]:.2f} GiB; '
-          f'launches B1 {r["launches"]["match_argmax"]}, B3 '
-          f'{r["launches"]["deform_im2col"]} over {n_img} images; highest '
+          f'launches B1 {r["launches"]["match_argmax"]}, B3F '
+          f'{r["launches"]["deform_conv_fused"]} over {n_img} images; highest '
           'above its entry: ' + ', '.join(
               f'{name} {shape} {gib:.2f} GiB (output {out:.3f})'
               for name, shape, gib, out in r['peak_modules'][:1])
@@ -3439,10 +3811,10 @@ def phase_spatial(check, dev, card):
                   f'{r["backend"]}, rank {r["rank"]}: every image split into '
                   f'bands (LR rows a band: {r["bands"]})')
             check(r['launches']['match_argmax'] == n_img
-                  and r['launches']['deform_im2col'] == 3 * n_img,
+                  and r['launches']['deform_conv_fused'] == 3 * n_img,
                   f'spatial rank {r["rank"]}: B1 launched '
-                  f'{r["launches"]["match_argmax"]} times, B3 '
-                  f'{r["launches"]["deform_im2col"]} over {n_img} images '
+                  f'{r["launches"]["match_argmax"]} times, B3F '
+                  f'{r["launches"]["deform_conv_fused"]} over {n_img} images '
                   f'(1 and 3 an image)')
             _spatial_line('spatial, 2 ranks sharing one card over gloo (not '
                           'a scaling number: both ranks share the card)', r,
@@ -3450,7 +3822,7 @@ def phase_spatial(check, dev, card):
         _spatial_line('spatial, one process (the option has no effect)',
                       one, card)
         check(one['launches']['match_argmax'] == n_img
-              and one['launches']['deform_im2col'] == 3 * n_img
+              and one['launches']['deform_conv_fused'] == 3 * n_img
               and one['stats']['halo_exchanges'] == 0,
               f'spatial one process: launches {one["launches"]}, no '
               'exchange')
@@ -4088,7 +4460,8 @@ def _extras_forward(check, dev, card):
     8): B3's columns against deform_im2col_plain, the module's output
     against the same module on the CPU, one B3 launch a forward; module,
     B3, plain and grid_sample times beside B3's bound."""
-    from c2matching_tpu_torch.ops import deform_im2col, deform_im2col_plain
+    from c2matching_tpu_torch.ops import (deform_conv_fused, deform_im2col,
+                                          deform_im2col_plain)
     gen = torch.Generator().manual_seed(21)
     out = {}
     for layer, h, w, c in EXTRAS_FWD:
@@ -4100,13 +4473,14 @@ def _extras_forward(check, dev, card):
             want = module(x, extra)
             module.to(dev)
             xd, ed = x.to(dev), extra.to(dev)
-            deform_im2col.launches = 0
+            deform_im2col.launches = deform_conv_fused.launches = 0
             got = module(xd, ed)
-            launches = deform_im2col.launches
+            launches = deform_conv_fused.launches
+            columns = deform_im2col.launches
             offset, mask = module.offset_mask(ed)
             offset, mask = offset[0].contiguous(), mask[0].contiguous()
-        check(launches == 1, f'{label}: B3 launched {launches} time(s), 1 '
-              'expected')
+        check(launches == 1 and columns == 0, f'{label}: the fused kernel '
+              f'launched {launches} time(s), B3 {columns}; 1 and 0 expected')
         err = _b3_compare(check, xd[0], offset, mask, label)
         rel = _rel_err(got, want)
         check(rel <= EXTRAS_CPU_REL, f'{label}: card vs CPU output '
@@ -4305,7 +4679,8 @@ def _extras_sr(check, dev, card):
     against the CPU (8 x batch B3 launches), and one optimize_parameters
     step card vs CPU (the logs and every gradient)."""
     from c2matching_tpu_torch.models import create_model
-    from c2matching_tpu_torch.ops import deform_conv_backward, deform_im2col
+    from c2matching_tpu_torch.ops import (deform_conv_backward,
+                                          deform_conv_fused, deform_im2col)
     _extras_sr_arch()
     gen = torch.Generator().manual_seed(24)
     h, w = EXTRAS_SR_LR
@@ -4317,13 +4692,13 @@ def _extras_sr(check, dev, card):
     for where in ('cpu', dev):
         model = create_model(opt, device=where)
         model.feed_data({'img_in_lq': lq})
-        deform_im2col.launches = 0
+        deform_im2col.launches = deform_conv_fused.launches = 0
         model.test_x8()
-        launches = deform_im2col.launches
+        launches = (deform_conv_fused.launches, deform_im2col.launches)
         outs.append(model.output.cpu())
-    want_launches = 8 * EXTRAS_SR_BATCH
-    check(launches == want_launches, f'extras SRModel.test_x8: B3 launched '
-          f'{launches} times, {want_launches} expected (8 x batch)')
+    check(launches == (8, 0), f'extras SRModel.test_x8: the fused kernel '
+          f'and B3 launched {launches} times, (8, 0) expected (a launch a '
+          'transform covers the batch)')
     x8_rel = _rel_err(outs[1], outs[0])
     check(outs[1].shape == (EXTRAS_SR_BATCH, 4 * h, 4 * w, 3)
           and bool(torch.isfinite(outs[1]).all()),
@@ -4512,7 +4887,7 @@ with torch.no_grad():
 torch.save(result.cpu(), out)
 assert not any(m.startswith('c2matching_tpu_torch.models')
                for m in sys.modules)
-print('launches', ops.match_argmax.launches, ops.deform_im2col.launches)
+print('launches', ops.match_argmax.launches, ops.deform_conv_fused.launches)
 '''
 
 
@@ -4722,6 +5097,12 @@ def _serve_flush_kernels(check, seen, cfg, dtype, card):
     check(shapes == sorted((SERVE_BATCH,) + s for s in PATH_B3)
           and all(d[0].dtype == dtype for d in seen['b3']),
           f'serve {cfg}: one flush hands B3 x {shapes} {dtype}')
+    # the fused kernel that serves the flush, on its very arguments
+    b3f = _path_fused(check, seen['b3'], name, card,
+                      where=f'serve batch {SERVE_BATCH}', plain=False)
+    print(f'b3f serve {cfg}: the flush\'s three launches {b3f["ms"]:.3f} ms '
+          f'against the columns route {b3f["library_ms"]:.3f} ms ({card})',
+          flush=True)
     worst, bad, moved, ops, lib_ms = 0.0, 0, 0, 0, 0.0
     for x, offset, mask, _, _ in seen['b3']:
         for i in range(x.shape[0]):
@@ -4775,7 +5156,7 @@ def _serve_flush_kernels(check, seen, cfg, dtype, card):
           f'{b3["bound_by"]} ({card})', flush=True)
     seen['b3'].clear()
     torch.cuda.empty_cache()
-    return b1, b3
+    return b1, b3, b3f
 
 
 def _serve_profile(model, card, top=10):
@@ -4810,7 +5191,8 @@ def _serve_batch(check, dev, report, card):
     serving forward at that batch whose B1 and B3 launches are held
     against their plain versions (and, in the serving config, traced)."""
     from c2matching_tpu_torch.models import RefRestorationModel
-    from c2matching_tpu_torch.ops import deform_im2col, match_argmax
+    from c2matching_tpu_torch.ops import (deform_conv_fused, deform_im2col,
+                                          match_argmax)
     from c2matching_tpu_torch.scripts.profile_serving import profile
     gen = torch.Generator(device=dev).manual_seed(5)
     for cfg, blocks, dtype in (('serving', SERVING_BLOCKS, torch.bfloat16),
@@ -4818,15 +5200,17 @@ def _serve_batch(check, dev, report, card):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         match_argmax.launches = deform_im2col.launches = 0
+        deform_conv_fused.launches = 0
         out = profile(blocks, batch=SERVE_BATCH, iters=SERVE_ITERS,
                       device=dev, hr=SERVE_HR)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        launches = (match_argmax.launches, deform_im2col.launches)
+        launches = (match_argmax.launches, deform_conv_fused.launches,
+                    deform_im2col.launches)
         calls = SERVE_ITERS + 1
-        check(launches == (calls + 1, len(PATH_B3) * SERVE_BATCH * calls),
+        check(launches == (calls + 1, len(PATH_B3) * calls, 0),
               f'serve {cfg} batch {SERVE_BATCH}: match_argmax launched '
-              f'{launches[0]} times (a batch each), deform_im2col '
-              f'{launches[1]} (an image and DynAgg each)')
+              f'{launches[0]} times (a batch each), deform_conv_fused '
+              f'{launches[1]} (a DynAgg each), deform_im2col {launches[2]}')
         check(_finite(out.values()), f'serve {cfg}: profile_serving finite')
         print(f'serve {cfg} batch {SERVE_BATCH} HR {SERVE_HR[0]}x'
               f'{SERVE_HR[1]}, profile_serving: '
@@ -4854,8 +5238,9 @@ def _serve_batch(check, dev, report, card):
         if cfg == 'serving':
             _serve_profile(model, card)
         model.batch = model.output = None
-        b1, b3 = _serve_flush_kernels(check, seen, cfg, dtype, card)
+        b1, b3, b3f = _serve_flush_kernels(check, seen, cfg, dtype, card)
         report[f'serve_b1_{cfg}'], report[f'serve_b3_{cfg}'] = b1, b3
+        report[f'serve_b3f_{cfg}'] = b3f
         del model, seen
         torch.cuda.empty_cache()
 
@@ -4916,10 +5301,12 @@ def _serve_export(check, dev, card, root, pool):
     targets = [str(n.target) for n in program.graph.nodes
                if n.op == 'call_function']
     n_ops = (targets.count('c2matching.match_argmax.default'),
+             targets.count('c2matching.deform_conv_fused.default'),
              targets.count('c2matching.deform_im2col.default'))
-    check(n_ops == (1, len(PATH_B3) * EXPORT_BATCH), f'export: the graph '
-          f'calls c2matching::match_argmax {n_ops[0]} and '
-          f'c2matching::deform_im2col {n_ops[1]} times')
+    check(n_ops == (1, len(PATH_B3), 0), f'export: the graph calls '
+          f'c2matching::match_argmax {n_ops[0]}, '
+          f'c2matching::deform_conv_fused {n_ops[1]} (one a DynAgg for the '
+          f'batch) and c2matching::deform_im2col {n_ops[2]} times')
     del program
     gen = torch.Generator(device=dev).manual_seed(9)
     reqs = [_request(gen, dev, *SERVE_HR) for _ in range(EXPORT_BATCH)]
@@ -4947,7 +5334,7 @@ def _serve_export(check, dev, card, root, pool):
         counts = [line.split()[1:] for line in proc.stdout.splitlines()
                   if line.startswith('launches')]
         check(bool(counts) and all(int(n) > 0 for n in counts[-1]),
-              f'export: the loaded program launched B1 and B3 {counts}')
+              f'export: the loaded program launched B1 and B3F {counts}')
         loaded = torch.load(f'{root}/loaded.pt')
         err = (loaded - direct).abs().max().item()
         check(tuple(loaded.shape) == (EXPORT_BATCH,) + SERVE_HR + (3,)
@@ -5072,6 +5459,7 @@ def main():
         for name, fn in (
                 ('b1', lambda: phase_b1(check, dev)),
                 ('b3', lambda: phase_b3(check, dev)),
+                ('b3f', lambda: phase_b3f(check, dev, report, card)),
                 ('b2', lambda: phase_b2(check, dev, card)),
                 ('epilogue', lambda: phase_epilogue(check, dev, report)),
                 ('main', lambda: phase_main(check, dev, report, card,
@@ -5114,6 +5502,9 @@ def main():
              'c2matching_tpu/ops/pallas/patch_match_kernel.py:81'),
             ('deform_im2col', 'b3', 'c2matching_tpu_torch/csrc/deform_conv.cu',
              'c2matching_tpu/ops/deform_conv.py:214'),
+            ('deform_conv_fused', 'b3f',
+             'c2matching_tpu_torch/csrc/deform_conv_fused.cu',
+             'c2matching_tpu/ops/deform_conv.py:214 with its contraction'),
             ('window_contract', 'b2',
              'c2matching_tpu_torch/csrc/dcn_window.cu',
              'c2matching_tpu/ops/pallas/dcn_window_kernel.py:125'),

@@ -136,8 +136,10 @@ def test_exported_graph_calls_the_operators(exported):
     targets = [str(n.target) for n in program.graph.nodes
                if n.op == 'call_function']
     assert targets.count('c2matching.match_argmax.default') == 1
-    # 2 images x 3 DynAggs, no autograd.Function in the graph
-    assert targets.count('c2matching.deform_im2col.default') == 6
+    # one fused call a DynAgg for the batch, no columns and no
+    # autograd.Function in the graph
+    assert targets.count('c2matching.deform_conv_fused.default') == 3
+    assert targets.count('c2matching.deform_im2col.default') == 0
 
 
 def test_artifact_loads_without_model_code(exported):

@@ -118,6 +118,21 @@ def test_flop_count_of_the_operators():
         torch.rand(6, 5, 8, 9)) == 0
 
 
+def test_flop_count_of_the_fused_operator():
+    """The fused deformable conv counts its contraction, 2 B Ho Wo K C Co,
+    as the columns path counts its torch.matmul."""
+    from c2matching_tpu_torch.ops import deform_conv_fused
+    x, offset = torch.rand(2, 6, 5, 16), torch.rand(2, 4, 5, 2, 9, 2)
+    mask, w_kc = torch.rand(2, 4, 5, 2, 9), torch.rand(9 * 16, 24)
+    want = 2 * 2 * 4 * 5 * 9 * 16 * 24 / 1e9
+    assert profile_serving.count_gflops(
+        deform_conv_fused, x, offset, mask, w_kc, torch.rand(24), (3, 3),
+        (1, 1), (0, 1)) == pytest.approx(want)
+    assert profile_serving.count_gflops(
+        torch.ops.c2matching.deform_conv_fused, x, offset, mask, w_kc, None,
+        [3, 3], [1, 1], [0, 1], [1, 1]) == pytest.approx(want)
+
+
 @pytest.mark.parametrize('argv', [['--stage', '1'], ['--stage', '2'],
                                   ['--stage', '3'],
                                   ['--stage', '3', '--pretrain', '--f32',

@@ -66,6 +66,7 @@ class _OpCount(TorchDispatchMode):
 
 
 IM2COL = torch.ops.c2matching.deform_im2col.default
+FUSED = torch.ops.c2matching.deform_conv_fused.default
 CONV = torch.ops.aten.convolution.default
 
 
@@ -123,11 +124,13 @@ def test_remat_operator_counts(remat_runs):
     """Per GAN step: 'none' runs B3 once an image and DynAgg (2 x 3) and
     each conv once; 'dcn_rows' keeps B3's columns and recomputes the rest
     of G's forward (its convs twice); 'dots' keeps the convs and matrix
-    products and recomputes B3."""
+    products and recomputes B3. G's forward without a graph takes the
+    fused forward once a DynAgg for the batch, and no B3."""
     none, dcn_rows, dots = (remat_runs[p][2] for p in ('none', 'dcn_rows',
                                                       'dots'))
     g_forward = remat_runs['none'][3]
-    assert none[IM2COL] == g_forward[IM2COL] == 2 * 3
+    assert none[IM2COL] == 2 * 3 and none[FUSED] == 0
+    assert g_forward[FUSED] == 3 and g_forward[IM2COL] == 0
     assert dcn_rows[IM2COL] <= none[IM2COL]
     assert dots[IM2COL] == 2 * none[IM2COL]
     # the recompute stops after the last operator whose output the
